@@ -1,0 +1,77 @@
+"""Builds the port's CUDA kernels at first use and loads them with ctypes.
+
+Each `csrc/<name>.cu` compiles with nvcc into a shared library with a
+plain C interface, `build/hugs_tpu_torch/<name>-<hash>.so` under the
+repository root, keyed on a hash of the source and the flags; a library
+that is already there is reused. There is no fallback: a missing nvcc or
+a failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "hugs_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+build_logs: dict[str, str] = {}   # nvcc's output (ptxas -v) per source
+
+
+def nvcc() -> str:
+    """Path of nvcc: on PATH, else under CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if path.is_file():
+        return str(path)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{key[:16]}.so"
+
+
+def build(names) -> dict[str, Path]:
+    """Compile every named source that is not built yet, one nvcc process
+    per source, all started together. Returns {name: library path}."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {name: library_path(name) for name in names}
+    procs = {}
+    for name, path in paths.items():
+        if path.exists():
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp)
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        out, _ = proc.communicate()
+        build_logs[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
+        else:
+            os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library of csrc/<name>.cu, building it if needed."""
+    if name not in _loaded:
+        _loaded[name] = ctypes.CDLL(str(build([name])[name]))
+    return _loaded[name]

@@ -1,0 +1,181 @@
+"""Public rendering API.
+
+`render` takes flat Gaussian attributes and a camera and returns
+{render, radii, visibility_filter, overflowed, n_instances, n_slots};
+`render_human_scene` merges the human and scene Gaussian sets, human
+first, into one depth-sorted blend (the ml-hugs gs_renderer contract).
+
+Backends: 'tiled' (default) bins into 16x16 tiles and blends through
+cuda_blend.blend_tiles, which launches the CUDA kernel for CUDA tensors
+and runs the plain PyTorch blend for CPU tensors; 'oracle' is the dense
+reference. Inputs may carry an `alive` capacity mask; culled or dead
+Gaussians render with radius 0.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from hugs_tpu_torch.render import cuda_blend
+from hugs_tpu_torch.render.camera import Camera
+from hugs_tpu_torch.render.oracle import render_oracle
+from hugs_tpu_torch.render.project import project_gaussians, update_mean2d
+from hugs_tpu_torch.render.tiles import TILE, bin_gaussians
+
+
+def render(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    rotq: torch.Tensor,
+    opacity: torch.Tensor,
+    shs: torch.Tensor,
+    camera: Camera,
+    width: int,
+    height: int,
+    bg: torch.Tensor | None = None,
+    active_sh_degree: torch.Tensor | int = 0,
+    scaling_modifier: float = 1.0,
+    alive: torch.Tensor | None = None,
+    mean2d_grad_hook: torch.Tensor | None = None,
+    backend: str = "tiled",
+    instance_budget: int | None = None,
+    gauss_mesh=None,
+    gauss_frag_cap: int | None = None,
+) -> dict[str, Any]:
+    """Render one view. Returns a dict with 'render' (3, H, W), 'radii'
+    (N,), 'visibility_filter' (N,) bool, and the binning diagnostics
+    'overflowed' (() bool), 'n_instances' and 'n_slots' (() int).
+
+    mean2d_grad_hook: an (N, 2) zero tensor added to the projected means;
+    d(loss)/d(hook) is the pixel-space mean2d gradient.
+    instance_budget: the binning's slot budget (default max(4N, 65536)).
+    gauss_mesh / gauss_frag_cap: the Gaussian-sharded renderer, not
+    ported yet."""
+    if gauss_mesh is not None or gauss_frag_cap is not None:
+        raise NotImplementedError(
+            "the Gaussian-sharded renderer comes with the scale-out slice")
+    dev = means3d.device
+    if bg is None:
+        bg = torch.zeros(3, dtype=torch.float32, device=dev)
+    pg = project_gaussians(means3d, scales, rotq, opacity, shs, camera,
+                           width, height, active_sh_degree, scaling_modifier,
+                           alive=alive)
+    if mean2d_grad_hook is not None:
+        pg = update_mean2d(pg, mean2d_grad_hook)
+
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    n_instances = n_slots = zero
+    if backend == "oracle":
+        img = render_oracle(pg, width, height, bg).permute(2, 0, 1)
+        overflowed = torch.zeros((), dtype=torch.bool, device=dev)
+    elif backend == "tiled":
+        budget = instance_budget or max(4 * means3d.shape[0], 1 << 16)
+        bins = bin_gaussians(pg, width, height, budget, TILE)
+        img = cuda_blend.blend_tiles(pg, bins, width, height, bg, TILE)
+        overflowed = bins.overflowed
+        n_instances = bins.n_instances
+        n_slots = bins.n_slots
+    else:
+        raise ValueError(f"unknown backend: {backend}")
+
+    return {
+        "render": img,
+        "radii": pg.radius,
+        "visibility_filter": pg.mask & (pg.radius > 0),
+        "overflowed": overflowed,
+        "n_instances": n_instances,
+        "n_slots": n_slots,
+    }
+
+
+def render_human_scene(
+    data: dict[str, Any],
+    human_gs_out: dict[str, Any] | None,
+    scene_gs_out: dict[str, Any] | None,
+    bg_color: torch.Tensor,
+    human_bg_color: torch.Tensor | None = None,
+    scaling_modifier: float = 1.0,
+    render_mode: str = "human_scene",
+    render_human_separate: bool = False,
+    backend: str = "tiled",
+    **render_kw,
+) -> dict[str, Any]:
+    """Merged human+scene rendering. `data` carries the camera and image
+    size: {'camera': Camera, 'width': int, 'height': int}; the Gaussian
+    sets are the dicts scene_forward (and, later, human_forward) return.
+    """
+    camera: Camera = data["camera"]
+    width, height = data["width"], data["height"]
+    keys = ("xyz", "scales", "rotq", "shs", "opacity")
+
+    if render_mode == "human_scene":
+        attrs = {k: torch.cat([human_gs_out[k], scene_gs_out[k]], dim=0)
+                 for k in keys}
+        alive = None
+        if "alive" in human_gs_out or "alive" in scene_gs_out:
+            def alive_of(out):
+                return out.get("alive", torch.ones(
+                    out["xyz"].shape[0], dtype=torch.bool,
+                    device=out["xyz"].device))
+            alive = torch.cat([alive_of(human_gs_out),
+                               alive_of(scene_gs_out)])
+        sh_deg = human_gs_out["active_sh_degree"]
+    elif render_mode == "human":
+        attrs = {k: human_gs_out[k] for k in keys}
+        alive = human_gs_out.get("alive")
+        sh_deg = human_gs_out["active_sh_degree"]
+    elif render_mode == "scene":
+        attrs = {k: scene_gs_out[k] for k in keys}
+        alive = scene_gs_out.get("alive")
+        sh_deg = scene_gs_out["active_sh_degree"]
+    else:
+        raise ValueError(f"Unknown render mode: {render_mode}")
+
+    pkg = render(attrs["xyz"], attrs["scales"], attrs["rotq"],
+                 attrs["opacity"], attrs["shs"], camera, width, height,
+                 bg=bg_color, active_sh_degree=sh_deg,
+                 scaling_modifier=scaling_modifier, alive=alive,
+                 backend=backend, **render_kw)
+
+    if render_human_separate and render_mode == "human_scene":
+        # the densification hook is sized for the merged set, and the
+        # viewspace gradients come from the main pass only
+        sep_kw = {k: v for k, v in render_kw.items()
+                  if k != "mean2d_grad_hook"}
+        if sep_kw.get("instance_budget"):
+            sep_kw["instance_budget"] = max(
+                4096, sep_kw["instance_budget"] // 2)
+        hpkg = render(human_gs_out["xyz"], human_gs_out["scales"],
+                      human_gs_out["rotq"], human_gs_out["opacity"],
+                      human_gs_out["shs"], camera, width, height,
+                      bg=(human_bg_color if human_bg_color is not None
+                          else bg_color),
+                      active_sh_degree=human_gs_out["active_sh_degree"],
+                      scaling_modifier=scaling_modifier,
+                      alive=human_gs_out.get("alive"),
+                      backend=backend, **sep_kw)
+        pkg["human_img"] = hpkg["render"]
+        pkg["human_visibility_filter"] = hpkg["visibility_filter"]
+        pkg["human_radii"] = hpkg["radii"]
+        # an overflowing human pass triggers the same grow-and-retry;
+        # 2x its demand, since its budget is half the merged one
+        pkg["overflowed"] = pkg["overflowed"] | hpkg["overflowed"]
+        pkg["n_instances"] = torch.maximum(pkg["n_instances"],
+                                           2 * hpkg["n_instances"])
+        pkg["n_slots"] = torch.maximum(pkg["n_slots"], 2 * hpkg["n_slots"])
+
+    if render_mode == "human":
+        pkg["human_visibility_filter"] = pkg["visibility_filter"]
+        pkg["human_radii"] = pkg["radii"]
+    elif render_mode == "human_scene":
+        n_h = human_gs_out["xyz"].shape[0]
+        pkg["scene_visibility_filter"] = pkg["visibility_filter"][n_h:]
+        pkg["scene_radii"] = pkg["radii"][n_h:]
+        if "human_visibility_filter" not in pkg:
+            pkg["human_visibility_filter"] = pkg["visibility_filter"][:n_h]
+            pkg["human_radii"] = pkg["radii"][:n_h]
+    elif render_mode == "scene":
+        pkg["scene_visibility_filter"] = pkg["visibility_filter"]
+        pkg["scene_radii"] = pkg["radii"]
+    return pkg

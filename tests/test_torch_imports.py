@@ -1,0 +1,107 @@
+"""The port stands alone: hugs_tpu_torch and chip_smoke.py import neither
+jax nor hugs_tpu, and the kernel's launcher takes CUDA tensors only."""
+import ast
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import hugs_tpu_torch
+from hugs_tpu_torch import build
+from hugs_tpu_torch.render import cuda_blend
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "hugs_tpu")
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        hugs_tpu_torch.__path__, "hugs_tpu_torch."))
+
+
+def test_import_leaves_jax_and_hugs_tpu_out():
+    """Import every module of the port in a fresh interpreter in which
+    importing jax or hugs_tpu raises, whatever the interpreter loaded at
+    start-up."""
+    code = f"""
+import sys
+sys.path.insert(0, {REPO!r})
+FORBIDDEN = {FORBIDDEN!r}
+def forbidden(name):
+    return name.split(".")[0] in FORBIDDEN
+for name in [m for m in sys.modules if forbidden(m)]:
+    del sys.modules[name]
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if forbidden(name):
+            raise ImportError("the port imported " + name)
+sys.meta_path.insert(0, Block())
+import importlib
+for name in {_port_modules()!r}:
+    importlib.import_module(name)
+left = sorted(m for m in sys.modules if forbidden(m))
+assert not left, left
+print("ok", len({_port_modules()!r}))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def _imported_names(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def _port_sources():
+    root = os.path.join(REPO, "hugs_tpu_torch")
+    for dirpath, _, files in os.walk(root):
+        yield from (os.path.join(dirpath, f) for f in files
+                    if f.endswith(".py"))
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_sources_name_no_jax_or_hugs_tpu():
+    sources = list(_port_sources())
+    assert len(sources) > 15
+    for path in sources:
+        for name in _imported_names(path):
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+        text = open(path).read()
+        assert not re.search(r"import jax|hugs_tpu\.\w", text), path
+
+
+def test_kernel_launcher_refuses_cpu_tensors():
+    feat = torch.zeros((4, 10))
+    gid = torch.zeros(8, dtype=torch.int32)
+    se = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_blend.blend_fwd(feat, gid, se, se, torch.zeros(3), 16, 16)
+
+
+def test_backward_is_not_ported():
+    with pytest.raises(NotImplementedError, match="K2"):
+        cuda_blend._BlendFwd.backward(None, torch.zeros(3, 16, 16))
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.nvcc()
+
+
+def test_library_path_follows_the_source():
+    path = build.library_path(cuda_blend.SOURCE)
+    assert path.parent == build.BUILD_DIR
+    assert path.name.startswith("blend_fwd-") and path.suffix == ".so"
+    assert path == build.library_path(cuda_blend.SOURCE)

@@ -1,0 +1,81 @@
+"""Shared inputs for the parity tests of hugs_tpu_torch against hugs_tpu.
+
+Inputs are drawn with numpy from a seed and handed to both packages, so
+both see the same bytes."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+W, H = 64, 48
+FOVX, FOVY = 0.9, 0.7
+
+
+def make_scene(n=300, seed=0):
+    """Random Gaussian cloud in front of a camera at the origin looking
+    down +z (the distribution of tests/test_pallas_blend.py)."""
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
+    means[:, 2] = means[:, 2] * 2.0 + 4.0
+    scales = np.exp(rng.normal(size=(n, 3)) * 0.3 - 2.5).astype(np.float32)
+    rotq = rng.normal(size=(n, 4)).astype(np.float32)
+    rotq /= np.linalg.norm(rotq, axis=-1, keepdims=True)
+    opacity = (1.0 / (1.0 + np.exp(-rng.normal(size=n)))).astype(np.float32)
+    shs = (rng.normal(size=(n, 16, 3)) * 0.3).astype(np.float32)
+    return dict(means=means, scales=scales, rotq=rotq, opacity=opacity,
+                shs=shs)
+
+
+def make_saturating_scene(seed=3):
+    """Two depth layers of a dense, near-opaque splat grid over the whole
+    image, so every pixel saturates (T < 1e-4) well before its list
+    ends and the T_EPS indicator decides the result."""
+    rng = np.random.default_rng(seed)
+    gx, gy = np.meshgrid(np.linspace(0.0, W - 1.0, 24),
+                         np.linspace(0.0, H - 1.0, 16))
+    px = np.tile(gx.ravel(), 2)
+    py = np.tile(gy.ravel(), 2)
+    n = px.shape[0]
+    z = np.concatenate([4.0 + rng.uniform(size=n // 2) * 0.2,
+                        6.0 + rng.uniform(size=n // 2) * 0.2])
+    tx, ty = np.tan(FOVX / 2), np.tan(FOVY / 2)
+    mx = z * tx * ((2.0 * px + 1.0) / W - 1.0)
+    my = z * ty * ((2.0 * py + 1.0) / H - 1.0)
+    return dict(
+        means=np.stack([mx, my, z], axis=-1).astype(np.float32),
+        scales=np.full((n, 3), 0.4, np.float32),
+        rotq=np.tile(np.array([1.0, 0, 0, 0], np.float32), (n, 1)),
+        opacity=np.full((n,), 0.97, np.float32),
+        shs=(rng.normal(size=(n, 16, 3)) * 0.3).astype(np.float32))
+
+
+def to_jax(scene):
+    return {k: jnp.asarray(v) for k, v in scene.items()}
+
+
+def to_torch(scene):
+    return {k: torch.as_tensor(v) for k, v in scene.items()}
+
+
+def cameras(R=None, t=None, fovx=FOVX, fovy=FOVY):
+    """The same camera in both packages: (hugs_tpu, hugs_tpu_torch)."""
+    from hugs_tpu.render import make_camera as jax_camera
+    from hugs_tpu_torch.render import make_camera
+    R = np.eye(3, dtype=np.float32) if R is None else R
+    t = np.zeros(3, np.float32) if t is None else t
+    return (jax_camera(jnp.asarray(R), jnp.asarray(t), fovx, fovy),
+            make_camera(R, t, fovx, fovy, device="cpu"))
+
+
+def np_of(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+@pytest.fixture
+def cuda_device():
+    """The first CUDA device; skips the test where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    return torch.device("cuda", 0)
