@@ -1,24 +1,38 @@
 #!/usr/bin/env python3
-"""Drives the hugs_tpu_torch serving render on one NVIDIA GPU.
+"""Drives the hugs_tpu_torch serving render and scene training on one
+NVIDIA GPU.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
-It builds the CUDA kernels from the sources in the checkout, then:
+It builds the CUDA kernels (K1, the forward blend, and K2, its backward)
+from the sources in the checkout, then:
 
   1. setup: TF32 off, the card's name and power limit, the build time;
   2. K1 against its plain PyTorch version at full width (50k Gaussians,
      SH degree 3, 960x540), on the same bins, plus the whole tiled render
      against the dense oracle on two small scenes, one saturated so that
      K1's early exit fires;
+  2b. K2 against its plain version (plain_blend_bwd) on the same bins and
+     K1's outputs, with a random d(loss)/d(image) drawn from a seed;
   3. the serving path through the user's entry points: a PLY of that
      scene -> create_from_ply -> compact -> scene_forward ->
-     render_human_scene(render_mode="scene") for 4 camera views, with
-     the kernel launch counts set to 0 just before and read just after;
-  4. times on the card (CUDA events, median of 20 after warm-up): K1's
-     device time over back-to-back launches and one call's latency, the
-     plain blend, and one request split into project / bin / blend;
-     K1's bound, the least time the card could take for its work; and
-     the device's idle share in a request, from one torch.profiler
-     trace of 5 requests;
+     render_human_scene(render_mode="scene") for 4 camera views;
+  3b. the training path at full width: targets rendered from that scene
+     (bg 0) for the 4 views, a trainee from create_from_pcd of its noisy
+     means (capacity 65,536), 40 scene_train_step calls cycling the
+     views, one_up_sh_degree every 10 steps, scene_densify_step at step
+     20 and an opacity reset at step 35; then K1 and K2 against their
+     plain versions again on the frame step 0 gave them (view 0 at the
+     training budget), K2 with that step's d(loss)/d(raw colour);
+     each path runs with the kernel launch counts set to 0 just before
+     it and read just after;
+  4. times on the card (CUDA events, median of 20 after warm-up): one
+     request split into project / bin / blend, one training step split
+     into forward / loss / backward / Adam + stats, one densify step,
+     the device's idle share from torch.profiler traces of 5 requests
+     and of 3 training steps; then, on both frames, K1's and K2's device
+     time over back-to-back launches, one call's latency, the plain
+     versions' times and each kernel's bound, the least time the card
+     could take for its work;
   5. one JSON line of the kernels; 6. the device line, last.
 
 Any failed phase raises and the script exits non-zero. Without a CUDA
@@ -43,20 +57,58 @@ SEED = 0
 BG = (0.2, 0.3, 0.4)
 REPS = 20
 PROFILED = 5   # requests in the profiler's window
-BACK_TO_BACK = 20   # K1 launches per timed span
+PROFILED_STEPS = 3   # training steps in the profiler's window
+BACK_TO_BACK = 20   # kernel launches per timed span
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 # float operations K1 spends per (pixel, instance) pair it tests, and the
-# extra ones per pair it blends, counted from csrc/blend_fwd.cu
+# extra ones per pair it blends, counted from csrc/blend_fwd.cu; K2
+# recomputes the same alpha per pair the forward tested, then spends 48
+# per pair with alpha > 0 (csrc/blend_bwd.cu) and 9 adds to sum the
+# pair's nine gradients into its instance's
 OPS_TESTED = 22
 OPS_BLENDED = 12
+OPS_BWD_BLENDED = 57
 # K1 holds to its plain version: the two sum log1p(-alpha) in another
 # order, so a pixel at the T_EPS threshold may flip, which moves it by at
 # most 0.99 * 1e-4 times its colour
 PIXEL_ATOL = 2e-5
 MIN_SHARE = 0.9999
 MAX_ABS = 1e-3
+# K2 holds to its plain version per feature column: the sums run in
+# another order, index_add_ adds in an order that is not fixed, and a
+# pair at the T_EPS threshold may flip
+GRAD_ATOL, GRAD_RTOL, GRAD_SHARE, GRAD_REL_NORM = 1e-5, 1e-3, 0.999, 1e-4
+BG_RTOL = 1e-4
+# On the training frame the norm bar is taken against the plain version
+# evaluated in float64, and K2 may be REF64_SLACK times as far from it as
+# the float32 plain version is. There every splat is the same grey on a
+# black background, so d_alpha = g T_i - S / (1 - alpha) cancels down to
+# about g T_fin / (1 - alpha), and float32 rounding in either version is
+# amplified up to T_i / T_fin (1e4); the position and conic-b gradients
+# of its isotropic splats sum to near zero by symmetry
+REF64_SLACK = 2.0
+# the training path
+CAPACITY = 65_536
+STEPS = 40
+SH_EVERY = 10
+DENSIFY_AT = 20
+RESET_AT = 35
+PCD_NOISE = 0.02
+
+
+class SceneLR:
+    """The scene learning rates of hugs_tpu/cfg/config.py:160-173
+    (scene.lr), the values 3DGS trains with."""
+    position_init = 0.00016
+    position_final = 0.0000016
+    position_delay_mult = 0.01
+    position_max_steps = 30_000
+    opacity = 0.05
+    scaling = 0.005
+    rotation = 0.001
+    feature = 0.0025
 
 
 def build_scene(n, seed):
@@ -94,8 +146,8 @@ def saturating_scene(w, h, fovx, fovy, seed):
 
 
 def view(i):
-    """Camera i of the serving run: view 0 looks down +z from the origin,
-    the others turn about y and step sideways."""
+    """Camera i of the serving and training runs: view 0 looks down +z
+    from the origin, the others turn about y and step sideways."""
     a = 0.08 * i * (-1) ** i
     R = np.array([[math.cos(a), 0.0, math.sin(a)], [0.0, 1.0, 0.0],
                   [-math.sin(a), 0.0, math.cos(a)]], np.float32)
@@ -148,6 +200,22 @@ def device_kernels(fn, reps=PROFILED):
     return by_name, n / reps, (last - first) / reps if n else 0.0
 
 
+def print_profile(what, reps, by_kernel, per_call, span_us, smi, top=8):
+    """The profiler's numbers for one window."""
+    busy_ms = sum(by_kernel.values()) / 1e3
+    span_ms = span_us / 1e3
+    if not by_kernel:
+        print(f"# profiler, {what}: no device events; idle share not "
+              f"measured")
+        return
+    print(f"# profiler, {reps} {what}s: {per_call:.1f} device kernels per "
+          f"{what}, busy {busy_ms:.4f} ms of a {span_ms:.4f} ms span (first "
+          f"kernel start to last kernel end): device idle share "
+          f"{(1 - busy_ms / span_ms) * 100:.1f}%  [{smi}]")
+    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"#   {us:9.2f} us  {name[:90]}")
+
+
 def held(name, got, want, atol=PIXEL_ATOL):
     """Share of elements within atol and the max |difference|; raises
     unless the share reaches MIN_SHARE and the max stays under MAX_ABS."""
@@ -161,6 +229,43 @@ def held(name, got, want, atol=PIXEL_ATOL):
     return worst
 
 
+def held_grad(name, got, want, ref64=None):
+    """K2's bar per feature column: the share of entries within
+    GRAD_ATOL + GRAD_RTOL |want| must reach GRAD_SHARE, and
+    ||got - want|| / ||want|| must stay within GRAD_REL_NORM; with ref64
+    (the plain version in float64), ||got - ref64|| / ||ref64|| must stay
+    within GRAD_REL_NORM or REF64_SLACK times ||want - ref64|| / ||ref64||.
+    Prints every column, then raises if one failed. Returns the max
+    |got - want|."""
+    worst, failed = 0.0, []
+    for c in range(want.shape[1]):
+        d = (got[:, c] - want[:, c]).abs()
+        share = float((d <= GRAD_ATOL + GRAD_RTOL * want[:, c].abs())
+                      .float().mean())
+        norm = float(want[:, c].norm())
+        rel = float(d.norm()) / norm if norm > 0 else float(d.norm())
+        worst = max(worst, float(d.max()))
+        line = (f"# {name} column {c}: {share * 100:.4f}% within "
+                f"{GRAD_ATOL} + {GRAD_RTOL} |g|, ||d|| / ||g|| {rel:.3e}, "
+                f"max |d| {float(d.max()):.3e}, max |g| "
+                f"{float(want[:, c].abs().max()):.3e}")
+        bar = GRAD_REL_NORM
+        if ref64 is not None:
+            r = ref64[:, c]
+            nr = float(r.norm())
+            rel = float((got[:, c].double() - r).norm()) / nr
+            plain_rel = float((want[:, c].double() - r).norm()) / nr
+            bar = max(GRAD_REL_NORM, REF64_SLACK * plain_rel)
+            line += (f"; from float64: K2 {rel:.3e}, plain {plain_rel:.3e}"
+                     f" (bar {bar:.3e})")
+        print(line)
+        if share < GRAD_SHARE or rel > bar:
+            failed.append(c)
+    if failed:
+        raise AssertionError(f"{name}: columns {failed} disagree")
+    return worst
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -168,14 +273,22 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from hugs_tpu_torch import build
     from hugs_tpu_torch.models.scene_gs import (
-        compact, create_from_ply, scene_forward,
+        PARAM_FIELDS, compact, create_from_pcd, create_from_ply,
+        one_up_sh_degree, scene_forward,
     )
     from hugs_tpu_torch.render import cuda_blend, make_camera
-    from hugs_tpu_torch.render.blend import gauss_features, plain_blend
-    from hugs_tpu_torch.render.oracle import LOG_TEPS
+    from hugs_tpu_torch.render.blend import (
+        N_FEAT, gauss_features, plain_blend, plain_blend_bwd,
+    )
+    from hugs_tpu_torch.render.oracle import LOG_TEPS, clip01
     from hugs_tpu_torch.render.project import project_gaussians
     from hugs_tpu_torch.render.renderer import render, render_human_scene
     from hugs_tpu_torch.render.tiles import TILE, bin_gaussians, tile_grid
+    from hugs_tpu_torch.train.scene_step import (
+        init_scene_train_state, make_scene_lrs, scene_densify_step,
+        scene_grads, scene_loss, scene_render, scene_train_step,
+        scene_update,
+    )
     from hugs_tpu_torch.utils.ply import save_gaussian_ply
 
     dev = torch.device("cuda", 0)
@@ -191,7 +304,7 @@ def main():
     card = f"{smi} (torch {torch.__version__}, CUDA {torch.version.cuda})"
     print(smi)
     t0 = time.time()
-    build.build([cuda_blend.SOURCE])
+    build.build([cuda_blend.SOURCE, cuda_blend.BWD_SOURCE])   # in parallel
     build_s = time.time() - t0
     print(f"# build: {build_s:.1f} s")
     for name, log in build.build_logs.items():
@@ -213,21 +326,25 @@ def main():
     bg = torch.tensor(BG, device=dev)
     cams = [make_camera(*view(i), 0.9, 0.55, device=dev) for i in range(4)]
 
-    def project(cam, a=attrs, alive=None):
+    def project(cam, a=attrs, alive=None, degree=3):
         return project_gaussians(a["xyz"], a["scales"], a["rotq"],
-                                 a["opacity"], a["shs"], cam, W, H, 3,
+                                 a["opacity"], a["shs"], cam, W, H, degree,
                                  alive=alive)
+
+    def slot_budget(demand):
+        """A budget 15 % over a slot demand, in whole 8192-slot pages."""
+        return -(-(demand * 23 // 20) // 8192) * 8192
 
     # rehearsal: size the budget from every view's slot demand
     demand = max(int(bin_gaussians(project(c), W, H, 4 * N_GAUSS).n_slots)
                  for c in cams)
-    budget = -(-(demand * 23 // 20) // 8192) * 8192
+    budget = slot_budget(demand)
     pg = project(cams[0])
     bins = bin_gaussians(pg, W, H, budget)
     if bool(bins.overflowed):
         raise AssertionError(f"budget {budget} overflowed")
     feat = gauss_features(pg)
-    img_k, logt_k, walked = cuda_blend.blend_fwd(
+    img_k, logt_k, nwalk_k, walked = cuda_blend.blend_fwd(
         feat, bins.gauss_id, bins.starts, bins.ends, bg, W, H)
     img_p, logt_p, pairs = plain_blend(feat, bins.gauss_id, bins.starts,
                                        bins.ends, bg, W, H)
@@ -239,13 +356,29 @@ def main():
           f"(demand {int(bins.n_instances)} before culling, max "
           f"{int(counts.max())} per tile); budget {budget} slots; "
           f"K1 walked {int(walked.sum())}")
-    max_err = held("K1 image vs plain", img_k, img_p)
+    max_err = held("K1 raw image vs plain", img_k, img_p)
     live = logt_p >= LOG_TEPS
     held("K1 log T vs plain (unsaturated pixels)", logt_k[live],
          logt_p[live])
     print(f"# unsaturated pixels: {int(live.sum())} of {W * H}")
     if not bool(torch.isfinite(img_k).all()):
         raise AssertionError("K1 image is not finite")
+
+    def tile_of_pixel(per_tile):
+        """(T,) per-tile values -> (H, W) per pixel."""
+        img = per_tile.reshape(ny, nx).repeat_interleave(TILE, 0) \
+            .repeat_interleave(TILE, 1)
+        return img[:H, :W]
+
+    # K1's per-pixel walk: within its tile's walk, and the instances the
+    # plain blend tests before saturation, up to pairs at the threshold
+    if bool((nwalk_k > tile_of_pixel(walked)).any()):
+        raise AssertionError("a pixel walked past its tile's walk")
+    same = float((nwalk_k.long() == pairs[0]).float().mean())
+    print(f"# K1 n_walked equals the plain blend's tested count on "
+          f"{same * 100:.4f}% of pixels")
+    if same < MIN_SHARE:
+        raise AssertionError("K1's n_walked disagrees with the plain blend")
 
     # the whole tiled render against the dense oracle on small scenes: a
     # slice of this one, and one in which every pixel saturates, so K1's
@@ -266,13 +399,44 @@ def main():
         held(f"render(tiled) vs render(oracle), 64x48 {name}", tiled, oracle)
     pgs = project_gaussians(*args[:6], 64, 48, 3)
     bs = bin_gaussians(pgs, 64, 48, 1 << 16)
-    _, logt_s, walked_s = cuda_blend.blend_fwd(
-        gauss_features(pgs), bs.gauss_id, bs.starts, bs.ends, bg, 64, 48)
+    feat_s = gauss_features(pgs)
+    _, logt_s, nwalk_s, walked_s = cuda_blend.blend_fwd(
+        feat_s, bs.gauss_id, bs.starts, bs.ends, bg, 64, 48)
     listed = int((bs.ends - bs.starts).sum())
     print(f"# saturated scene: K1 walked {int(walked_s.sum())} of {listed} "
           f"instances")
     if not (bool((logt_s < LOG_TEPS).all()) and int(walked_s.sum()) < listed):
         raise AssertionError("K1's early exit did not fire")
+
+    # ---- 2b. K2 against plain at full width, and on the saturated scene
+    rng = np.random.default_rng(SEED + 2)
+    g_raw = torch.as_tensor(rng.normal(size=(3, H, W)).astype(np.float32),
+                            device=dev)
+    gf_k, gb_k = cuda_blend.blend_bwd(feat, bins.gauss_id, bins.starts,
+                                      bins.ends, bg, W, H, g_raw, logt_k,
+                                      nwalk_k)
+    gf_p, gb_p = plain_blend_bwd(feat, bins.gauss_id, bins.starts, bins.ends,
+                                 bg, W, H, g_raw)
+    torch.cuda.synchronize()
+    print("# K2 bar: the sums run in another order, index_add_ adds in an "
+          "order that is not fixed, and a pair at the T_EPS threshold may "
+          "flip")
+    k2_err = held_grad("K2 grad_feat vs plain", gf_k[:, :9], gf_p[:, :9])
+    if float(gf_k[:, 9].abs().max()) != 0.0:
+        raise AssertionError("K2 wrote a radius gradient")
+    bg_rel = float(((gb_k - gb_p).abs() / gb_p.abs()).max())
+    print(f"# K2 grad_bg {gb_k.tolist()} vs plain {gb_p.tolist()}: max "
+          f"relative {bg_rel:.3e} (bar {BG_RTOL})")
+    if bg_rel > BG_RTOL:
+        raise AssertionError("K2 grad_bg disagrees")
+    g_s = torch.as_tensor(rng.normal(size=(3, 48, 64)).astype(np.float32),
+                          device=dev)
+    gs_k, _ = cuda_blend.blend_bwd(feat_s, bs.gauss_id, bs.starts, bs.ends,
+                                   bg, 64, 48, g_s, logt_s, nwalk_s)
+    gs_p, _ = plain_blend_bwd(feat_s, bs.gauss_id, bs.starts, bs.ends, bg,
+                              64, 48, g_s)
+    held_grad("K2 grad_feat vs plain, 64x48 saturated", gs_k[:, :9],
+              gs_p[:, :9])
 
     # ---- 3. serving path through the user's entry points
     with tempfile.TemporaryDirectory() as tmp:
@@ -280,7 +444,7 @@ def main():
         save_gaussian_ply(path, raw["xyz"], raw["shs"][:, :1],
                           raw["shs"][:, 1:], raw["opacity"], raw["scaling"],
                           raw["rotation"])
-        cuda_blend.LAUNCHES = 0
+        cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
         t0 = time.time()
         gs = compact(create_from_ply(path, device=dev))
         with torch.no_grad():
@@ -296,32 +460,172 @@ def main():
         torch.cuda.synchronize()
         serve_s = time.time() - t0
         launches = cuda_blend.LAUNCHES
+        k2_serve = cuda_blend.K2_LAUNCHES
     print(f"# serving: {len(cams)} requests in {serve_s:.3f} s (load "
-          f"included), K1 launches {launches}, capacity {gs.capacity}")
-    if launches != len(cams):
-        raise AssertionError(f"K1 launched {launches} times for "
-                             f"{len(cams)} requests")
+          f"included), K1 launches {launches}, K2 launches {k2_serve}, "
+          f"capacity {gs.capacity}")
+    if launches != len(cams) or k2_serve != 0:
+        raise AssertionError(f"K1 launched {launches} and K2 {k2_serve} "
+                             f"times for {len(cams)} requests")
     for i, img in enumerate(images):
         if img.shape != (3, H, W) or not bool(torch.isfinite(img).all()) \
                 or float(img.min()) < 0.0 or float(img.max()) > 1.0:
             raise AssertionError(f"request {i}: bad image")
-    d0 = float((images[0] - img_k).abs().max())
-    print(f"# request 0 vs phase-2 K1 image: max |d| {d0:.3e}")
+    d0 = float((images[0] - clip01(img_k)).abs().max())
+    print(f"# request 0 vs phase-2 K1 image, clipped: max |d| {d0:.3e}")
     if d0 > 1e-6:
         raise AssertionError("request 0 differs from the phase-2 image")
 
+    # ---- 3b. training path at full width
+    black = torch.zeros(3, device=dev)
+    with torch.no_grad():
+        targets = [render(attrs["xyz"], attrs["scales"], attrs["rotq"],
+                          attrs["opacity"], attrs["shs"], cam, W, H,
+                          bg=black, active_sh_degree=3,
+                          instance_budget=budget)["render"] for cam in cams]
+    noisy = raw["xyz"] + np.random.default_rng(SEED + 3).normal(
+        scale=PCD_NOISE, size=raw["xyz"].shape).astype(np.float32)
+    centers = np.stack([c.center.cpu().numpy() for c in cams])
+    extent = float(1.1 * np.linalg.norm(centers - centers.mean(0),
+                                        axis=1).max())
+    static_lrs, xyz_sched = make_scene_lrs(SceneLR, extent)
+    state = init_scene_train_state(create_from_pcd(
+        noisy, np.full((N_GAUSS, 3), 0.5, np.float32), CAPACITY,
+        device=dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    def split_noise():
+        """The densify's split noise, (2, capacity, 3) standard normal."""
+        return torch.randn((2, CAPACITY, 3), generator=gen, device=dev)
+
+    def trainee_demand(st):
+        """The trainee's largest slot demand over the views, from
+        projection and binning alone (no blend launch)."""
+        with torch.no_grad():
+            a = scene_forward(st.gs)
+            return max(int(bin_gaussians(project(c, a, a["alive"], 3), W, H,
+                                         4 * CAPACITY).n_slots)
+                       for c in cams)
+
+    train_budget = slot_budget(trainee_demand(state))
+    print(f"# training: trainee {N_GAUSS} Gaussians in capacity "
+          f"{CAPACITY}, budget {train_budget} slots, extent {extent:.4f}, "
+          f"learning rates of hugs_tpu's config (scene.lr), unboosted")
+    # the frame step 0 renders (view 0, the largest of the run: training
+    # shrinks the trainee's splats), kept to hold K1 and K2 on it after
+    # the run; projection and binning only, no kernel launch
+    with torch.no_grad():
+        a = scene_forward(state.gs)
+        pg_t = project(cams[0], a, a["alive"], a["active_sh_degree"])
+        bins_t = bin_gaussians(pg_t, W, H, train_budget)
+        feat_t = gauss_features(pg_t)
+    if bool(bins_t.overflowed):
+        raise AssertionError("step 0's frame overflowed its budget")
+    losses, infos = [], {}
+    cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
+    t0 = time.time()
+    for step in range(STEPS):
+        if step and step % SH_EVERY == 0:
+            one_up_sh_degree(state.gs)
+        if step in (DENSIFY_AT, RESET_AT):
+            n0 = int(state.gs.n_alive)
+            kw = (dict(grad_threshold=0.0002, min_opacity=0.005,
+                       percent_dense=0.01) if step == DENSIFY_AT else
+                  dict(grad_threshold=math.inf, min_opacity=0.0,
+                       do_reset_opacity=True))
+            state, info = scene_densify_step(state, split_noise(), extent,
+                                             **kw)
+            infos[step] = {k: int(v) for k, v in info.items()}
+            what = "densify" if step == DENSIFY_AT else "opacity reset"
+            print(f"# step {step}: {what} {infos[step]} (alive before {n0})")
+            if step == DENSIFY_AT:
+                if not n0 < info["n_alive"] <= CAPACITY:
+                    raise AssertionError("the densify did not grow the set")
+                train_budget = max(train_budget,
+                                   slot_budget(trainee_demand(state)))
+                print(f"# budget after the densify: {train_budget} slots")
+        i = step % len(cams)
+        state, aux = scene_train_step(
+            state, cams[i], targets[i], black, xyz_sched(step),
+            static_lrs, width=W, height=H, instance_budget=train_budget)
+        if bool(aux["overflowed"]):
+            raise AssertionError(f"step {step} overflowed its budget")
+        losses.append(float(aux["loss"]))
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    k1_train, k2_train = cuda_blend.LAUNCHES, cuda_blend.K2_LAUNCHES
+    print(f"# training: {STEPS} steps in {train_s:.3f} s (host clock, "
+          f"densify and budget passes included), K1 launches {k1_train}, "
+          f"K2 launches {k2_train}; n_alive {int(state.gs.n_alive)}")
+    print("# loss by step: " + " ".join(f"{v:.5f}" for v in losses))
+    if k1_train != STEPS or k2_train != STEPS:
+        raise AssertionError("each training step must launch K1 and K2 once")
+    # whole cycles of the 4 views, before the densify: each view's loss
+    # differs, so windows that hold one view twice do not compare
+    cyc = len(cams)
+    first, mid = losses[:cyc], losses[DENSIFY_AT - cyc:DENSIFY_AT]
+    print(f"# mean loss, steps 0-{cyc - 1}: {np.mean(first):.6f}; steps "
+          f"{DENSIFY_AT - cyc}-{DENSIFY_AT - 1}: {np.mean(mid):.6f}")
+    if not (np.isfinite(losses).all() and np.mean(mid) < np.mean(first)
+            and all(b < a for a, b in zip(first, mid))):
+        raise AssertionError("the loss did not fall on every view")
+    alive = state.gs.alive
+    for f in PARAM_FIELDS:
+        p = getattr(state.gs, f)
+        if not bool(torch.isfinite(p[alive]).all()):
+            raise AssertionError(f"{f} is not finite on a live Gaussian")
+    # rows never alive sit at the origin, view 0's centre, where the view
+    # direction's norm has no gradient: NaN, as in hugs_tpu, and harmless
+    # (dead rows render nothing; densify overwrites them)
+    dead_nan = int((~torch.isfinite(state.gs.xyz[~alive])).any(-1).sum())
+    print(f"# parameters finite on every live Gaussian; dead rows with a "
+          f"non-finite xyz: {dead_nan} of {int((~alive).sum())}")
+
+    # K1 and K2 on the frame step 0 gave them, with the true
+    # d(loss)/d(raw colour) of that step's loss (the clip's 0.5 at the
+    # bounds included)
+    raw_t, logt_t, nwalk_t, walked_t = cuda_blend.blend_fwd(
+        feat_t, bins_t.gauss_id, bins_t.starts, bins_t.ends, black, W, H)
+    raw_tp, logt_tp, pairs_t = plain_blend(
+        feat_t, bins_t.gauss_id, bins_t.starts, bins_t.ends, black, W, H)
+    counts_t = bins_t.ends - bins_t.starts
+    print(f"# step 0's frame: {int(counts_t.sum())} instances (max "
+          f"{int(counts_t.max())} per tile), K1 walked {int(walked_t.sum())}")
+    max_err = max(max_err, held("K1 raw image vs plain, step 0's frame",
+                                raw_t, raw_tp))
+    live_t = logt_tp >= LOG_TEPS
+    held("K1 log T vs plain, step 0's frame (unsaturated pixels)",
+         logt_t[live_t], logt_tp[live_t])
+    if bool((nwalk_t > tile_of_pixel(walked_t)).any()):
+        raise AssertionError("a pixel of step 0's frame walked past its "
+                             "tile's walk")
+    same_t = float((nwalk_t.long() == pairs_t[0]).float().mean())
+    print(f"# K1 n_walked equals the plain blend's tested count on "
+          f"{same_t * 100:.4f}% of the pixels of step 0's frame")
+    if same_t < MIN_SHARE:
+        raise AssertionError("K1's n_walked disagrees on step 0's frame")
+    raw_req = raw_t.clone().requires_grad_()
+    (g_t,) = torch.autograd.grad(scene_loss(clip01(raw_req), targets[0]),
+                                 raw_req)
+    gf_t, gb_t = cuda_blend.blend_bwd(
+        feat_t, bins_t.gauss_id, bins_t.starts, bins_t.ends, black, W, H,
+        g_t, logt_t, nwalk_t)
+    gf_tp, gb_tp = plain_blend_bwd(
+        feat_t, bins_t.gauss_id, bins_t.starts, bins_t.ends, black, W, H,
+        g_t)
+    gf_64, _ = plain_blend_bwd(
+        feat_t.double(), bins_t.gauss_id, bins_t.starts, bins_t.ends,
+        black.double(), W, H, g_t.double())
+    k2_err = max(k2_err, held_grad("K2 grad_feat vs plain, step 0's frame",
+                                   gf_t[:, :9], gf_tp[:, :9], gf_64[:, :9]))
+    bg_rel_t = float(((gb_t - gb_tp).abs() / gb_tp.abs()).max())
+    print(f"# K2 grad_bg, step 0's frame {gb_t.tolist()} vs plain "
+          f"{gb_tp.tolist()}: max relative {bg_rel_t:.3e} (bar {BG_RTOL})")
+    if bg_rel_t > BG_RTOL:
+        raise AssertionError("K2 grad_bg disagrees on step 0's frame")
+
     # ---- 4. times on the card
-    def k1():
-        cuda_blend.blend_fwd(feat, bins.gauss_id, bins.starts, bins.ends, bg,
-                             W, H)
-
-    # K1's device time from back-to-back launches; one call alone adds
-    # the wrapper's host cost, kept apart as its latency
-    k1_ms = time_ms(k1, inner=BACK_TO_BACK)
-    k1_call_ms = time_ms(k1)
-    plain_ms = time_ms(lambda: plain_blend(
-        feat, bins.gauss_id, bins.starts, bins.ends, bg, W, H))
-
     # one request by stage: scene_forward + projection, binning, K1
     stages = {"project": [], "bin": [], "blend": [], "request": []}
     with torch.no_grad():
@@ -343,9 +647,40 @@ def main():
                 stages["request"].append(ev[0].elapsed_time(ev[3]))
     stage_ms = {k: statistics.median(v) for k, v in stages.items()}
 
-    # the device's busy share of a request: its kernels' time against the
-    # span from the first kernel's start to the last one's end, both from
-    # the same profiled window
+    # one training step by stage, the stages of scene_train_step
+    tstages = {"forward": [], "loss": [], "backward": [], "update": [],
+               "step": []}
+    for rep in range(3 + REPS):
+        i = rep % len(cams)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        hook = torch.zeros((CAPACITY, 2), device=dev, requires_grad=True)
+        pkg = scene_render(state.gs, cams[i], black, hook, width=W,
+                           height=H, instance_budget=train_budget)
+        ev[1].record()
+        loss = scene_loss(pkg["render"], targets[i])
+        ev[2].record()
+        grads, hook_grad = scene_grads(loss, state.gs, hook)
+        ev[3].record()
+        scene_update(state, grads, hook_grad, pkg, xyz_sched(STEPS + rep),
+                     static_lrs, width=W, height=H)
+        ev[4].record()
+        ev[4].synchronize()
+        if rep >= 3:
+            for k, (e0, e1) in (("forward", (0, 1)), ("loss", (1, 2)),
+                                ("backward", (2, 3)), ("update", (3, 4)),
+                                ("step", (0, 4))):
+                tstages[k].append(ev[e0].elapsed_time(ev[e1]))
+    tstage_ms = {k: statistics.median(v) for k, v in tstages.items()}
+    # the first call consumes the statistics the timed steps gathered;
+    # later calls find nothing hot and time the step's fixed work
+    densify_ms = time_ms(lambda: scene_densify_step(
+        state, split_noise(), extent, grad_threshold=0.0002,
+        min_opacity=0.005))
+    train_budget = max(train_budget, slot_budget(trainee_demand(state)))
+
+    # the device's busy share: kernels' time against the span from the
+    # first kernel's start to the last one's end, in the same window
     def request():
         a = scene_forward(gs)
         pgr = project(cams[0], a, a["alive"])
@@ -354,53 +689,114 @@ def main():
 
     with torch.no_grad():
         by_kernel, kernels_per_request, span_us = device_kernels(request)
-    busy_ms = sum(by_kernel.values()) / 1e3
-    span_ms = span_us / 1e3
+    print_profile("request", PROFILED, by_kernel, kernels_per_request,
+                  span_us, smi)
     k1_prof_ms = sum(us for name, us in by_kernel.items()
                      if "blend_fwd_kernel" in name) / 1e3
 
-    tested, blended = (int(x) for x in pairs.sum(dim=(1, 2)))
-    ops = OPS_TESTED * tested + OPS_BLENDED * blended
-    n_inst = int(counts.sum())
-    nbytes = (feat.numel() * 4 + n_inst * 4 + 2 * nx * ny * 4 + 3 * 4
-              + 4 * W * H * 4 + nx * ny * 4)
-    ops_ms, bytes_ms = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    def train_step():
+        scene_train_step(state, cams[0], targets[0], black,
+                         xyz_sched(STEPS), static_lrs, width=W, height=H,
+                         instance_budget=train_budget)
+
+    by_kernel_t, kernels_per_step, span_t_us = device_kernels(
+        train_step, reps=PROFILED_STEPS)
+    print_profile("training step", PROFILED_STEPS, by_kernel_t,
+                  kernels_per_step, span_t_us, smi)
+    k2_prof_ms = sum(us for name, us in by_kernel_t.items()
+                     if "blend_bwd_kernel" in name) / 1e3
+
+    def kernel_times(frame, feat, b, bg, g, log_t, n_walked, pairs):
+        """K1's and K2's times on one frame (device time from back-to-back
+        launches; one call alone adds the wrapper's host cost, for K2 also
+        its index_add_ and grad_bg), their plain versions', and each
+        kernel's bound, the larger of its operations and bytes over the
+        card's peaks. Prints them and returns them in a dict."""
+        args = (feat, b.gauss_id, b.starts, b.ends, bg, W, H)
+        bwd = args + (g, log_t, n_walked)
+        t = {"k1": time_ms(lambda: cuda_blend.blend_fwd(*args),
+                           inner=BACK_TO_BACK),
+             "k1_call": time_ms(lambda: cuda_blend.blend_fwd(*args)),
+             "k2": time_ms(lambda: cuda_blend.blend_bwd_slots(*bwd),
+                           inner=BACK_TO_BACK),
+             "k2_call": time_ms(lambda: cuda_blend.blend_bwd(*bwd)),
+             "plain": time_ms(lambda: plain_blend(*args)),
+             "plain_bwd": time_ms(lambda: plain_blend_bwd(*args, g))}
+        tested, blended = (int(x) for x in pairs.sum(dim=(1, 2)))
+        n_inst = int((b.ends - b.starts).sum())
+        n_tiles = b.starts.shape[0]
+        work = {
+            # feat, the list, starts + ends, bg; image + log T + n_walked;
+            # walked
+            "k1": (OPS_TESTED * tested + OPS_BLENDED * blended,
+                   feat.numel() * 4 + n_inst * 4 + 2 * n_tiles * 4 + 3 * 4
+                   + 5 * W * H * 4 + n_tiles * 4),
+            # feat, the list, starts, bg; g + log T + n_walked; the rows
+            "k2": (OPS_TESTED * tested + OPS_BWD_BLENDED * blended,
+                   feat.numel() * 4 + n_inst * 4 + n_tiles * 4 + 3 * 4
+                   + 5 * W * H * 4 + n_inst * N_FEAT * 4)}
+        print(f"# {frame}: {tested} pairs tested, {blended} blended, "
+              f"{n_inst} instances  [{smi}]")
+        for k, (ops, nbytes) in work.items():
+            ops_ms, bytes_ms = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+            t[k + "_bound"] = max(ops_ms, bytes_ms)
+            t[k + "_bound_by"] = "operations" if ops_ms >= bytes_ms \
+                else "bytes"
+            plain = t["plain" if k == "k1" else "plain_bwd"]
+            print(f"#   {k.upper()} {t[k]:.4f} ms ({BACK_TO_BACK} "
+                  f"back-to-back launches), one call {t[k + '_call']:.4f} ms,"
+                  f" plain {plain:.4f} ms; bound: {ops:.4e} ops / 67 TFLOP/s"
+                  f" = {ops_ms:.5f} ms, {nbytes} bytes / 3.35 TB/s = "
+                  f"{bytes_ms:.5f} ms, so {t[k + '_bound']:.5f} ms by "
+                  f"{t[k + '_bound_by']} ({t[k + '_bound'] / t[k] * 100:.1f}%"
+                  f" of its time)")
+        return t
+
     print(f"# card: {card}")
-    print(f"# K1 {k1_ms:.4f} ms ({BACK_TO_BACK} back-to-back launches; "
-          f"one call with its wrapper {k1_call_ms:.4f} ms); plain blend "
-          f"{plain_ms:.4f} ms; "
-          f"request {stage_ms['request']:.4f} ms = project "
-          f"{stage_ms['project']:.4f} + bin {stage_ms['bin']:.4f} + blend "
-          f"{stage_ms['blend']:.4f} ms  [{smi}]")
-    print(f"# K1 bound: {tested} pairs tested x {OPS_TESTED} + {blended} "
-          f"blended x {OPS_BLENDED} = {ops:.4e} ops / 67 TFLOP/s = "
-          f"{ops_ms:.5f} ms; {nbytes} bytes / 3.35 TB/s = {bytes_ms:.5f} ms;"
-          f" bound {bound_ms:.5f} ms by {bound_by} "
-          f"({bound_ms / k1_ms * 100:.1f}% of K1's time)  [{smi}]")
-    if by_kernel:
-        print(f"# profiler, {PROFILED} requests: {kernels_per_request:.1f} "
-              f"device kernels per request, busy {busy_ms:.4f} ms of a "
-              f"{span_ms:.4f} ms span (first kernel start to last kernel "
-              f"end): device idle share "
-              f"{(1 - busy_ms / span_ms) * 100:.1f}%; K1 {k1_prof_ms:.4f} ms"
-              f"  [{smi}]")
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-        for name, us in top:
-            print(f"#   {us:9.2f} us  {name[:90]}")
-    else:
-        print("# profiler: no device events; idle share not measured")
+    # phase 2's frame is the serving path's; step 0's frame is the
+    # largest the training path gives K1 and K2
+    serve_t = kernel_times("phase 2's frame (serving)", feat, bins, bg,
+                           g_raw, logt_k, nwalk_k, pairs)
+    train_t = kernel_times("step 0's frame (training, view 0)", feat_t,
+                           bins_t, black, g_t, logt_t, nwalk_t, pairs_t)
+    print(f"# K1 profiler {k1_prof_ms:.4f} ms per request; request "
+          f"{stage_ms['request']:.4f} ms = project {stage_ms['project']:.4f}"
+          f" + bin {stage_ms['bin']:.4f} + blend {stage_ms['blend']:.4f} ms"
+          f"  [{smi}]")
+    print(f"# K2 profiler {k2_prof_ms:.4f} ms per training step  [{smi}]")
+    print(f"# training step {tstage_ms['step']:.4f} ms = forward "
+          f"{tstage_ms['forward']:.4f} + loss {tstage_ms['loss']:.4f} + "
+          f"backward {tstage_ms['backward']:.4f} + Adam and stats "
+          f"{tstage_ms['update']:.4f} ms; densify step {densify_ms:.4f} ms"
+          f"  [{smi}]")
 
     # ---- 5. kernels line, 6. device line
     print(json.dumps({"kernels": [{
         "name": "K1 blend_fwd", "route": "cuda",
         "source": "hugs_tpu_torch/csrc/blend_fwd.cu",
         "replaces": "hugs_tpu/render/pallas_blend.py:354",
-        "launches": launches, "max_abs_err": max_err, "ms": k1_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "call_ms": k1_call_ms,
-        "held_to": "blend_tiles_plain", "ok": True,
+        "launches": launches + k1_train,
+        "launches_by_path": {"serving": launches, "training": k1_train},
+        "max_abs_err": max_err, "frame": "serving (phase 2)",
+        "ms": serve_t["k1"], "call_ms": serve_t["k1_call"],
+        "plain_ms": serve_t["plain"], "bound_ms": serve_t["k1_bound"],
+        "bound_by": serve_t["k1_bound_by"], "library_ms": None,
+        "training_frame": {k: train_t[k] for k in (
+            "k1", "k1_call", "plain", "k1_bound")},
+        "held_to": "plain_blend", "ok": True,
+    }, {
+        "name": "K2 blend_bwd", "route": "cuda",
+        "source": "hugs_tpu_torch/csrc/blend_bwd.cu",
+        "replaces": "hugs_tpu/render/pallas_blend.py:486",
+        "launches": k2_train,
+        "launches_by_path": {"serving": k2_serve, "training": k2_train},
+        "max_abs_err": k2_err, "frame": "training step 0 (view 0)",
+        "ms": train_t["k2"], "call_ms": train_t["k2_call"],
+        "plain_ms": train_t["plain_bwd"], "bound_ms": train_t["k2_bound"],
+        "bound_by": train_t["k2_bound_by"], "library_ms": None,
+        "serving_frame": {k: serve_t[k] for k in (
+            "k2", "k2_call", "plain_bwd", "k2_bound")},
+        "held_to": "plain_blend_bwd", "ok": True,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` compiles with nvcc into a shared library with a
 plain C interface, `build/hugs_tpu_torch/<name>-<hash>.so` under the
-repository root, keyed on a hash of the source and the flags; a library
+repository root, keyed on a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags; a library
 that is already there is reused. There is no fallback: a missing nvcc or
 a failed build raises.
 """
@@ -38,7 +39,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Where csrc/<name>.cu builds to, keyed on its source, every shared
+    header in csrc/ and the flags, so that an edit to a header rebuilds
+    every kernel."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{key[:16]}.so"
 

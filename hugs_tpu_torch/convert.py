@@ -1,4 +1,5 @@
-"""Carries weights and cameras from the JAX package into the port.
+"""Carries weights, optimizer state and cameras from the JAX package into
+the port.
 
 Both sides meet at numpy: the caller passes a JAX SceneGS as
 {field: np.asarray(getattr(gs, field))} and a Camera likewise, so this
@@ -12,6 +13,7 @@ import torch
 
 from hugs_tpu_torch.models.scene_gs import BUFFER_FIELDS, PARAM_FIELDS, SceneGS
 from hugs_tpu_torch.render.camera import Camera
+from hugs_tpu_torch.train.optim import GroupAdamState
 
 
 def scene_gs_from_numpy(arrays: dict[str, np.ndarray],
@@ -36,3 +38,17 @@ def camera_from_numpy(arrays: dict[str, np.ndarray],
     return Camera(**{f: torch.as_tensor(np.array(arrays[f], np.float32),
                                         device=device)
                      for f in Camera._fields})
+
+
+def adam_state_from_numpy(mu: dict[str, np.ndarray], nu: dict[str, np.ndarray],
+                          step, device: torch.device | str = "cuda"
+                          ) -> GroupAdamState:
+    """GroupAdamState from the numpy arrays of a JAX GroupAdamState's
+    moment dicts and its step count."""
+    def moments(d):
+        return {k: torch.as_tensor(np.array(v, np.float32), device=device)
+                for k, v in d.items()}
+    return GroupAdamState(
+        mu=moments(mu), nu=moments(nu),
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=device))

@@ -8,9 +8,14 @@
 //            alpha < 1/255 or dist^2 > radius^2;
 //   colour += rgb * alpha * T while log T >= log(1e-4);
 //   log T  += log1p(-alpha);
-// then colour + bg * T_fin * [log T_fin >= log(1e-4)], clipped to [0, 1].
+// then colour + bg * T_fin * [log T_fin >= log(1e-4)], written raw: the
+// wrapper clips it to [0, 1] (render/cuda_blend.py), since the clip's
+// gradient at the bounds cannot be recovered from a clipped value.
 // Transmittance is kept in log space, as in the TPU kernel, so the T_EPS
-// threshold tests the same quantity the reference tests.
+// threshold tests the same quantity the reference tests. Per pixel it
+// also writes how many of its tile's instances it walked before it
+// saturated (upstream 3DGS's n_contrib), which the backward (K2,
+// blend_bwd.cu) needs to rebuild each T_i from the final log T.
 //
 // Design: one block of 256 threads per 16x16 tile, one thread per pixel.
 // The block stages its tile's instances through shared memory in batches
@@ -35,16 +40,11 @@
 // of a pair is then bit-identical between the two, and only the order of
 // the transmittance and colour sums differs.
 
-#include <cuda_runtime.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kThreads = kTile * kTile;
-constexpr int kFeat = 10;  // r g b op mx my ca cb cc rad
-constexpr float kMinAlpha = 1.0f / 255.0f;
-constexpr float kMaxAlpha = 0.99f;
-constexpr float kLogTEps = -9.21034049987793f;  // float32(log(1e-4))
+using namespace hugs_blend;
 
 __global__ void __launch_bounds__(kThreads)
 blend_fwd_kernel(const float* __restrict__ feat,
@@ -55,6 +55,7 @@ blend_fwd_kernel(const float* __restrict__ feat,
                  int width, int height, int nx,
                  float* __restrict__ out_rgb,
                  float* __restrict__ out_log_t,
+                 int* __restrict__ out_n_walked,
                  int* __restrict__ out_walked) {
   __shared__ float s_feat[kFeat][kThreads];
 
@@ -72,6 +73,7 @@ blend_fwd_kernel(const float* __restrict__ feat,
   float cr = 0.0f, cg = 0.0f, cb = 0.0f;
   bool done = !inside;  // pixels outside the image never hold the block
   int walked = 0;
+  int n_walked = 0;  // this pixel's instances, up to its saturating one
 
   for (int base = start; base < end; base += kThreads) {
     // also the barrier that keeps the previous batch's readers ahead of
@@ -86,20 +88,13 @@ blend_fwd_kernel(const float* __restrict__ feat,
     __syncthreads();
     walked = base + n - start;
 
-    for (int j = 0; j < n && !done; ++j) {
-      const float dx = s_feat[4][j] - px;
-      const float dy = s_feat[5][j] - py;
-      // the operation order of oracle.gaussian_alpha, product by product
-      const float power =
-          -0.5f * (s_feat[6][j] * dx * dx + s_feat[8][j] * dy * dy) -
-          s_feat[7][j] * dx * dy;
+    int j = 0;
+    for (; j < n && !done; ++j) {
+      float dx, dy;
       const float alpha =
-          fminf(kMaxAlpha, s_feat[3][j] * expf(fminf(power, 0.0f)));
-      const float rad = s_feat[9][j];
-      if (!(power <= 0.0f && alpha >= kMinAlpha &&
-            dx * dx + dy * dy <= rad * rad)) {
-        continue;
-      }
+          pair_alpha(s_feat[3][j], s_feat[4][j], s_feat[5][j], s_feat[6][j],
+                     s_feat[7][j], s_feat[8][j], s_feat[9][j], px, py, dx, dy);
+      if (alpha == 0.0f) continue;
       const float w = alpha * expf(log_t);
       cr += s_feat[0][j] * w;
       cg += s_feat[1][j] * w;
@@ -107,6 +102,7 @@ blend_fwd_kernel(const float* __restrict__ feat,
       log_t += log1pf(-alpha);
       done = log_t < kLogTEps;
     }
+    if (j > 0) n_walked = base - start + j;
   }
 
   if (tid == 0) out_walked[t] = walked;
@@ -114,29 +110,33 @@ blend_fwd_kernel(const float* __restrict__ feat,
   const float t_fin = log_t >= kLogTEps ? expf(log_t) : 0.0f;
   const size_t p = static_cast<size_t>(py_i) * width + px_i;
   const size_t plane = static_cast<size_t>(width) * height;
-  out_rgb[p] = fminf(fmaxf(cr + bg[0] * t_fin, 0.0f), 1.0f);
-  out_rgb[plane + p] = fminf(fmaxf(cg + bg[1] * t_fin, 0.0f), 1.0f);
-  out_rgb[2 * plane + p] = fminf(fmaxf(cb + bg[2] * t_fin, 0.0f), 1.0f);
+  out_rgb[p] = cr + bg[0] * t_fin;
+  out_rgb[plane + p] = cg + bg[1] * t_fin;
+  out_rgb[2 * plane + p] = cb + bg[2] * t_fin;
   out_log_t[p] = log_t;
+  out_n_walked[p] = n_walked;
 }
 
 }  // namespace
 
 // Launches K1 on `stream` over n_tiles = nx * ny tiles of 16x16 pixels.
 // feat: (N, 10) float32; gauss_id: instance list; starts/ends: (n_tiles,)
-// per-tile segments of gauss_id; bg: (3,). Writes out_rgb (3, H, W),
-// out_log_t (H, W) and out_walked (n_tiles,), the instances each tile
-// walked before all its pixels saturated. Returns cudaGetLastError().
+// per-tile segments of gauss_id; bg: (3,). Writes out_rgb (3, H, W) raw
+// colour, out_log_t (H, W), out_n_walked (H, W), the instances each pixel
+// walked up to and including the one that saturated it, and out_walked
+// (n_tiles,), the instances each tile walked before all its pixels
+// saturated. Returns cudaGetLastError().
 extern "C" int hugs_blend_fwd(const float* feat, const int* gauss_id,
                               const int* starts, const int* ends,
                               const float* bg, int width, int height, int nx,
                               int n_tiles, float* out_rgb, float* out_log_t,
-                              int* out_walked, void* stream) {
+                              int* out_n_walked, int* out_walked,
+                              void* stream) {
   if (n_tiles > 0) {
     blend_fwd_kernel<<<n_tiles, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         feat, gauss_id, starts, ends, bg, width, height, nx, out_rgb,
-        out_log_t, out_walked);
+        out_log_t, out_n_walked, out_walked);
   }
   return static_cast<int>(cudaGetLastError());
 }

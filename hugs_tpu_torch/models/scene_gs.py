@@ -1,10 +1,13 @@
-"""Scene Gaussian model (vanilla 3DGS), the serving subset.
+"""Scene Gaussian model (vanilla 3DGS): serving and training.
 
 A fixed-capacity set of Gaussians with an `alive` mask, row for row like
 the JAX package's SceneGS, so the two can be compared directly. The six
 optimizable fields are nn.Parameters; the mask, the densification
-statistics and the active SH degree are buffers. Storage conventions
-follow 3DGS:
+statistics and the active SH degree are buffers. Densification writes
+new Gaussians into dead rows and prunes by clearing `alive`, so shapes
+never change. The training functions update the model and the optimizer
+moments in place, under torch.no_grad(). Storage conventions follow
+3DGS:
   scaling   : log-scale         (activation exp)
   opacity   : logit             (activation sigmoid)
   rotation  : unnormalized quat (activation normalize)
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from hugs_tpu_torch.ops.covariance import build_rotation
 from hugs_tpu_torch.ops.knn import mean_sq_dist_to_knn
 from hugs_tpu_torch.ops.sh import rgb_to_sh
 from hugs_tpu_torch.utils.ply import load_gaussian_ply
@@ -52,6 +56,10 @@ class SceneGS(nn.Module):
     @property
     def capacity(self) -> int:
         return self.xyz.shape[0]
+
+    @property
+    def n_alive(self) -> torch.Tensor:
+        return torch.sum(self.alive)
 
     def forward(self, only_rgb: bool = False) -> dict:
         return scene_forward(self, only_rgb)
@@ -165,3 +173,139 @@ def compact(gs: SceneGS, bucket: int | None = None) -> SceneGS:
     fields["alive"] = torch.arange(cap, device=idx.device) < idx.numel()
     fields["active_sh_degree"] = gs.active_sh_degree.clone()
     return SceneGS(**fields)
+
+
+def params_of(gs: SceneGS) -> dict[str, nn.Parameter]:
+    """The six optimizable fields by name (views, not copies)."""
+    return {f: getattr(gs, f) for f in PARAM_FIELDS}
+
+
+@torch.no_grad()
+def one_up_sh_degree(gs: SceneGS, max_sh_degree: int = 3) -> SceneGS:
+    gs.active_sh_degree.copy_(torch.clamp(gs.active_sh_degree + 1,
+                                          max=max_sh_degree))
+    return gs
+
+
+@torch.no_grad()
+def add_densification_stats(gs: SceneGS, mean2d_grad: torch.Tensor,
+                            radii: torch.Tensor,
+                            visibility: torch.Tensor) -> SceneGS:
+    """Accumulate screen-space gradient norms and max radii for the
+    visible, alive Gaussians."""
+    gnorm = torch.linalg.norm(mean2d_grad[:, :2], dim=-1)
+    vis = visibility & gs.alive
+    gs.xyz_gradient_accum.add_(torch.where(vis, gnorm, 0.0))
+    gs.denom.add_(vis.to(gs.denom.dtype))
+    gs.max_radii2d.copy_(torch.where(
+        vis, torch.maximum(gs.max_radii2d, radii), gs.max_radii2d))
+    return gs
+
+
+@torch.no_grad()
+def densify_and_prune(
+    gs: SceneGS,
+    opt_moments: list[dict],
+    noise: torch.Tensor,
+    grad_threshold: float,
+    min_opacity: float,
+    extent: float,
+    max_screen_size: float | None,
+    percent_dense: float = 0.01,
+    max_n_gaussians: int | None = None,
+) -> dict:
+    """The densify / clone / split / prune step of 3DGS at fixed
+    capacity, in place on gs and on the moment dicts of opt_moments.
+
+      clone: grad >= threshold and max scale <= percent_dense * extent:
+             a copy;
+      split: grad >= threshold and max scale > percent_dense * extent:
+             split_n samples from the Gaussian, scales / (0.8 split_n);
+             the original is pruned;
+      prune: opacity < min_opacity, and with max_screen_size also
+             radius2d > max_screen_size or max scale > 0.1 * extent.
+
+    noise: (split_n, C, 3) standard normal draws for the split samples,
+    drawn by the caller. New Gaussians go into dead rows in index order
+    (candidates past the free rows are dropped), their Adam moments are
+    zeroed, and the densification statistics reset. Returns the info
+    counts n_cloned, n_split, n_pruned, n_dropped and n_alive."""
+    cap = gs.capacity
+    split_n = noise.shape[0]
+    grads = torch.where(gs.denom > 0, gs.xyz_gradient_accum / gs.denom, 0.0)
+    scales = torch.exp(gs.scaling)
+    max_scale = torch.max(scales, dim=-1).values
+
+    hot = (grads >= grad_threshold) & gs.alive
+    if max_n_gaussians is not None:
+        hot = hot & (torch.sum(gs.alive) <= max_n_gaussians)
+    clone_sel = hot & (max_scale <= percent_dense * extent)
+    split_sel = hot & (max_scale > percent_dense * extent)
+
+    # prune first, so the rows it frees are reusable
+    prune = torch.sigmoid(gs.opacity[:, 0]) < min_opacity
+    if max_screen_size is not None:
+        prune = prune | (gs.max_radii2d > max_screen_size) \
+            | (max_scale > 0.1 * extent)
+    prune = (prune | split_sel) & gs.alive     # split originals die too
+    alive = gs.alive & ~prune
+
+    # candidates: every row as a clone, then split_n samples of every row
+    params = params_of(gs)
+    R = build_rotation(gs.rotation)                          # (C, 3, 3)
+    samples = torch.einsum("cij,scj->sci", R, noise * scales[None])
+    split_xyz = gs.xyz[None] + samples                       # (S, C, 3)
+    split_scaling = torch.log(scales / (0.8 * split_n))      # (C, 3)
+
+    def candidates(field):
+        p = params[field]
+        if field == "xyz":
+            rep = split_xyz.reshape(split_n * cap, 3)
+        elif field == "scaling":
+            rep = split_scaling.repeat(split_n, 1)
+        else:
+            rep = p.repeat((split_n,) + (1,) * (p.ndim - 1))
+        return torch.cat([p, rep], dim=0)
+
+    cand_valid = torch.cat([clone_sel, split_sel.repeat(split_n)])
+    # free rows in index order: a stable sort puts alive=False first
+    cand_rank = torch.cumsum(cand_valid.to(torch.int64), 0) - 1
+    free_rows = torch.argsort(alive.to(torch.int8), stable=True)
+    n_free = cap - torch.sum(alive)
+    can_place = cand_valid & (cand_rank < n_free)
+    dest = free_rows[torch.clamp(cand_rank, 0, cap - 1)][can_place]
+
+    new_rows = {f: candidates(f)[can_place] for f in PARAM_FIELDS}
+    for f in PARAM_FIELDS:
+        params[f][dest] = new_rows[f]
+    alive[dest] = True
+    newly_used = torch.zeros(cap, dtype=torch.bool, device=alive.device)
+    newly_used[dest] = True
+    for moments in opt_moments:
+        for f in PARAM_FIELDS:
+            moments[f][newly_used] = 0.0
+
+    info = {
+        "n_cloned": torch.sum(clone_sel),
+        "n_split": torch.sum(split_sel),
+        "n_pruned": torch.sum(prune & ~split_sel),
+        "n_dropped": torch.sum(cand_valid & ~can_place),
+        "n_alive": torch.sum(alive),
+    }
+    gs.alive.copy_(alive)
+    gs.xyz_gradient_accum.zero_()
+    gs.denom.zero_()
+    gs.max_radii2d.zero_()
+    return info
+
+
+@torch.no_grad()
+def reset_opacity(gs: SceneGS, opt_moments: list[dict],
+                  value: float = 0.01) -> SceneGS:
+    """Clamp every opacity to <= value and zero its Adam moments, in
+    place."""
+    gs.opacity.copy_(inverse_sigmoid(torch.clamp(torch.sigmoid(gs.opacity),
+                                                 max=value)))
+    for moments in opt_moments:
+        moments["opacity"].zero_()
+    return gs

@@ -1,7 +1,8 @@
 """Tiled alpha-blend compositing, plain PyTorch.
 
-The reference for the CUDA forward blend (render/cuda_blend.py) and the
-path a render takes on the CPU. Each tile evaluates a dense (K, P) alpha
+The reference for the CUDA blend kernels (render/cuda_blend.py), forward
+(`plain_blend`) and backward (`plain_blend_bwd`), and the path a render
+takes on the CPU. Each tile evaluates a dense (K, P) alpha
 matrix over its depth-sorted instance list (K instances, P pixels),
 takes an exclusive log-space cumsum along K for transmittance and
 contracts colours against the weights; oracle.py states the semantics.
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from hugs_tpu_torch.render.oracle import LOG_TEPS, gaussian_alpha
+from hugs_tpu_torch.render.oracle import LOG_TEPS, clip01, gaussian_alpha
 from hugs_tpu_torch.render.project import ProjectedGaussians
 from hugs_tpu_torch.render.tiles import TILE, TileBins, tile_grid, tile_wh
 
@@ -28,23 +29,12 @@ def gauss_features(pg: ProjectedGaussians) -> torch.Tensor:
                       pg.radius[:, None]], dim=1).contiguous()
 
 
-def plain_blend(feat: torch.Tensor, gauss_id: torch.Tensor,
-                starts: torch.Tensor, ends: torch.Tensor, bg: torch.Tensor,
-                width: int, height: int, tile_cap: int | None = None,
-                tile=TILE):
-    """The function the CUDA blend computes, in plain PyTorch.
-
-    feat: (N, 10) from gauss_features; gauss_id/starts/ends: TileBins
-    fields. tile_cap truncates each tile's list to its first tile_cap
-    instances; None means the largest tile count, which truncates
-    nothing. Returns
-      img   (3, H, W) clipped to [0, 1];
-      log_t (H, W) final log transmittance, summed over the whole list;
-      pairs (2, H, W) int64: per pixel, the instances it tests before
-            its transmittance falls below T_EPS (row 0), and those of
-            them that blend, with nonzero alpha (row 1).
-    """
-    dev = feat.device
+def _tile_batches(gauss_id, starts, ends, width, height, tile_cap, tile):
+    """The batches of tiles the plain blend walks, each at most
+    _PAIRS_PER_BATCH (instance, pixel) pairs. Yields (t, g, live, px, py):
+    tile ids (B,), Gaussian ids (B, K), valid-instance mask (B, K) and
+    pixel centres (B, P)."""
+    dev = gauss_id.device
     nx, ny = tile_grid(width, height, tile)
     tw, th = tile_wh(tile)
     T, P = nx * ny, tw * th
@@ -57,40 +47,107 @@ def plain_blend(feat: torch.Tensor, gauss_id: torch.Tensor,
     k = torch.arange(K, device=dev)
     lin = torch.arange(P, device=dev)
     batch = max(1, min(T, _PAIRS_PER_BATCH // (K * P)))
-    imgs, logts, pairs = [], [], []
     for t0 in range(0, T, batch):
         t = torch.arange(t0, min(t0 + batch, T), device=dev)
         live = k[None, :] < counts[t, None]                       # (B, K)
         g = torch.where(live, gid_pad[starts[t].long()[:, None] + k], 0)
-        f = feat[g]                                               # (B, K, 10)
-        opac = torch.where(live, f[..., 3], 0.0)
         px = ((t % nx) * tw)[:, None] + lin % tw                  # (B, P)
         py = ((t // nx) * th)[:, None] + lin // tw
-        alpha = gaussian_alpha(f[..., None, 4:6], f[..., None, 6:9],
-                               opac[..., None], px[:, None, :].float(),
-                               py[:, None, :].float(),
-                               radius=f[..., None, 9])            # (B, K, P)
-        log_t = torch.cumsum(torch.log1p(-alpha), dim=1)
-        excl = torch.cat([torch.zeros_like(log_t[:, :1]), log_t[:, :-1]],
-                         dim=1)
-        tested = excl >= LOG_TEPS
-        w = alpha * torch.exp(excl) * tested
-        color = torch.einsum("bkc,bkp->bcp", f[..., 0:3], w)
-        final = log_t[:, -1]                                      # (B, P)
-        final_t = torch.exp(final) * (final >= LOG_TEPS)
-        imgs.append(color + bg[None, :, None] * final_t[:, None, :])
+        yield t, g, live, px.float(), py.float()
+
+
+def _blend_batch(feat, bg, g, live, px, py):
+    """One batch of tiles: raw colour (B, 3, P), final log T (B, P), and
+    per pixel the instances tested and blended (B, 2, P)."""
+    f = feat[g]                                               # (B, K, 10)
+    opac = torch.where(live, f[..., 3], 0.0)
+    alpha = gaussian_alpha(f[..., None, 4:6], f[..., None, 6:9],
+                           opac[..., None], px[:, None, :], py[:, None, :],
+                           radius=f[..., None, 9])            # (B, K, P)
+    log_t = torch.cumsum(torch.log1p(-alpha), dim=1)
+    excl = torch.cat([torch.zeros_like(log_t[:, :1]), log_t[:, :-1]], dim=1)
+    tested = excl >= LOG_TEPS
+    w = alpha * torch.exp(excl) * tested
+    color = torch.einsum("bkc,bkp->bcp", f[..., 0:3], w)
+    final = log_t[:, -1]                                      # (B, P)
+    final_t = torch.exp(final) * (final >= LOG_TEPS)
+    pairs = torch.stack([(tested & live[..., None]).sum(1),
+                         (tested & (alpha > 0)).sum(1)], dim=1)
+    return color + bg[None, :, None] * final_t[:, None, :], final, pairs
+
+
+def _assemble(tiles, width, height, tile):
+    """(T, C, P) per-tile rows -> (C, H, W) image."""
+    nx, ny = tile_grid(width, height, tile)
+    tw, th = tile_wh(tile)
+    c = tiles.shape[1]
+    img = tiles.reshape(ny, nx, c, th, tw).permute(2, 0, 3, 1, 4)
+    return img.reshape(c, ny * th, nx * tw)[:, :height, :width]
+
+
+def _disassemble(img, tile):
+    """(C, H, W) image -> (T, C, P) per-tile rows, zero past the edge."""
+    c, height, width = img.shape
+    nx, ny = tile_grid(width, height, tile)
+    tw, th = tile_wh(tile)
+    pad = img.new_zeros((c, ny * th, nx * tw))
+    pad[:, :height, :width] = img
+    return pad.reshape(c, ny, th, nx, tw).permute(1, 3, 0, 2, 4) \
+        .reshape(nx * ny, c, th * tw)
+
+
+def plain_blend(feat: torch.Tensor, gauss_id: torch.Tensor,
+                starts: torch.Tensor, ends: torch.Tensor, bg: torch.Tensor,
+                width: int, height: int, tile_cap: int | None = None,
+                tile=TILE):
+    """The function the CUDA blend computes, in plain PyTorch.
+
+    feat: (N, 10) from gauss_features; gauss_id/starts/ends: TileBins
+    fields. tile_cap truncates each tile's list to its first tile_cap
+    instances; None means the largest tile count, which truncates
+    nothing. Returns
+      img   (3, H, W) raw colour, not yet clipped to [0, 1];
+      log_t (H, W) final log transmittance, summed over the whole list;
+      pairs (2, H, W) int64: per pixel, the instances it tests before
+            its transmittance falls below T_EPS (row 0), and those of
+            them that blend, with nonzero alpha (row 1).
+    """
+    imgs, logts, pairs = [], [], []
+    for _, g, live, px, py in _tile_batches(gauss_id, starts, ends, width,
+                                            height, tile_cap, tile):
+        img, final, pr = _blend_batch(feat, bg, g, live, px, py)
+        imgs.append(img)
         logts.append(final)
-        pairs.append(torch.stack([(tested & live[..., None]).sum(1),
-                                  (tested & (alpha > 0)).sum(1)], dim=1))
+        pairs.append(pr)
+    return (_assemble(torch.cat(imgs), width, height, tile),
+            _assemble(torch.cat(logts)[:, None], width, height, tile)[0],
+            _assemble(torch.cat(pairs), width, height, tile))
 
-    def assemble(tiles):                  # (T, C, P) -> (C, H, W)
-        c = tiles.shape[1]
-        img = tiles.reshape(ny, nx, c, th, tw).permute(2, 0, 3, 1, 4)
-        return img.reshape(c, ny * th, nx * tw)[:, :height, :width]
 
-    img = torch.clamp(assemble(torch.cat(imgs)), 0.0, 1.0)
-    log_t = assemble(torch.cat(logts)[:, None])[0]
-    return img, log_t, assemble(torch.cat(pairs))
+def plain_blend_bwd(feat: torch.Tensor, gauss_id: torch.Tensor,
+                    starts: torch.Tensor, ends: torch.Tensor,
+                    bg: torch.Tensor, width: int, height: int,
+                    grad_raw: torch.Tensor):
+    """The function the CUDA backward blend (K2) computes, in plain
+    PyTorch: the gradient of plain_blend's raw colour.
+
+    grad_raw: (3, H, W) d(loss)/d(raw colour). Returns grad_feat (N, 10)
+    and grad_bg (3,). Each batch of tiles re-runs its forward under
+    autograd and is differentiated alone, so memory holds one batch's
+    intermediates, not the whole frame's."""
+    grad_feat = torch.zeros_like(feat)
+    grad_bg = torch.zeros_like(bg)
+    g_tiles = _disassemble(grad_raw.detach(), TILE)
+    for t, g, live, px, py in _tile_batches(gauss_id, starts, ends, width,
+                                            height, None, TILE):
+        with torch.enable_grad():
+            f = feat.detach().requires_grad_(True)
+            b = bg.detach().requires_grad_(True)
+            color = _blend_batch(f, b, g, live, px, py)[0]
+            gf, gb = torch.autograd.grad(color, (f, b), g_tiles[t])
+        grad_feat += gf
+        grad_bg += gb
+    return grad_feat, grad_bg
 
 
 def blend_tiles_plain(pg: ProjectedGaussians, bins: TileBins, width: int,
@@ -98,8 +155,9 @@ def blend_tiles_plain(pg: ProjectedGaussians, bins: TileBins, width: int,
                       tile_cap: int | None = None,
                       tile=TILE) -> torch.Tensor:
     """Composite all tiles. Returns (3, H, W) in [0, 1]."""
-    return plain_blend(gauss_features(pg), bins.gauss_id, bins.starts,
-                       bins.ends, bg, width, height, tile_cap, tile)[0]
+    return clip01(plain_blend(gauss_features(pg), bins.gauss_id, bins.starts,
+                              bins.ends, bg, width, height, tile_cap,
+                              tile)[0])
 
 
 def tile_overflow(bins: TileBins, tile_cap: int) -> torch.Tensor:

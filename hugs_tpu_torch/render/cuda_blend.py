@@ -1,17 +1,22 @@
-"""Wrapper of K1, the CUDA forward tile blend (csrc/blend_fwd.cu).
+"""Wrappers of the CUDA tile blend: K1, the forward (csrc/blend_fwd.cu),
+and K2, its backward (csrc/blend_bwd.cu).
 
-The counterpart of hugs_tpu/render/pallas_blend.py's forward kernel.
-`blend_tiles` launches K1 for CUDA tensors and runs the plain PyTorch
-blend (render/blend.py) for CPU tensors; there is no other path and no
-fallback when a build or a launch fails. The launch goes through a
-torch.autograd.Function whose backward raises until the backward kernel
-(K2) is ported, so a CUDA render cannot quietly take gradients through
-another path.
+The counterparts of hugs_tpu/render/pallas_blend.py's forward and
+backward kernels. `blend_tiles` launches K1 for CUDA tensors through a
+torch.autograd.Function whose backward launches K2, and runs the plain
+PyTorch blend (render/blend.py) under autograd for CPU tensors; there is
+no other path and no fallback when a build or a launch fails.
 
-The TPU kernel's POWER_MXU mode (a matmul evaluation of the Gaussian
-exponent on the TPU's MXU, off by default) has no output of its own: it
-computes the same exponent, which K1 computes directly. It has no
-counterpart here.
+K2 emits one gradient row per slot of the instance list; `blend_bwd`
+scatters the rows onto the Gaussians with index_add_ (in hugs_tpu, the
+AD transpose of `_pack_aligned`'s gather) and computes the background's
+gradient, sum_p g T_fin [T_fin >= T_EPS], in torch, as the XLA code
+around the TPU kernel does (pallas_blend.py:872-876).
+
+The TPU kernels' POWER_MXU mode (a matmul evaluation of the Gaussian
+exponent and of K2's pixel moments on the TPU's MXU, off by default) has
+no output of its own: K1 computes the same exponent directly and K2 sums
+the same moments per pixel. It has no counterpart here.
 """
 from __future__ import annotations
 
@@ -23,21 +28,28 @@ from hugs_tpu_torch import build
 from hugs_tpu_torch.render.blend import (
     N_FEAT, blend_tiles_plain, gauss_features,
 )
+from hugs_tpu_torch.render.oracle import LOG_TEPS, clip01
 from hugs_tpu_torch.render.project import ProjectedGaussians
 from hugs_tpu_torch.render.tiles import TILE, TileBins, tile_grid
 
 SOURCE = "blend_fwd"
-LAUNCHES = 0   # K1 launches since the count was last set to 0
+BWD_SOURCE = "blend_bwd"
+LAUNCHES = 0      # K1 launches since the count was last set to 0
+K2_LAUNCHES = 0   # K2 launches since the count was last set to 0
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
-    fn = lib.hugs_blend_fwd
+def _library(source: str, fn_name: str, argtypes) -> ctypes.CDLL:
+    lib = build.load(source)
+    fn = getattr(lib, fn_name)
     if fn.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 5 + [i32] * 4 + [ptr] * 4
-        fn.restype = i32
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
+
+
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+_FWD_ARGS = [_PTR] * 5 + [_I32] * 4 + [_PTR] * 5
+_BWD_ARGS = [_PTR] * 7 + [_I32] * 4 + [_PTR] * 2
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape, device):
@@ -52,6 +64,20 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape, device):
         raise ValueError(f"{name} is not contiguous")
 
 
+def _check_bins(feat, gauss_id, starts, ends, bg, width, height, kernel):
+    if feat.device.type != "cuda":
+        raise ValueError(f"{kernel} runs on CUDA tensors; feat is on "
+                         f"{feat.device}")
+    dev = feat.device
+    nx, ny = tile_grid(width, height, TILE)
+    _check("feat", feat, torch.float32, (feat.shape[0], N_FEAT), dev)
+    _check("gauss_id", gauss_id, torch.int32, (gauss_id.shape[0],), dev)
+    _check("starts", starts, torch.int32, (nx * ny,), dev)
+    _check("ends", ends, torch.int32, (nx * ny,), dev)
+    _check("bg", bg, torch.float32, (3,), dev)
+    return dev, nx, nx * ny
+
+
 def blend_fwd(feat: torch.Tensor, gauss_id: torch.Tensor,
               starts: torch.Tensor, ends: torch.Tensor, bg: torch.Tensor,
               width: int, height: int):
@@ -59,60 +85,111 @@ def blend_fwd(feat: torch.Tensor, gauss_id: torch.Tensor,
 
     feat: (N, 10) float32 (blend.gauss_features); gauss_id: (I,) int32;
     starts/ends: (T,) int32 over 16x16 tiles; bg: (3,) float32.
-    Returns img (3, H, W) in [0, 1], log_t (H, W) final log
-    transmittance (stopped where the pixel saturated) and walked (T,)
-    int32, the instances each tile walked before all its pixels
-    saturated, in whole batches of 256.
+    Returns img (3, H, W) raw colour (not clipped), log_t (H, W) final log
+    transmittance (stopped where the pixel saturated), n_walked (H, W)
+    int32, the instances each pixel walked up to and including the one
+    that saturated it, and walked (T,) int32, the instances each tile
+    walked before all its pixels saturated, in whole batches of 256.
     """
     global LAUNCHES
-    if feat.device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA tensors; feat is on {feat.device}")
-    dev = feat.device
-    nx, ny = tile_grid(width, height, TILE)
-    T = nx * ny
-    _check("feat", feat, torch.float32, (feat.shape[0], N_FEAT), dev)
-    _check("gauss_id", gauss_id, torch.int32, (gauss_id.shape[0],), dev)
-    _check("starts", starts, torch.int32, (T,), dev)
-    _check("ends", ends, torch.int32, (T,), dev)
-    _check("bg", bg, torch.float32, (3,), dev)
+    dev, nx, T = _check_bins(feat, gauss_id, starts, ends, bg, width,
+                             height, "K1")
     img = torch.empty((3, height, width), dtype=torch.float32, device=dev)
     log_t = torch.empty((height, width), dtype=torch.float32, device=dev)
+    n_walked = torch.empty((height, width), dtype=torch.int32, device=dev)
     walked = torch.empty((T,), dtype=torch.int32, device=dev)
-    lib = _library()
+    lib = _library(SOURCE, "hugs_blend_fwd", _FWD_ARGS)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.hugs_blend_fwd(
             feat.data_ptr(), gauss_id.data_ptr(), starts.data_ptr(),
             ends.data_ptr(), bg.data_ptr(), width, height, nx, T,
-            img.data_ptr(), log_t.data_ptr(), walked.data_ptr(), stream)
+            img.data_ptr(), log_t.data_ptr(), n_walked.data_ptr(),
+            walked.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {err}")
     LAUNCHES += 1
-    return img, log_t, walked
+    return img, log_t, n_walked, walked
+
+
+def blend_bwd_slots(feat: torch.Tensor, gauss_id: torch.Tensor,
+                    starts: torch.Tensor, ends: torch.Tensor,
+                    bg: torch.Tensor, width: int, height: int,
+                    grad_raw: torch.Tensor, log_t: torch.Tensor,
+                    n_walked: torch.Tensor) -> torch.Tensor:
+    """Launch K2 on the current stream. CUDA tensors only.
+
+    The forward's inputs, grad_raw (3, H, W) = d(loss)/d(raw colour), and
+    K1's log_t and n_walked. Returns ginst (I, 10): row s the gradient of
+    the instance in slot s of gauss_id (columns r g b op mx my ca cb cc;
+    the radius column and every slot no pixel walked are zero)."""
+    global K2_LAUNCHES
+    dev, nx, T = _check_bins(feat, gauss_id, starts, ends, bg, width,
+                             height, "K2")
+    _check("grad_raw", grad_raw, torch.float32, (3, height, width), dev)
+    _check("log_t", log_t, torch.float32, (height, width), dev)
+    _check("n_walked", n_walked, torch.int32, (height, width), dev)
+    ginst = torch.zeros((gauss_id.shape[0], N_FEAT), dtype=torch.float32,
+                        device=dev)
+    lib = _library(BWD_SOURCE, "hugs_blend_bwd", _BWD_ARGS)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.hugs_blend_bwd(
+            feat.data_ptr(), gauss_id.data_ptr(), starts.data_ptr(),
+            bg.data_ptr(), log_t.data_ptr(), n_walked.data_ptr(),
+            grad_raw.data_ptr(), width, height, nx, T, ginst.data_ptr(),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"K2 launch failed: cudaError {err}")
+    K2_LAUNCHES += 1
+    return ginst
+
+
+def blend_bwd(feat: torch.Tensor, gauss_id: torch.Tensor,
+              starts: torch.Tensor, ends: torch.Tensor, bg: torch.Tensor,
+              width: int, height: int, grad_raw: torch.Tensor,
+              log_t: torch.Tensor, n_walked: torch.Tensor):
+    """The gradient of K1's raw colour: K2, then its slots scattered onto
+    the Gaussians. Returns grad_feat (N, 10) and grad_bg (3,), as
+    blend.plain_blend_bwd does. CUDA tensors only."""
+    ginst = blend_bwd_slots(feat, gauss_id, starts, ends, bg, width, height,
+                            grad_raw, log_t, n_walked)
+    grad_feat = torch.zeros_like(feat).index_add_(0, gauss_id, ginst)
+    t_fin = torch.where(log_t >= LOG_TEPS, torch.exp(log_t), 0.0)
+    grad_bg = (grad_raw * t_fin).sum(dim=(1, 2))
+    return grad_feat, grad_bg
 
 
 class _BlendFwd(torch.autograd.Function):
+    """K1 forward, K2 backward; differentiable in feat and bg."""
+
     @staticmethod
     def forward(ctx, feat, gauss_id, starts, ends, bg, width, height):
-        return blend_fwd(feat, gauss_id, starts, ends, bg, width, height)[0]
+        img, log_t, n_walked, _ = blend_fwd(feat, gauss_id, starts, ends, bg,
+                                            width, height)
+        ctx.save_for_backward(feat, gauss_id, starts, ends, bg, log_t,
+                              n_walked)
+        ctx.size = (width, height)
+        return img
 
     @staticmethod
     def backward(ctx, grad_img):
-        raise NotImplementedError(
-            "K2 (_bwd_kernel) is ported with scene training")
+        feat, gauss_id, starts, ends, bg, log_t, n_walked = ctx.saved_tensors
+        grad_feat, grad_bg = blend_bwd(
+            feat, gauss_id, starts, ends, bg, *ctx.size,
+            grad_img.to(torch.float32).contiguous(), log_t, n_walked)
+        return grad_feat, None, None, None, grad_bg, None, None
 
 
 def blend_tiles(pg: ProjectedGaussians, bins: TileBins, width: int,
-                height: int, bg: torch.Tensor, tile=TILE) -> torch.Tensor:
+                height: int, bg: torch.Tensor) -> torch.Tensor:
     """Composite all tiles. Returns (3, H, W) in [0, 1].
 
-    CUDA tensors go through K1, which takes 16x16 tiles only; CPU
-    tensors through blend_tiles_plain, with no tile cap."""
+    CUDA tensors go through K1 (and K2 for the gradient), on 16x16 tiles;
+    CPU tensors through blend_tiles_plain, with no tile cap."""
     if pg.mean2d.device.type == "cpu":
-        return blend_tiles_plain(pg, bins, width, height, bg, None, tile)
-    if tile != TILE:
-        raise ValueError(f"the CUDA blend takes {TILE}x{TILE} tiles, "
-                         f"not {tile}")
-    return _BlendFwd.apply(gauss_features(pg), bins.gauss_id, bins.starts,
-                           bins.ends, bg.to(torch.float32).contiguous(),
-                           width, height)
+        return blend_tiles_plain(pg, bins, width, height, bg)
+    raw = _BlendFwd.apply(gauss_features(pg), bins.gauss_id, bins.starts,
+                          bins.ends, bg.to(torch.float32).contiguous(),
+                          width, height)
+    return clip01(raw)

@@ -29,6 +29,13 @@ T_EPS = 1e-4
 LOG_TEPS = float(torch.log(torch.tensor(T_EPS, dtype=torch.float32)))
 
 
+def clip01(x: torch.Tensor) -> torch.Tensor:
+    """x clipped to [0, 1] with jnp.clip's gradient: 0.5 at exactly 0 or 1
+    (torch.clamp passes 1 there). A pixel with no splat on a zero
+    background is exactly 0, so the bound is common in training."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+
+
 def gaussian_alpha(mean2d, conic, opacity, px, py, radius=None):
     """alpha of Gaussians (..., 2)/(..., 3)/(...) at pixel centres px, py
     (broadcastable). Returns the clamped alpha with the cutoffs applied;
@@ -75,5 +82,4 @@ def render_oracle(pg: ProjectedGaussians, width: int, height: int,
     else:
         final_t = torch.ones(alpha.shape[1], device=dev)
     img = color + bg[:, None] * final_t[None, :]
-    return torch.clamp(img.reshape(3, height, width).permute(1, 2, 0),
-                       0.0, 1.0)
+    return clip01(img.reshape(3, height, width).permute(1, 2, 0))

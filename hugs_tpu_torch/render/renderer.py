@@ -6,8 +6,9 @@
 first, into one depth-sorted blend (the ml-hugs gs_renderer contract).
 
 Backends: 'tiled' (default) bins into 16x16 tiles and blends through
-cuda_blend.blend_tiles, which launches the CUDA kernel for CUDA tensors
-and runs the plain PyTorch blend for CPU tensors; 'oracle' is the dense
+cuda_blend.blend_tiles, which launches the CUDA kernels for CUDA tensors
+(K1 forward, K2 backward) and runs the plain PyTorch blend under autograd
+for CPU tensors; 'oracle' is the dense
 reference. Inputs may carry an `alive` capacity mask; culled or dead
 Gaussians render with radius 0.
 """
@@ -72,7 +73,7 @@ def render(
     elif backend == "tiled":
         budget = instance_budget or max(4 * means3d.shape[0], 1 << 16)
         bins = bin_gaussians(pg, width, height, budget, TILE)
-        img = cuda_blend.blend_tiles(pg, bins, width, height, bg, TILE)
+        img = cuda_blend.blend_tiles(pg, bins, width, height, bg)
         overflowed = bins.overflowed
         n_instances = bins.n_instances
         n_slots = bins.n_slots

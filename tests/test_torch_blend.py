@@ -139,7 +139,7 @@ def test_cuda_blend_routes_cpu_tensors_to_plain():
 @pytest.mark.parametrize("name", ["7", "saturating"])
 def test_k1_matches_plain_on_card(cuda_device, name):
     """K1 against the plain blend on the card, at a test-sized scene:
-    images atol 2e-5; final log T atol 1e-4 on the pixels that did not
+    raw images atol 2e-5; final log T atol 1e-4 on the pixels that did not
     saturate (K1 stops summing where a pixel saturates, the plain blend
     does not, and the two sum in another order)."""
     scene = _scene(name)
@@ -150,7 +150,7 @@ def test_k1_matches_plain_on_card(cuda_device, name):
     bins = bin_gaussians(pg, W, H, 16384)
     bg = torch.tensor([0.2, 0.3, 0.4], device=cuda_device)
     feat = gauss_features(pg)
-    img, log_t, walked = cuda_blend.blend_fwd(
+    img, log_t, n_walked, walked = cuda_blend.blend_fwd(
         feat, bins.gauss_id, bins.starts, bins.ends, bg, W, H)
     ref, ref_log_t, _ = plain_blend(feat, bins.gauss_id, bins.starts,
                                     bins.ends, bg, W, H)
@@ -161,5 +161,8 @@ def test_k1_matches_plain_on_card(cuda_device, name):
                                atol=1e-4)
     listed = np_of(bins.ends - bins.starts)
     assert (np_of(walked) <= listed).all()
+    per_pixel = np.kron(np_of(walked).reshape(3, 4),
+                        np.ones((16, 16), np.int64))
+    assert (np_of(n_walked) <= per_pixel).all()
     if name == "saturating":        # the early exit cut the walk short
         assert not live.any() and np_of(walked).sum() < listed.sum()

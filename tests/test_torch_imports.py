@@ -88,9 +88,17 @@ def test_kernel_launcher_refuses_cpu_tensors():
         cuda_blend.blend_fwd(feat, gid, se, se, torch.zeros(3), 16, 16)
 
 
-def test_backward_is_not_ported():
-    with pytest.raises(NotImplementedError, match="K2"):
-        cuda_blend._BlendFwd.backward(None, torch.zeros(3, 16, 16))
+def test_k2_launcher_refuses_cpu_tensors():
+    """K2 runs on the card only: its launcher refuses CPU tensors, and a
+    CPU render differentiates the plain blend instead."""
+    feat = torch.zeros((4, 10))
+    gid = torch.zeros(8, dtype=torch.int32)
+    se = torch.zeros(1, dtype=torch.int32)
+    plane = torch.zeros((16, 16))
+    with pytest.raises(ValueError, match="K2 runs on CUDA"):
+        cuda_blend.blend_bwd(feat, gid, se, se, torch.zeros(3), 16, 16,
+                             torch.zeros((3, 16, 16)), plane,
+                             plane.to(torch.int32))
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -105,3 +113,19 @@ def test_library_path_follows_the_source():
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("blend_fwd-") and path.suffix == ".so"
     assert path == build.library_path(cuda_blend.SOURCE)
+    assert build.library_path(cuda_blend.BWD_SOURCE).name.startswith(
+        "blend_bwd-")
+
+
+def test_library_path_follows_the_shared_header(monkeypatch, tmp_path):
+    """An edit to a csrc/*.cuh header moves every kernel's library."""
+    for f in build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = [build.library_path(s)
+              for s in (cuda_blend.SOURCE, cuda_blend.BWD_SOURCE)]
+    header = tmp_path / "blend_common.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = [build.library_path(s)
+             for s in (cuda_blend.SOURCE, cuda_blend.BWD_SOURCE)]
+    assert before[0] != after[0] and before[1] != after[1]
