@@ -3,16 +3,22 @@
 NVIDIA GPU.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
-It builds the CUDA kernels (K1, the forward blend, and K2, its backward)
-from the sources in the checkout, then:
+It builds the CUDA kernels (K1, the forward blend, and K2, its backward,
+which also adds each instance's gradient onto its Gaussian) from the
+sources in the checkout, then:
 
-  1. setup: TF32 off, the card's name and power limit, the build time;
+  1. setup: TF32 off, the card's name and power limit, the build time,
+     each kernel's registers, static shared memory, spills and resident
+     blocks per SM (ptxas's report from this run's build, or the one
+     kept beside a library built earlier from the same source);
   2. K1 against its plain PyTorch version at full width (50k Gaussians,
      SH degree 3, 960x540), on the same bins, plus the whole tiled render
      against the dense oracle on two small scenes, one saturated so that
      K1's early exit fires;
   2b. K2 against its plain version (plain_blend_bwd) on the same bins and
      K1's outputs, with a random d(loss)/d(image) drawn from a seed;
+     the share of the (warp, instance) pairs K1 and K2 cull that the
+     warp cull drops;
   3. the serving path through the user's entry points: a PLY of that
      scene -> create_from_ply -> compact -> scene_forward ->
      render_human_scene(render_mode="scene") for 4 camera views;
@@ -28,11 +34,14 @@ from the sources in the checkout, then:
   4. times on the card (CUDA events, median of 20 after warm-up): one
      request split into project / bin / blend, one training step split
      into forward / loss / backward / Adam + stats, one densify step,
-     the device's idle share from torch.profiler traces of 5 requests
-     and of 3 training steps; then, on both frames, K1's and K2's device
-     time over back-to-back launches, one call's latency, the plain
-     versions' times and each kernel's bound, the least time the card
-     could take for its work;
+     the device's idle share and the top device kernels from
+     torch.profiler traces of 5 requests and of 3 training steps (which
+     must list no index_add_ kernel); then, on both frames, K1's and
+     K2's device time over back-to-back launches, one call's latency,
+     the plain versions' times and each kernel's bound, the least time
+     the card could take for the work this frame needs of it (and the
+     bound at the first kernels' operation count, the yardstick that
+     compares designs);
   5. one JSON line of the kernels; 6. the device line, last.
 
 Any failed phase raises and the script exits non-zero. Without a CUDA
@@ -62,14 +71,24 @@ BACK_TO_BACK = 20   # kernel launches per timed span
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
-# float operations K1 spends per (pixel, instance) pair it tests, and the
-# extra ones per pair it blends, counted from csrc/blend_fwd.cu; K2
-# recomputes the same alpha per pair the forward tested, then spends 48
-# per pair with alpha > 0 (csrc/blend_bwd.cu) and 9 adds to sum the
-# pair's nine gradients into its instance's
+# float operations per (pixel, instance) pair tested (pair_alpha: 22),
+# the extra ones K1 spends per pair it blends (12), and the ones K2 spends
+# per pair with alpha > 0 (pair_grad: 38, and 9 adds to sum its nine
+# values into its instance's)
 OPS_TESTED = 22
 OPS_BLENDED = 12
-OPS_BWD_BLENDED = 57
+OPS_BWD_BLENDED = 38 + 9
+# the warp cull of one (warp, instance), cull_keep in blend_common.cuh:
+# the clamp and disk test 11, the rectangle's offsets and inside test 8,
+# the safe conic 2, four edges at 14 each, their minimum 4, the conic's
+# definiteness 6 and the opacity test 4; and the sum of a kept (warp,
+# instance)'s nine values over the block's warps in K2
+OPS_CULL = 91
+OPS_WARP_SUM = 9
+# the yardstick: the bound at the first kernels' count, which charges every
+# pair of the walk as tested (culled or not) and K2 57 per blended pair,
+# so that times of every design read against one bound
+OPS_BWD_BLENDED_FIRST = 57
 # K1 holds to its plain version: the two sum log1p(-alpha) in another
 # order, so a pixel at the T_EPS threshold may flip, which moves it by at
 # most 0.99 * 1e-4 times its colour
@@ -77,7 +96,7 @@ PIXEL_ATOL = 2e-5
 MIN_SHARE = 0.9999
 MAX_ABS = 1e-3
 # K2 holds to its plain version per feature column: the sums run in
-# another order, index_add_ adds in an order that is not fixed, and a
+# another order, K2's atomics add in an order that is not fixed, and a
 # pair at the T_EPS threshold may flip
 GRAD_ATOL, GRAD_RTOL, GRAD_SHARE, GRAD_REL_NORM = 1e-5, 1e-3, 0.999, 1e-4
 BG_RTOL = 1e-4
@@ -216,6 +235,28 @@ def print_profile(what, reps, by_kernel, per_call, span_us, smi, top=8):
         print(f"#   {us:9.2f} us  {name[:90]}")
 
 
+def kernel_resources(log, kernel):
+    """Registers, static shared memory (bytes) and spill stores of the
+    entry function named `kernel` in nvcc's `-Xptxas -v` output."""
+    entry, out = None, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line
+        elif entry is not None and kernel in entry:
+            if "spill stores" in line:
+                spills = int(line.split("bytes spill stores")[0]
+                             .split(",")[-1])
+                out = dict(out or {}, spill_bytes=spills)
+            if "registers" in line:
+                regs = int(line.split("Used")[1].split("registers")[0])
+                smem = int(line.split("bytes smem")[0].split(",")[-1]) \
+                    if "bytes smem" in line else 0
+                out = dict(out or {}, registers=regs, smem_bytes=smem)
+    if not out or "registers" not in out:
+        raise AssertionError(f"no ptxas report for {kernel}")
+    return out
+
+
 def held(name, got, want, atol=PIXEL_ATOL):
     """Share of elements within atol and the max |difference|; raises
     unless the share reaches MIN_SHARE and the max stays under MAX_ABS."""
@@ -278,7 +319,7 @@ def main():
     )
     from hugs_tpu_torch.render import cuda_blend, make_camera
     from hugs_tpu_torch.render.blend import (
-        N_FEAT, gauss_features, plain_blend, plain_blend_bwd,
+        gauss_features, plain_blend, plain_blend_bwd,
     )
     from hugs_tpu_torch.render.oracle import LOG_TEPS, clip01
     from hugs_tpu_torch.render.project import project_gaussians
@@ -311,6 +352,23 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"# nvcc {name}: {line.strip()}")
+    occupancy = cuda_blend.blocks_per_sm()
+    resources = {}
+    for k, source, entry in (("K1", cuda_blend.SOURCE, "blend_fwd_kernel"),
+                             ("K2", cuda_blend.BWD_SOURCE,
+                              "blend_bwd_kernel")):
+        # ptxas's report is this run's, or the one kept beside a library
+        # built earlier from the same source and flags
+        ptxas = ("this run's nvcc" if source in build.compiled else
+                 build.library_path(source).with_suffix(".log").name)
+        resources[k] = dict(kernel_resources(build.build_logs[source], entry),
+                            blocks_per_sm=occupancy[k], ptxas_report=ptxas)
+        r = resources[k]
+        print(f"# {k} {entry}: {r['registers']} registers, "
+              f"{r['smem_bytes']} B static shared memory, {r['spill_bytes']}"
+              f" B spill stores (ptxas report: {ptxas}), "
+              f"{r['blocks_per_sm']} resident blocks per SM "
+              f"({r['blocks_per_sm'] * 8} of 64 warps)")
 
     # ---- 2. K1 against plain at full width
     raw = build_scene(N_GAUSS, SEED)
@@ -370,6 +428,49 @@ def main():
             .repeat_interleave(TILE, 1)
         return img[:H, :W]
 
+    def cull_counts(frame, feat, b, n_walked):
+        """What the warp cull leaves the kernels to do on one frame, from
+        their own device cull. K2's warps cull their tile's instances up
+        to the most any of their 32 pixels walked in K1; K1's cull whole
+        chunks of 32 until every pixel of the warp has saturated. Returns
+        each kernel's culled (warp, instance) pairs and the share dropped,
+        K2's kept ones, and the (pixel, instance) pairs both kernels test:
+        the kept instances before each pixel's n_walked."""
+        rows = cuda_blend.WARP_RECT[1]
+        wpt = TILE // rows   # warps per tile
+        nw = torch.zeros((ny * TILE, nx * TILE), dtype=torch.int64,
+                         device=dev)
+        nw[:H, :W] = n_walked
+        # (tiles * wpt, 32): the n_walked of each warp's pixels
+        per_warp = nw.reshape(ny, wpt, rows, nx, TILE) \
+            .permute(0, 3, 1, 2, 4).reshape(-1, rows * TILE)
+        k2_len = per_warp.amax(1)
+        count = (b.ends - b.starts).long().repeat_interleave(wpt)
+        k1_len = torch.minimum((k2_len + 31) // 32 * 32, count)
+        seg0 = torch.cumsum(k1_len, 0) - k1_len
+        warp_of = torch.repeat_interleave(
+            torch.arange(k1_len.numel(), device=dev), k1_len)
+        offset = torch.arange(warp_of.numel(), device=dev) - seg0[warp_of]
+        t, w = warp_of // wpt, warp_of % wpt
+        gid = b.gauss_id[b.starts.long()[t] + offset]
+        keep = cuda_blend.warp_cull(
+            feat, gid, (t % nx).to(torch.int32),
+            ((t // nx) * wpt + w).to(torch.int32))
+        in_k2 = offset < k2_len[warp_of]
+        kept = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                          torch.cumsum(keep.long(), 0)])
+        s0 = seg0[:, None]
+        out = {"tested": int((kept[s0 + per_warp] - kept[s0]).sum()),
+               "K2_kept": int((keep & in_k2).sum())}
+        for k, n in (("K1", int(keep.numel())), ("K2", int(in_k2.sum()))):
+            kept_k = int(keep.sum()) if k == "K1" else out["K2_kept"]
+            out[k] = n
+            out[k + "_dropped"] = 1.0 - kept_k / n if n else 0.0
+            print(f"# warp cull, {frame}: {k}'s warps cull {n} (warp, "
+                  f"instance) pairs and drop {out[k + '_dropped'] * 100:.2f}%"
+                  f" of them")
+        return out
+
     # K1's per-pixel walk: within its tile's walk, and the instances the
     # plain blend tests before saturation, up to pairs at the threshold
     if bool((nwalk_k > tile_of_pixel(walked)).any()):
@@ -418,7 +519,7 @@ def main():
     gf_p, gb_p = plain_blend_bwd(feat, bins.gauss_id, bins.starts, bins.ends,
                                  bg, W, H, g_raw)
     torch.cuda.synchronize()
-    print("# K2 bar: the sums run in another order, index_add_ adds in an "
+    print("# K2 bar: the sums run in another order, K2's atomics add in an "
           "order that is not fixed, and a pair at the T_EPS threshold may "
           "flip")
     k2_err = held_grad("K2 grad_feat vs plain", gf_k[:, :9], gf_p[:, :9])
@@ -437,6 +538,8 @@ def main():
                               64, 48, g_s)
     held_grad("K2 grad_feat vs plain, 64x48 saturated", gs_k[:, :9],
               gs_p[:, :9])
+    cull_serve = cull_counts("phase 2's frame (serving)", feat, bins,
+                             nwalk_k)
 
     # ---- 3. serving path through the user's entry points
     with tempfile.TemporaryDirectory() as tmp:
@@ -624,6 +727,8 @@ def main():
           f"{gb_tp.tolist()}: max relative {bg_rel_t:.3e} (bar {BG_RTOL})")
     if bg_rel_t > BG_RTOL:
         raise AssertionError("K2 grad_bg disagrees on step 0's frame")
+    cull_train = cull_counts("step 0's frame (training)", feat_t, bins_t,
+                             nwalk_t)
 
     # ---- 4. times on the card
     # one request by stage: scene_forward + projection, binning, K1
@@ -703,21 +808,29 @@ def main():
         train_step, reps=PROFILED_STEPS)
     print_profile("training step", PROFILED_STEPS, by_kernel_t,
                   kernels_per_step, span_t_us, smi)
+    scatter = [name for name in by_kernel_t if "indexFunc" in name]
+    if scatter:
+        raise AssertionError(f"a training step still runs {scatter}")
     k2_prof_ms = sum(us for name, us in by_kernel_t.items()
                      if "blend_bwd_kernel" in name) / 1e3
 
-    def kernel_times(frame, feat, b, bg, g, log_t, n_walked, pairs):
+    def kernel_times(frame, feat, b, bg, g, log_t, n_walked, pairs, cull):
         """K1's and K2's times on one frame (device time from back-to-back
-        launches; one call alone adds the wrapper's host cost, for K2 also
-        its index_add_ and grad_bg), their plain versions', and each
+        calls of blend_fwd and blend_bwd, for K2 its whole function: the
+        zeroed outputs and the kernel with its atomics; one call alone
+        adds the wrapper's host cost), their plain versions', and each
         kernel's bound, the larger of its operations and bytes over the
-        card's peaks. Prints them and returns them in a dict."""
+        card's peaks: the operations this frame needs of the kernel (the
+        pairs the cull keeps, the culls, the blended pairs; K2's
+        per-instance gradient, 11 per (tile, instance), is left out), and
+        beside it the yardstick at the first kernels' count. Prints them
+        and returns them in a dict."""
         args = (feat, b.gauss_id, b.starts, b.ends, bg, W, H)
         bwd = args + (g, log_t, n_walked)
         t = {"k1": time_ms(lambda: cuda_blend.blend_fwd(*args),
                            inner=BACK_TO_BACK),
              "k1_call": time_ms(lambda: cuda_blend.blend_fwd(*args)),
-             "k2": time_ms(lambda: cuda_blend.blend_bwd_slots(*bwd),
+             "k2": time_ms(lambda: cuda_blend.blend_bwd(*bwd),
                            inner=BACK_TO_BACK),
              "k2_call": time_ms(lambda: cuda_blend.blend_bwd(*bwd)),
              "plain": time_ms(lambda: plain_blend(*args)),
@@ -725,23 +838,32 @@ def main():
         tested, blended = (int(x) for x in pairs.sum(dim=(1, 2)))
         n_inst = int((b.ends - b.starts).sum())
         n_tiles = b.starts.shape[0]
+        kept = cull["tested"]
         work = {
             # feat, the list, starts + ends, bg; image + log T + n_walked;
             # walked
-            "k1": (OPS_TESTED * tested + OPS_BLENDED * blended,
+            "k1": (OPS_TESTED * kept + OPS_CULL * cull["K1"]
+                   + OPS_BLENDED * blended,
+                   OPS_TESTED * tested + OPS_BLENDED * blended,
                    feat.numel() * 4 + n_inst * 4 + 2 * n_tiles * 4 + 3 * 4
                    + 5 * W * H * 4 + n_tiles * 4),
-            # feat, the list, starts, bg; g + log T + n_walked; the rows
-            "k2": (OPS_TESTED * tested + OPS_BWD_BLENDED * blended,
+            # feat, the list, starts, bg; g + log T + n_walked; K2's
+            # outputs, grad_feat (N, 10) and grad_bg
+            "k2": (OPS_TESTED * kept + OPS_CULL * cull["K2"]
+                   + OPS_WARP_SUM * cull["K2_kept"]
+                   + OPS_BWD_BLENDED * blended,
+                   OPS_TESTED * tested + OPS_BWD_BLENDED_FIRST * blended,
                    feat.numel() * 4 + n_inst * 4 + n_tiles * 4 + 3 * 4
-                   + 5 * W * H * 4 + n_inst * N_FEAT * 4)}
-        print(f"# {frame}: {tested} pairs tested, {blended} blended, "
-              f"{n_inst} instances  [{smi}]")
-        for k, (ops, nbytes) in work.items():
+                   + 5 * W * H * 4 + feat.numel() * 4 + 3 * 4)}
+        print(f"# {frame}: {tested} pairs in the walk, {kept} of them kept "
+              f"by the cull and tested, {blended} blended, {n_inst} "
+              f"instances  [{smi}]")
+        for k, (ops, ops_first, nbytes) in work.items():
             ops_ms, bytes_ms = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
             t[k + "_bound"] = max(ops_ms, bytes_ms)
             t[k + "_bound_by"] = "operations" if ops_ms >= bytes_ms \
                 else "bytes"
+            t[k + "_yardstick"] = max(ops_first / PEAK_FP32 * 1e3, bytes_ms)
             plain = t["plain" if k == "k1" else "plain_bwd"]
             print(f"#   {k.upper()} {t[k]:.4f} ms ({BACK_TO_BACK} "
                   f"back-to-back launches), one call {t[k + '_call']:.4f} ms,"
@@ -749,16 +871,19 @@ def main():
                   f" = {ops_ms:.5f} ms, {nbytes} bytes / 3.35 TB/s = "
                   f"{bytes_ms:.5f} ms, so {t[k + '_bound']:.5f} ms by "
                   f"{t[k + '_bound_by']} ({t[k + '_bound'] / t[k] * 100:.1f}%"
-                  f" of its time)")
+                  f" of its time); yardstick at the first kernels' count "
+                  f"{ops_first:.4e} ops = {t[k + '_yardstick']:.5f} ms "
+                  f"({t[k + '_yardstick'] / t[k] * 100:.1f}%)")
         return t
 
     print(f"# card: {card}")
     # phase 2's frame is the serving path's; step 0's frame is the
     # largest the training path gives K1 and K2
     serve_t = kernel_times("phase 2's frame (serving)", feat, bins, bg,
-                           g_raw, logt_k, nwalk_k, pairs)
+                           g_raw, logt_k, nwalk_k, pairs, cull_serve)
     train_t = kernel_times("step 0's frame (training, view 0)", feat_t,
-                           bins_t, black, g_t, logt_t, nwalk_t, pairs_t)
+                           bins_t, black, g_t, logt_t, nwalk_t, pairs_t,
+                           cull_train)
     print(f"# K1 profiler {k1_prof_ms:.4f} ms per request; request "
           f"{stage_ms['request']:.4f} ms = project {stage_ms['project']:.4f}"
           f" + bin {stage_ms['bin']:.4f} + blend {stage_ms['blend']:.4f} ms"
@@ -781,8 +906,12 @@ def main():
         "ms": serve_t["k1"], "call_ms": serve_t["k1_call"],
         "plain_ms": serve_t["plain"], "bound_ms": serve_t["k1_bound"],
         "bound_by": serve_t["k1_bound_by"], "library_ms": None,
+        "yardstick_bound_ms": serve_t["k1_yardstick"],
         "training_frame": {k: train_t[k] for k in (
-            "k1", "k1_call", "plain", "k1_bound")},
+            "k1", "k1_call", "plain", "k1_bound", "k1_yardstick")},
+        "cull_dropped_share": {"serving": cull_serve["K1_dropped"],
+                               "training": cull_train["K1_dropped"]},
+        **resources["K1"],
         "held_to": "plain_blend", "ok": True,
     }, {
         "name": "K2 blend_bwd", "route": "cuda",
@@ -794,8 +923,12 @@ def main():
         "ms": train_t["k2"], "call_ms": train_t["k2_call"],
         "plain_ms": train_t["plain_bwd"], "bound_ms": train_t["k2_bound"],
         "bound_by": train_t["k2_bound_by"], "library_ms": None,
+        "yardstick_bound_ms": train_t["k2_yardstick"],
         "serving_frame": {k: serve_t[k] for k in (
-            "k2", "k2_call", "plain_bwd", "k2_bound")},
+            "k2", "k2_call", "plain_bwd", "k2_bound", "k2_yardstick")},
+        "cull_dropped_share": {"serving": cull_serve["K2_dropped"],
+                               "training": cull_train["K2_dropped"]},
+        **resources["K2"],
         "held_to": "plain_blend_bwd", "ok": True,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,9 @@
 Each `csrc/<name>.cu` compiles with nvcc into a shared library with a
 plain C interface, `build/hugs_tpu_torch/<name>-<hash>.so` under the
 repository root, keyed on a hash of the source, the shared headers
-(`csrc/*.cuh`) and the flags; a library
-that is already there is reused. There is no fallback: a missing nvcc or
-a failed build raises.
+(`csrc/*.cuh`) and the flags, with nvcc's output (ptxas -v) beside it in
+`<name>-<hash>.log`; a library that is already there with its log is
+reused. There is no fallback: a missing nvcc or a failed build raises.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}   # nvcc's output (ptxas -v) per source
+compiled: set[str] = set()   # the sources this process compiled
 
 
 def nvcc() -> str:
@@ -50,13 +51,16 @@ def library_path(name: str) -> Path:
 
 
 def build(names) -> dict[str, Path]:
-    """Compile every named source that is not built yet, one nvcc process
-    per source, all started together. Returns {name: library path}."""
+    """Compile every named source that is not built yet (no library, or
+    no log beside it), one nvcc process per source, all started together.
+    Returns {name: library path}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: library_path(name) for name in names}
     procs = {}
     for name, path in paths.items():
-        if path.exists():
+        log = path.with_suffix(".log")
+        if path.exists() and log.exists():
+            build_logs[name] = log.read_text()
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -70,7 +74,9 @@ def build(names) -> dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
         else:
+            paths[name].with_suffix(".log").write_text(out)
             os.replace(tmp, paths[name])
+            compiled.add(name)
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
     return paths

@@ -1,23 +1,33 @@
 // K2: backward tile blend of the splat renderer, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_bwd_kernel` of hugs_tpu/render/pallas_blend.py
-// (launched by `_blend_core_bwd`). It computes what that kernel computes:
-// given g = dL/d(raw colour) per pixel, the gradient of the forward blend
-// (K1, blend_fwd.cu; semantics of hugs_tpu_torch/render/oracle.py) with
-// respect to each instance's r g b, opacity, mean x y and conic a b c.
-// Each pixel walks its tile's instances back to front, from the last one
-// it walked in the forward (K1's per-pixel n_walked) to the first, and
-// rebuilds the exclusive transmittance of instance i from K1's final
-// log T as T_i = exp(log T_fin - sum_{j >= i} log1p(-alpha_j)), with
+// (launched by `_blend_core_bwd`), with the XLA code around it: the
+// background's gradient (pallas_blend.py:872-876) and the scatter of the
+// per-instance rows onto the Gaussians (the AD transpose of
+// `_pack_aligned`'s gather). Given g = dL/d(raw colour) per pixel, it adds
+// the gradient of the forward blend (K1, blend_fwd.cu; semantics of
+// hugs_tpu_torch/render/oracle.py) with respect to each Gaussian's r g b,
+// opacity, mean x y and conic a b c into grad_feat (N, 10), and the
+// background's into grad_bg (3,). Each pixel walks its tile's instances
+// back to front, from the last one it walked in the forward (K1's
+// per-pixel n_walked) to the first, and rebuilds the exclusive
+// transmittance of instance i from K1's final log T as
+// T_i = exp(log T_fin - sum_{j >= i} log1p(-alpha_j)), with
 //   S      = sum_c g_c bg_c T_fin [log T_fin >= log 1e-4]   (seed)
 //   w_i    = alpha_i T_i [log T_i >= log 1e-4]
 //   d_rgb  = g w_i
 //   d_alpha= (g . rgb_i) T_i - S / (1 - alpha_i);  S += w_i (g . rgb_i)
-//   dp     = d_alpha alpha_i where alpha_i < 0.99 (d power), else 0
-//   d_op   = dp / op;  d_mean = dp d power/d mean;  d_conic likewise.
-// These are pallas_blend.py:591-668 written per pixel. The alpha of a pair
-// is recomputed with K1's own code (blend_common.cuh), so the two agree
-// on which pairs are kept.
+//   dp     = d_alpha alpha_i where alpha_i < 0.99 (d power), else 0.
+// These are pallas_blend.py:591-668 written per pixel. Per pair it keeps
+// nine sums: g w (three), dp, dp dx, dp dy, dp dx^2, dp dx dy, dp dy^2,
+// with dx, dy relative to the mean as pair_alpha returns them; once per
+// instance, after the sum over the tile's pixels,
+//   d_op = sum dp / op,  d_mx = -(ca sum dp dx + cb sum dp dy),
+//   d_my = -(cc sum dp dy + cb sum dp dx),  d_ca = -sum dp dx^2 / 2,
+//   d_cb = -sum dp dx dy,  d_cc = -sum dp dy^2 / 2,
+// which saves a division and the conic products per blended pair. The
+// alpha of a pair is recomputed with K1's own code (blend_common.cuh), so
+// the two agree on which pairs are kept.
 //
 // The suffix sum of log1p(-alpha) and S are Kahan-compensated. Where the
 // splats behind instance i share its colour, d_alpha is a cancellation:
@@ -27,38 +37,46 @@
 // rounding of log T_fin scales every rebuilt T_i and S alike, so it scales
 // d_alpha and is not amplified.
 //
-// Design: one block of 256 threads per 16x16 tile, one thread per pixel.
-// The block stages its tile's instances through shared memory in batches
-// of 128, last batch first, and every thread walks the batch in reverse.
-// Each instance's nine gradients are then summed over the block's pixels
-// without atomics, in a fixed order: a warp-shuffle tree per warp (skipped,
-// with zeros written, where no lane of the warp touched the instance),
-// lane 0's partial to shared memory, and after the batch a sum over the 8
-// warps in warp order written to the instance's slot. Each slot of the
-// instance list belongs to one tile, so the output needs no atomics and
-// the kernel is deterministic. Slots past the last instance any pixel of
-// the tile walked are not written: the wrapper zeroes the output. The
-// wrapper scatters the slots onto the Gaussians (index_add_) and computes
-// the background's gradient, as the XLA code around the TPU kernel does.
+// Design: one block of 256 threads per 16x16 tile, one thread per pixel,
+// warp w on pixel rows 2w and 2w + 1. The block stages its tile's
+// instances in shared memory in batches of 128, last batch first, 128
+// threads loading one instance's row each. Per batch each warp culls as
+// K1 does (lane l tests instances l, l + 32, ... against the warp's 16x2
+// rectangle, and past every lane's n_walked; a ballot gives the mask),
+// then walks the kept instances back to front in groups of kGroup = 8. A lane holds its nine
+// partials of a group's instances in registers, and the warp sums them
+// with a butterfly that also scatters the results (a reduce-scatter): at
+// each of the first three stages a lane keeps half of its instances and
+// sends the other half, then two stages finish the sum, 81 shuffles per
+// group where a tree per instance takes 360. The stages run as the
+// group's instances are computed, so at most four instances' partials are
+// live. Lanes 0, 4, ... write the warp's sums to shared memory; after the
+// batch, one thread per instance adds the eight warps' sums in warp order
+// (a fixed order within the tile), forms the instance's gradient and adds
+// it to its Gaussian's row with one atomicAdd (red.global.add.f32) per
+// nonzero column. Gaussians appear in many tiles, so the atomics add in
+// an order that is not fixed and the result is not bit-reproducible; slots
+// no pixel walked, and the budget's padding, are never read or written.
+// Copies of the next batch that overlap the walk of this one (cp.async
+// into a second buffer) bought 2-4 % on an NVIDIA H100 80GB HBM3 at
+// 700 W, not worth their code while a training step is bound by the
+// host (PERF.md).
 //
 // The TPU kernel's mechanics (8 tiles per grid cell, a 4-deep DMA ring,
 // bf16 split matmuls for the suffix sums, the pixel-moment basis on the
 // matrix unit) exist for the TPU and have no counterpart here.
 //
-// Bound on the H100: operations. Each (pixel, instance) pair the forward
-// walked costs the alpha recompute (about 22 float operations and an exp)
-// and, where alpha > 0, about 48 more (a log1p, an exp, the products
-// above, the compensated sums), plus the shuffle tree, 45 shuffles and
-// adds per warp and instance; the bytes (the (N, 10) table, the instance list, three
-// per-pixel planes in, the (I, 10) gradients out) are tens of MB. The
-// simple design stands because it is exact, deterministic and needs no
-// tuning: fewer shuffles (a per-thread partial over several instances, or
-// the moment trick), and culling of instances that miss a whole warp
-// before the recompute, are work for a later change, measured against
-// this one.
+// Bound on the H100: operations. Each (pixel, instance) pair the cull
+// keeps within the forward's walk costs the alpha recompute (about 22
+// float operations and an exp) and, where alpha > 0, about 38 more (a
+// log1p, an exp, a division, the nine products, the compensated sums)
+// and 9 adds to sum them; each (warp, instance) it culls costs about 90;
+// the bytes (the (N, 10) table, the instance list, three per-pixel planes
+// in, grad_feat (N, 10) out) are tens of MB. Times against the bound:
+// PERF.md.
 //
-// Built with -fmad=false, as K1 is, so the alpha of a pair is
-// bit-identical to K1's and to the plain PyTorch version's.
+// Built with -fmad=false, as K1 is, so the alpha of a pair and the cull
+// are bit-identical to K1's and to the plain PyTorch version's.
 
 #include "blend_common.cuh"
 
@@ -67,15 +85,111 @@ namespace {
 using namespace hugs_blend;
 
 constexpr int kBatch = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kGrad = 9;  // d r g b op mx my ca cb cc; the radius has none
+constexpr int kWords = kBatch / 32;
+constexpr int kGrad = 9;  // the nine sums per instance; the radius has none
+constexpr int kGroupLog = 3;
+constexpr int kGroup = 1 << kGroupLog;
+constexpr unsigned kAll = 0xffffffffu;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  }
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kAll, v, off);
   return v;
+}
+
+// One pixel's walk state: its centre, g, K1's final log T and walked
+// count, and the Kahan sums S = s_acc - s_c and suffix = suf_log - suf_c.
+struct Pixel {
+  float px, py, g0, g1, g2, log_t, s_acc, s_c, suf_log, suf_c;
+  int n_walk;
+};
+
+// The warp's cursor over its mask of kept instances in one batch, back to
+// front. Every lane holds the same cursor.
+struct Cursor {
+  const unsigned* mask;  // kWords words in shared memory
+  int word;
+  unsigned bits;
+  __device__ __forceinline__ bool more() {
+    while (bits == 0u && word > 0) bits = mask[--word];
+    return bits != 0u;
+  }
+  // the next kept instance, or -1 when none is left
+  __device__ __forceinline__ int pop() {
+    if (!more()) return -1;
+    const int hb = 31 - __clz(bits);
+    bits &= ~(1u << hb);
+    return word * 32 + hb;
+  }
+};
+
+// The nine sums of one pair: instance row f at the pixel p, whose walk
+// reaches it if `live`. Advances the pixel's compensated sums.
+__device__ __forceinline__ void pair_grad(Pixel& p, const float* f, bool live,
+                                          float d[kGrad]) {
+#pragma unroll
+  for (int k = 0; k < kGrad; ++k) d[k] = 0.0f;
+  if (!live) return;
+  float dx, dy;
+  const float alpha =
+      pair_alpha(f[3], f[4], f[5], f[6], f[7], f[8], f[9], p.px, p.py, dx, dy);
+  if (alpha <= 0.0f) return;
+  // log T_i (exclusive) = log T_fin - (suffix behind i + la)
+  const float la_c = log1pf(-alpha) - p.suf_c;
+  const float pre = (p.log_t - p.suf_log) - la_c;
+  const float ti = pre >= kLogTEps ? expf(pre) : 0.0f;
+  const float w = alpha * ti;
+  const float gc = p.g0 * f[0] + p.g1 * f[1] + p.g2 * f[2];
+  const float d_alpha =
+      gc * ti - (p.s_acc - p.s_c) / fmaxf(1.0f - alpha, 1e-6f);
+  const float suf_new = p.suf_log + la_c;
+  p.suf_c = (suf_new - p.suf_log) - la_c;
+  p.suf_log = suf_new;
+  const float wg_c = w * gc - p.s_c;
+  const float s_new = p.s_acc + wg_c;
+  p.s_c = (s_new - p.s_acc) - wg_c;
+  p.s_acc = s_new;
+  const float dp = alpha < kMaxAlpha ? d_alpha * alpha : 0.0f;
+  d[0] = p.g0 * w;
+  d[1] = p.g1 * w;
+  d[2] = p.g2 * w;
+  d[3] = dp;
+  d[4] = dp * dx;
+  d[5] = dp * dy;
+  d[6] = d[4] * dx;
+  d[7] = d[4] * dy;
+  d[8] = d[5] * dy;
+}
+
+// The warp's sums of 2^L consecutive kept instances, reduce-scattered:
+// `out` holds, for the instance `j` this lane was assigned (-1 if the
+// group ran out), the sum of the partials of the 2^L lanes whose index
+// differs from this lane's only in bits 4 down to 5 - L; lane bits 4 ..
+// 5 - L pick the instance. Instances are computed back to front, and each
+// stage runs as soon as both of its halves are computed.
+template <int L>
+__device__ __forceinline__ void group_sums(Pixel& p, Cursor& cur,
+                                           float (*rows)[kFeat], int b0,
+                                           int lane, float out[kGrad],
+                                           int& j) {
+  if constexpr (L == 0) {
+    j = cur.pop();
+    pair_grad(p, rows[j < 0 ? 0 : j], j >= 0 && b0 + j < p.n_walk, out);
+  } else {
+    float a[kGrad], b[kGrad];
+    int ja, jb;
+    group_sums<L - 1>(p, cur, rows, b0, lane, a, ja);
+    group_sums<L - 1>(p, cur, rows, b0, lane, b, jb);
+    constexpr int off = 32 >> L;
+    const bool upper = (lane & off) != 0;
+#pragma unroll
+    for (int k = 0; k < kGrad; ++k) {
+      const float send = upper ? a[k] : b[k];
+      const float keep = upper ? b[k] : a[k];
+      out[k] = keep + __shfl_xor_sync(kAll, send, off);
+    }
+    j = upper ? jb : ja;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -87,145 +201,166 @@ blend_bwd_kernel(const float* __restrict__ feat,
                  const int* __restrict__ n_walked,
                  const float* __restrict__ grad,
                  int width, int height, int nx,
-                 float* __restrict__ ginst) {
-  __shared__ float s_feat[kFeat][kBatch];
+                 float* __restrict__ grad_feat,
+                 float* __restrict__ grad_bg) {
+  __shared__ float s_feat[kBatch][kFeat];
+  __shared__ int s_gid[kBatch];
   __shared__ float s_part[kWarps][kBatch][kGrad];
-  __shared__ int s_walk;
+  __shared__ unsigned s_mask[kWarps][kWords];
+  __shared__ float s_bg[kWarps][3];
+  __shared__ int s_walk[kWarps];
 
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int px_i = (t % nx) * kTile + tid % kTile;
-  const int py_i = (t / nx) * kTile + tid / kTile;
+  const int tx0 = (t % nx) * kTile;
+  const int ty0 = (t / nx) * kTile;
+  const int px_i = tx0 + tid % kTile;
+  const int py_i = ty0 + tid / kTile;
   const bool inside = px_i < width && py_i < height;
-  const float px = static_cast<float>(px_i);
-  const float py = static_cast<float>(py_i);
   const int start = starts[t];
 
-  // per-pixel setup: g, K1's final log T and walked count; the suffix
-  // sums start from the background's term
-  float g0 = 0.0f, g1 = 0.0f, g2 = 0.0f, log_t = 0.0f;
-  int n_walk = 0;
+  // per-pixel setup: g, K1's final log T and walked count; the sums start
+  // from the background's term
+  Pixel p{static_cast<float>(px_i), static_cast<float>(py_i), 0.0f, 0.0f,
+          0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0};
   if (inside) {
-    const size_t p = static_cast<size_t>(py_i) * width + px_i;
+    const size_t q = static_cast<size_t>(py_i) * width + px_i;
     const size_t plane = static_cast<size_t>(width) * height;
-    g0 = grad[p];
-    g1 = grad[plane + p];
-    g2 = grad[2 * plane + p];
-    log_t = log_t_fin[p];
-    n_walk = n_walked[p];
+    p.g0 = grad[q];
+    p.g1 = grad[plane + q];
+    p.g2 = grad[2 * plane + q];
+    p.log_t = log_t_fin[q];
+    p.n_walk = n_walked[q];
   }
-  const float t_fin = log_t >= kLogTEps ? expf(log_t) : 0.0f;
-  // S = s_acc - s_c and the suffix sum = suf_log - suf_c, Kahan sums
-  float s_acc = (g0 * bg[0] + g1 * bg[1] + g2 * bg[2]) * t_fin;
-  float s_c = 0.0f;
-  float suf_log = 0.0f, suf_c = 0.0f;
+  const float t_fin = p.log_t >= kLogTEps ? expf(p.log_t) : 0.0f;
+  p.s_acc = (p.g0 * bg[0] + p.g1 * bg[1] + p.g2 * bg[2]) * t_fin;
 
-  if (tid == 0) s_walk = 0;
+  // the background's gradient, sum_p g T_fin, and the walk lengths
+  const float gb0 = warp_sum(p.g0 * t_fin);
+  const float gb1 = warp_sum(p.g1 * t_fin);
+  const float gb2 = warp_sum(p.g2 * t_fin);
+  const int wwalk = __reduce_max_sync(kAll, p.n_walk);  // the warp's
+  if (lane == 0) {
+    s_bg[warp][0] = gb0;
+    s_bg[warp][1] = gb1;
+    s_bg[warp][2] = gb2;
+    s_walk[warp] = wwalk;
+  }
   __syncthreads();
-  if (n_walk > 0) atomicMax(&s_walk, n_walk);
-  __syncthreads();
-  const int walk = s_walk;  // the most any pixel of the tile walked
-
-  for (int b0 = ((walk - 1) / kBatch) * kBatch; walk > 0 && b0 >= 0;
-       b0 -= kBatch) {
-    const int n = min(kBatch, walk - b0);
-    if (tid < n) {
-      const float* f =
-          feat + static_cast<size_t>(gauss_id[start + b0 + tid]) * kFeat;
+  int walk = 0;  // the most any pixel of the tile walked
 #pragma unroll
-      for (int k = 0; k < kFeat; ++k) s_feat[k][tid] = f[k];
+  for (int w = 0; w < kWarps; ++w) walk = max(walk, s_walk[w]);
+  if (tid < 3) {
+    float v = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) v += s_bg[w][tid];
+    if (v != 0.0f) atomicAdd(grad_bg + tid, v);
+  }
+
+  for (int b = (walk + kBatch - 1) / kBatch - 1; b >= 0; --b) {
+    const int b0 = b * kBatch;
+    const int n = min(kBatch, walk - b0);
+    // keeps every reader of s_feat, s_gid, s_part and s_mask (the previous
+    // batch) ahead of this batch's writers
+    __syncthreads();
+    if (tid < n) {
+      const int gid = gauss_id[start + b0 + tid];
+      const float* f = feat + static_cast<size_t>(gid) * kFeat;
+#pragma unroll
+      for (int k = 0; k < kFeat; ++k) s_feat[tid][k] = f[k];
+      s_gid[tid] = gid;
     }
     __syncthreads();
 
-    for (int j = n - 1; j >= 0; --j) {
-      float d[kGrad];
+    // the warp's mask: instances that can have alpha > 0 at one of its
+    // pixels, and that some lane of it walked
 #pragma unroll
-      for (int k = 0; k < kGrad; ++k) d[k] = 0.0f;
-      bool hit = false;
-      if (b0 + j < n_walk) {
-        float dx, dy;
-        const float op = s_feat[3][j];
-        const float alpha =
-            pair_alpha(op, s_feat[4][j], s_feat[5][j], s_feat[6][j],
-                       s_feat[7][j], s_feat[8][j], s_feat[9][j], px, py, dx,
-                       dy);
-        if (alpha > 0.0f) {
-          hit = true;
-          // log T_i (exclusive) = log T_fin - (suffix behind i + la)
-          const float la_c = log1pf(-alpha) - suf_c;
-          const float pre = (log_t - suf_log) - la_c;
-          const float ti = pre >= kLogTEps ? expf(pre) : 0.0f;
-          const float w = alpha * ti;
-          const float gc =
-              g0 * s_feat[0][j] + g1 * s_feat[1][j] + g2 * s_feat[2][j];
-          const float d_alpha =
-              gc * ti - (s_acc - s_c) / fmaxf(1.0f - alpha, 1e-6f);
-          const float suf_new = suf_log + la_c;
-          suf_c = (suf_new - suf_log) - la_c;
-          suf_log = suf_new;
-          const float wg_c = w * gc - s_c;
-          const float s_new = s_acc + wg_c;
-          s_c = (s_new - s_acc) - wg_c;
-          s_acc = s_new;
-          const float dp = alpha < kMaxAlpha ? d_alpha * alpha : 0.0f;
-          const float ca = s_feat[6][j], cb = s_feat[7][j], cc = s_feat[8][j];
-          d[0] = g0 * w;
-          d[1] = g1 * w;
-          d[2] = g2 * w;
-          d[3] = dp / op;
-          d[4] = -dp * (ca * dx + cb * dy);
-          d[5] = -dp * (cc * dy + cb * dx);
-          d[6] = -0.5f * dp * dx * dx;
-          d[7] = -dp * dx * dy;
-          d[8] = -0.5f * dp * dy * dy;
+    for (int w = 0; w < kWords; ++w) {
+      const int i = w * 32 + lane;
+      const unsigned m = __ballot_sync(
+          kAll, i < n && b0 + i < wwalk &&
+                    warp_keep(s_feat[i], tx0, ty0, warp));
+      if (lane == 0) s_mask[warp][w] = m;
+    }
+    __syncwarp();
+
+    Cursor cur{s_mask[warp], kWords, 0u};
+    while (cur.more()) {
+      float r[kGrad];
+      int j;
+      group_sums<kGroupLog>(p, cur, s_feat, b0, lane, r, j);
+#pragma unroll
+      for (int off = 16 >> kGroupLog; off > 0; off >>= 1) {
+#pragma unroll
+        for (int k = 0; k < kGrad; ++k) r[k] += __shfl_xor_sync(kAll, r[k], off);
+      }
+      if ((lane & (32 / kGroup - 1)) == 0 && j >= 0) {
+#pragma unroll
+        for (int k = 0; k < kGrad; ++k) s_part[warp][j][k] = r[k];
+      }
+    }
+    __syncthreads();
+
+    // one thread per instance: the warps' sums in warp order, then the
+    // instance's gradient onto its Gaussian
+    if (tid < n) {
+      const unsigned bit = 1u << (tid & 31);
+      bool any = false;
+      float s[kGrad];
+#pragma unroll
+      for (int k = 0; k < kGrad; ++k) s[k] = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        if (s_mask[w][tid >> 5] & bit) {
+          any = true;
+#pragma unroll
+          for (int k = 0; k < kGrad; ++k) s[k] += s_part[w][tid][k];
         }
       }
-      if (__any_sync(0xffffffffu, hit)) {
+      if (any) {
+        const float* f = s_feat[tid];
+        const float op = f[3], ca = f[6], cb = f[7], cc = f[8];
+        const float g[kGrad] = {
+            s[0], s[1], s[2], op > 0.0f ? s[3] / op : 0.0f,
+            -(ca * s[4] + cb * s[5]), -(cc * s[5] + cb * s[4]),
+            -0.5f * s[6], -s[7], -0.5f * s[8]};
+        float* out = grad_feat + static_cast<size_t>(s_gid[tid]) * kFeat;
 #pragma unroll
-        for (int k = 0; k < kGrad; ++k) d[k] = warp_sum(d[k]);
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < kGrad; ++k) s_part[warp][j][k] = d[k];
+        for (int k = 0; k < kGrad; ++k) {
+          if (g[k] != 0.0f) atomicAdd(out + k, g[k]);
+        }
       }
     }
-    __syncthreads();
-
-    for (int e = tid; e < n * kGrad; e += kThreads) {
-      const int j = e / kGrad;
-      const int k = e - j * kGrad;
-      float v = 0.0f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) v += s_part[w][j][k];
-      ginst[static_cast<size_t>(start + b0 + j) * kFeat + k] = v;
-    }
-    // the next batch overwrites s_feat and s_part
-    __syncthreads();
   }
 }
 
 }  // namespace
 
 // Launches K2 on `stream` over n_tiles = nx * ny tiles of 16x16 pixels.
-// feat: (N, 10) float32 (the forward's); gauss_id, starts: the forward's
-// instance list and per-tile segment starts; bg: (3,); log_t_fin and
-// n_walked: K1's (H, W) outputs; grad: (3, H, W) dL/d(raw colour).
-// Writes columns 0-8 of ginst (I, 10), row s the gradient of the instance
-// in slot s, for the slots some pixel walked; the caller zeroes ginst.
-// Returns cudaGetLastError().
+// feat: (N, 10) float32 (the forward's); gauss_id, starts:
+// the forward's instance list and per-tile segment starts; bg: (3,);
+// log_t_fin and n_walked: K1's (H, W) outputs; grad: (3, H, W)
+// dL/d(raw colour). Adds each Gaussian's gradient into columns 0-8 of
+// grad_feat (N, 10) and the background's into grad_bg (3,); the caller
+// zeroes both. Returns cudaGetLastError().
 extern "C" int hugs_blend_bwd(const float* feat, const int* gauss_id,
                               const int* starts, const float* bg,
                               const float* log_t_fin, const int* n_walked,
                               const float* grad, int width, int height,
-                              int nx, int n_tiles, float* ginst,
-                              void* stream) {
+                              int nx, int n_tiles, float* grad_feat,
+                              float* grad_bg, void* stream) {
   if (n_tiles > 0) {
     blend_bwd_kernel<<<n_tiles, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         feat, gauss_id, starts, bg, log_t_fin, n_walked, grad, width, height,
-        nx, ginst);
+        nx, grad_feat, grad_bg);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K2's resident blocks per SM, from the occupancy calculator.
+extern "C" int hugs_blend_bwd_blocks_per_sm() {
+  return blocks_per_sm(blend_bwd_kernel);
 }

@@ -17,34 +17,45 @@
 // saturated (upstream 3DGS's n_contrib), which the backward (K2,
 // blend_bwd.cu) needs to rebuild each T_i from the final log T.
 //
-// Design: one block of 256 threads per 16x16 tile, one thread per pixel.
-// The block stages its tile's instances through shared memory in batches
-// of 256 (each thread gathers one instance's 10 floats by gauss_id), then
-// every thread walks the batch sequentially for its pixel. A pixel stops
-// once its transmittance falls below T_EPS; the block stops when all 256
-// of its pixels have (__syncthreads_count). The TPU kernel's 8-tiles-per-
-// cell grid, double-buffered DMA, bf16 hi/lo split matmuls and
+// Design: one block of 256 threads per 16x16 tile, one thread per pixel,
+// warp w on pixel rows 2w and 2w + 1. The block stages its tile's
+// instances in batches of 256 in shared memory, every thread loading one
+// instance's row. In each batch every warp first culls: lane l tests
+// instances l, l + 32, ... against the warp's 16x2 rectangle of pixel
+// centres (cull_keep, blend_common.cuh), and a ballot gives the warp the
+// instances that can have alpha > 0 at one of its pixels. The warp's
+// threads walk only those, in order, each for its pixel; a dropped pair
+// has alpha 0 at every pixel of the warp, so the image does not change,
+// and n_walked still counts the dropped instances (it indexes the tile's
+// list). A warp whose pixels have all saturated skips the batch; the
+// block stops when all 256 pixels have (__syncthreads_count). The TPU
+// kernel's 8-tiles-per-cell grid, DMA ring, bf16 hi/lo split matmuls and
 // pre-saturated out-of-image pixels are TPU mechanics and have no
-// counterpart here.
+// counterpart here. Copies of the next batch that overlap the walk of
+// this one (cp.async into a second buffer) bought at most 3 % on an
+// NVIDIA H100 80GB HBM3 at 700 W, not worth their code (PERF.md).
 //
 // Bound on the H100: operations. Each (pixel, instance) pair costs about
-// 22 float operations and one expf before the alpha test, while the bytes
-// are the (N, 10) table, the instance list and the image, a few MB. The
-// simple design stands because it is exact and needs no tuning: what it
-// leaves on the table (warp-level culling of instances that miss a whole
-// warp, cp.async prefetch of the next batch, fast-math exp) is work for a
-// later change, measured against this one.
+// 22 float operations and one expf before the alpha test, and each
+// blended pair three transcendentals (the alpha's expf, expf(log T),
+// log1pf) with no fused multiply-add, and each (warp, instance) it culls
+// about 90; the bytes are the (N, 10) table, the instance list and the
+// image, a few MB. The warp cull removes the pairs whose instance misses
+// the warp's rectangle. Times against the bound: PERF.md.
 //
 // Built with -fmad=false so that every product and sum rounds as the
 // plain PyTorch version's separate elementwise kernels round: the alpha
-// of a pair is then bit-identical between the two, and only the order of
-// the transmittance and colour sums differs.
+// of a pair, and the cull of an (instance, warp), are then bit-identical
+// between the two, and only the order of the transmittance and colour
+// sums differs.
 
 #include "blend_common.cuh"
 
 namespace {
 
 using namespace hugs_blend;
+
+constexpr int kBatch = kThreads;
 
 __global__ void __launch_bounds__(kThreads)
 blend_fwd_kernel(const float* __restrict__ feat,
@@ -57,12 +68,16 @@ blend_fwd_kernel(const float* __restrict__ feat,
                  float* __restrict__ out_log_t,
                  int* __restrict__ out_n_walked,
                  int* __restrict__ out_walked) {
-  __shared__ float s_feat[kFeat][kThreads];
+  __shared__ float s_feat[kBatch][kFeat];
 
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
-  const int px_i = (t % nx) * kTile + tid % kTile;
-  const int py_i = (t / nx) * kTile + tid / kTile;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int tx0 = (t % nx) * kTile;
+  const int ty0 = (t / nx) * kTile;
+  const int px_i = tx0 + tid % kTile;
+  const int py_i = ty0 + tid / kTile;
   const bool inside = px_i < width && py_i < height;
   const float px = static_cast<float>(px_i);
   const float py = static_cast<float>(py_i);
@@ -75,34 +90,50 @@ blend_fwd_kernel(const float* __restrict__ feat,
   int walked = 0;
   int n_walked = 0;  // this pixel's instances, up to its saturating one
 
-  for (int base = start; base < end; base += kThreads) {
+  for (int base = start; base < end; base += kBatch) {
     // also the barrier that keeps the previous batch's readers ahead of
     // this batch's writers
     if (__syncthreads_count(done) == kThreads) break;
-    const int n = min(kThreads, end - base);
+    const int n = min(kBatch, end - base);
     if (tid < n) {
       const float* f = feat + static_cast<size_t>(gauss_id[base + tid]) * kFeat;
 #pragma unroll
-      for (int k = 0; k < kFeat; ++k) s_feat[k][tid] = f[k];
+      for (int k = 0; k < kFeat; ++k) s_feat[tid][k] = f[k];
     }
     __syncthreads();
     walked = base + n - start;
+    if (__all_sync(0xffffffffu, done)) continue;
 
-    int j = 0;
-    for (; j < n && !done; ++j) {
-      float dx, dy;
-      const float alpha =
-          pair_alpha(s_feat[3][j], s_feat[4][j], s_feat[5][j], s_feat[6][j],
-                     s_feat[7][j], s_feat[8][j], s_feat[9][j], px, py, dx, dy);
-      if (alpha == 0.0f) continue;
-      const float w = alpha * expf(log_t);
-      cr += s_feat[0][j] * w;
-      cg += s_feat[1][j] * w;
-      cb += s_feat[2][j] * w;
-      log_t += log1pf(-alpha);
-      done = log_t < kLogTEps;
+    const bool was_done = done;
+    int sat = n;  // one past the instance that saturated this pixel
+    for (int w0 = 0; w0 < n; w0 += 32) {
+      const int i = w0 + lane;
+      const unsigned bits =
+          __ballot_sync(0xffffffffu, i < n && warp_keep(s_feat[i], tx0, ty0,
+                                                        warp));
+      // a counted loop with a warp-uniform test of the cull's bit costs
+      // fewer instructions per instance than extracting set bits
+#pragma unroll 4
+      for (int jj = 0; jj < 32; ++jj) {
+        if (!((bits >> jj) & 1u)) continue;
+        const int j = w0 + jj;
+        if (done) continue;
+        const float* f = s_feat[j];
+        float dx, dy;
+        const float alpha = pair_alpha(f[3], f[4], f[5], f[6], f[7], f[8],
+                                       f[9], px, py, dx, dy);
+        if (alpha == 0.0f) continue;
+        const float w = alpha * expf(log_t);
+        cr += f[0] * w;
+        cg += f[1] * w;
+        cb += f[2] * w;
+        log_t += log1pf(-alpha);
+        done = log_t < kLogTEps;
+        if (done) sat = j + 1;
+      }
+      if (__all_sync(0xffffffffu, done)) break;
     }
-    if (j > 0) n_walked = base - start + j;
+    if (!was_done) n_walked = base - start + sat;
   }
 
   if (tid == 0) out_walked[t] = walked;
@@ -117,15 +148,30 @@ blend_fwd_kernel(const float* __restrict__ feat,
   out_n_walked[p] = n_walked;
 }
 
+// The warp cull alone, for tests and measurement: keep[i] = cull_keep of
+// Gaussian gauss_id[i] against the 16x2 pixel-centre rectangle (tx[i],
+// ty[i]) of the grid of 16x2 rectangles, the rectangle of warp ty[i] % 8
+// of tile (tx[i], ty[i] / 8).
+__global__ void warp_cull_kernel(const float* __restrict__ feat,
+                                 const int* __restrict__ gauss_id,
+                                 const int* __restrict__ tx,
+                                 const int* __restrict__ ty, int n,
+                                 unsigned char* __restrict__ keep) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  keep[i] = warp_keep(feat + static_cast<size_t>(gauss_id[i]) * kFeat,
+                      tx[i] * kTile, ty[i] * kWarpRows, 0);
+}
+
 }  // namespace
 
 // Launches K1 on `stream` over n_tiles = nx * ny tiles of 16x16 pixels.
-// feat: (N, 10) float32; gauss_id: instance list; starts/ends: (n_tiles,)
-// per-tile segments of gauss_id; bg: (3,). Writes out_rgb (3, H, W) raw
-// colour, out_log_t (H, W), out_n_walked (H, W), the instances each pixel
-// walked up to and including the one that saturated it, and out_walked
-// (n_tiles,), the instances each tile walked before all its pixels
-// saturated. Returns cudaGetLastError().
+// feat: (N, 10) float32; gauss_id: instance list;
+// starts/ends: (n_tiles,) per-tile segments of gauss_id; bg: (3,). Writes
+// out_rgb (3, H, W) raw colour, out_log_t (H, W), out_n_walked (H, W), the
+// instances each pixel walked up to and including the one that saturated
+// it, and out_walked (n_tiles,), the instances each tile walked before all
+// its pixels saturated. Returns cudaGetLastError().
 extern "C" int hugs_blend_fwd(const float* feat, const int* gauss_id,
                               const int* starts, const int* ends,
                               const float* bg, int width, int height, int nx,
@@ -139,4 +185,22 @@ extern "C" int hugs_blend_fwd(const float* feat, const int* gauss_id,
         out_log_t, out_n_walked, out_walked);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the warp cull alone (warp_cull_kernel) over n instances.
+// Returns cudaGetLastError().
+extern "C" int hugs_warp_cull(const float* feat, const int* gauss_id,
+                              const int* tx, const int* ty, int n,
+                              unsigned char* keep, void* stream) {
+  if (n > 0) {
+    warp_cull_kernel<<<(n + 255) / 256, 256, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        feat, gauss_id, tx, ty, n, keep);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1's resident blocks per SM, from the occupancy calculator.
+extern "C" int hugs_blend_fwd_blocks_per_sm() {
+  return blocks_per_sm(blend_fwd_kernel);
 }

@@ -7,11 +7,13 @@ torch.autograd.Function whose backward launches K2, and runs the plain
 PyTorch blend (render/blend.py) under autograd for CPU tensors; there is
 no other path and no fallback when a build or a launch fails.
 
-K2 emits one gradient row per slot of the instance list; `blend_bwd`
-scatters the rows onto the Gaussians with index_add_ (in hugs_tpu, the
-AD transpose of `_pack_aligned`'s gather) and computes the background's
-gradient, sum_p g T_fin [T_fin >= T_EPS], in torch, as the XLA code
-around the TPU kernel does (pallas_blend.py:872-876).
+K2 also does what the XLA code around the TPU kernel does: it adds each
+instance's gradient onto its Gaussian's row of grad_feat (N, 10) with
+atomics (in hugs_tpu, the AD transpose of `_pack_aligned`'s gather) and
+computes the background's gradient, sum_p g T_fin [T_fin >= T_EPS]
+(pallas_blend.py:872-876). Both kernels skip, per warp, the instances
+that the warp cull (`warp_cull`, a 16x2 rectangle of pixel centres per
+warp) shows to have alpha 0 at all of the warp's pixels.
 
 The TPU kernels' POWER_MXU mode (a matmul evaluation of the Gaussian
 exponent and of K2's pixel moments on the TPU's MXU, off by default) has
@@ -28,14 +30,17 @@ from hugs_tpu_torch import build
 from hugs_tpu_torch.render.blend import (
     N_FEAT, blend_tiles_plain, gauss_features,
 )
-from hugs_tpu_torch.render.oracle import LOG_TEPS, clip01
+from hugs_tpu_torch.render.oracle import clip01
 from hugs_tpu_torch.render.project import ProjectedGaussians
-from hugs_tpu_torch.render.tiles import TILE, TileBins, tile_grid
+from hugs_tpu_torch.render.tiles import (
+    TILE, TileBins, _tight_cull_keep, tile_grid,
+)
 
 SOURCE = "blend_fwd"
 BWD_SOURCE = "blend_bwd"
 LAUNCHES = 0      # K1 launches since the count was last set to 0
 K2_LAUNCHES = 0   # K2 launches since the count was last set to 0
+WARP_RECT = (TILE, 2)   # the pixel rectangle of one warp of a tile
 
 
 def _library(source: str, fn_name: str, argtypes) -> ctypes.CDLL:
@@ -49,7 +54,8 @@ def _library(source: str, fn_name: str, argtypes) -> ctypes.CDLL:
 
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGS = [_PTR] * 5 + [_I32] * 4 + [_PTR] * 5
-_BWD_ARGS = [_PTR] * 7 + [_I32] * 4 + [_PTR] * 2
+_BWD_ARGS = [_PTR] * 7 + [_I32] * 4 + [_PTR] * 3
+_CULL_ARGS = [_PTR] * 4 + [_I32] + [_PTR] * 2
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape, device):
@@ -112,52 +118,76 @@ def blend_fwd(feat: torch.Tensor, gauss_id: torch.Tensor,
     return img, log_t, n_walked, walked
 
 
-def blend_bwd_slots(feat: torch.Tensor, gauss_id: torch.Tensor,
-                    starts: torch.Tensor, ends: torch.Tensor,
-                    bg: torch.Tensor, width: int, height: int,
-                    grad_raw: torch.Tensor, log_t: torch.Tensor,
-                    n_walked: torch.Tensor) -> torch.Tensor:
+def blend_bwd(feat: torch.Tensor, gauss_id: torch.Tensor,
+              starts: torch.Tensor, ends: torch.Tensor, bg: torch.Tensor,
+              width: int, height: int, grad_raw: torch.Tensor,
+              log_t: torch.Tensor, n_walked: torch.Tensor):
     """Launch K2 on the current stream. CUDA tensors only.
 
     The forward's inputs, grad_raw (3, H, W) = d(loss)/d(raw colour), and
-    K1's log_t and n_walked. Returns ginst (I, 10): row s the gradient of
-    the instance in slot s of gauss_id (columns r g b op mx my ca cb cc;
-    the radius column and every slot no pixel walked are zero)."""
+    K1's log_t and n_walked. Returns grad_feat (N, 10), the gradient of
+    each Gaussian (columns r g b op mx my ca cb cc; the radius column is
+    zero), and grad_bg (3,), as blend.plain_blend_bwd does. K2 adds both
+    with atomics, so the sums run in an order that is not fixed."""
     global K2_LAUNCHES
     dev, nx, T = _check_bins(feat, gauss_id, starts, ends, bg, width,
                              height, "K2")
     _check("grad_raw", grad_raw, torch.float32, (3, height, width), dev)
     _check("log_t", log_t, torch.float32, (height, width), dev)
     _check("n_walked", n_walked, torch.int32, (height, width), dev)
-    ginst = torch.zeros((gauss_id.shape[0], N_FEAT), dtype=torch.float32,
-                        device=dev)
+    grad_feat = torch.zeros_like(feat)
+    grad_bg = torch.zeros((3,), dtype=torch.float32, device=dev)
     lib = _library(BWD_SOURCE, "hugs_blend_bwd", _BWD_ARGS)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.hugs_blend_bwd(
             feat.data_ptr(), gauss_id.data_ptr(), starts.data_ptr(),
             bg.data_ptr(), log_t.data_ptr(), n_walked.data_ptr(),
-            grad_raw.data_ptr(), width, height, nx, T, ginst.data_ptr(),
-            stream)
+            grad_raw.data_ptr(), width, height, nx, T, grad_feat.data_ptr(),
+            grad_bg.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"K2 launch failed: cudaError {err}")
     K2_LAUNCHES += 1
-    return ginst
-
-
-def blend_bwd(feat: torch.Tensor, gauss_id: torch.Tensor,
-              starts: torch.Tensor, ends: torch.Tensor, bg: torch.Tensor,
-              width: int, height: int, grad_raw: torch.Tensor,
-              log_t: torch.Tensor, n_walked: torch.Tensor):
-    """The gradient of K1's raw colour: K2, then its slots scattered onto
-    the Gaussians. Returns grad_feat (N, 10) and grad_bg (3,), as
-    blend.plain_blend_bwd does. CUDA tensors only."""
-    ginst = blend_bwd_slots(feat, gauss_id, starts, ends, bg, width, height,
-                            grad_raw, log_t, n_walked)
-    grad_feat = torch.zeros_like(feat).index_add_(0, gauss_id, ginst)
-    t_fin = torch.where(log_t >= LOG_TEPS, torch.exp(log_t), 0.0)
-    grad_bg = (grad_raw * t_fin).sum(dim=(1, 2))
     return grad_feat, grad_bg
+
+
+def warp_cull(feat: torch.Tensor, gauss_id: torch.Tensor, tx: torch.Tensor,
+              ty: torch.Tensor) -> torch.Tensor:
+    """The warp cull of K1 and K2: (I,) bool, False where Gaussian
+    gauss_id[i] has alpha 0 at every pixel centre of the 16x2 rectangle
+    (tx[i], ty[i]) of the grid of WARP_RECT rectangles (warp ty % 8 of
+    tile (tx, ty // 8)). CUDA tensors run the kernels' own device
+    function, CPU tensors tiles._tight_cull_keep at that rectangle."""
+    if feat.device.type == "cpu":
+        f = feat[gauss_id.long()]
+        return _tight_cull_keep(f[:, 4], f[:, 5], f[:, 6], f[:, 7], f[:, 8],
+                                f[:, 3], f[:, 9], tx, ty, WARP_RECT)
+    dev = feat.device
+    n = gauss_id.shape[0]
+    _check("feat", feat, torch.float32, (feat.shape[0], N_FEAT), dev)
+    for name, x in (("gauss_id", gauss_id), ("tx", tx), ("ty", ty)):
+        _check(name, x, torch.int32, (n,), dev)
+    keep = torch.empty((n,), dtype=torch.uint8, device=dev)
+    lib = _library(SOURCE, "hugs_warp_cull", _CULL_ARGS)
+    with torch.cuda.device(dev):
+        err = lib.hugs_warp_cull(
+            feat.data_ptr(), gauss_id.data_ptr(), tx.data_ptr(),
+            ty.data_ptr(), n, keep.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"warp cull launch failed: cudaError {err}")
+    return keep.bool()
+
+
+def blocks_per_sm() -> dict[str, int]:
+    """K1's and K2's resident blocks per SM on the current card, from the
+    CUDA occupancy calculator."""
+    out = {}
+    for name, source, fn in (("K1", SOURCE, "hugs_blend_fwd_blocks_per_sm"),
+                             ("K2", BWD_SOURCE,
+                              "hugs_blend_bwd_blocks_per_sm")):
+        out[name] = int(getattr(_library(source, fn, []), fn)())
+    return out
 
 
 class _BlendFwd(torch.autograd.Function):

@@ -166,3 +166,4 @@ def test_k1_matches_plain_on_card(cuda_device, name):
     assert (np_of(n_walked) <= per_pixel).all()
     if name == "saturating":        # the early exit cut the walk short
         assert not live.any() and np_of(walked).sum() < listed.sum()
+

@@ -14,7 +14,9 @@
   hugs_tpu's own backends; on the saturated scene atol 2e-5 and rtol
   1e-3, its bar there (:163), since every pixel's sums end at the T_EPS
   threshold.
-- K2 against plain_blend_bwd on the card (marked cuda, skipped here).
+- K2 against plain_blend_bwd on the card, with the padding slots of a
+  budget far above demand, and against itself across two calls (marked
+  cuda, skipped here).
 """
 import functools
 
@@ -131,13 +133,14 @@ def test_render_gradients_match_jax(name, backend):
                                    err_msg=k)
 
 
-def _bins_and_grad(name, device="cpu"):
-    scene, active, bg = _scene(name)
+def _bins_and_grad(name, device="cpu", budget=BUDGET, scene=None):
+    default, active, bg = _scene(name)
+    scene = default if scene is None else scene
     _, tc = cameras()
     tc = type(tc)(*(x.to(device) for x in tc))
     ts = {k: v.to(device) for k, v in to_torch(scene).items()}
     pg = project_gaussians(*(ts[a] for a in ARGS), tc, W, H, active)
-    bins = bin_gaussians(pg, W, H, BUDGET)
+    bins = bin_gaussians(pg, W, H, budget)
     # the gradient a mean squared error hands the raw colour
     rng = np.random.default_rng(11)
     g = rng.normal(size=(3, H, W)).astype(np.float32) * (2.0 / (3 * H * W))
@@ -170,23 +173,10 @@ def test_cpu_render_takes_no_kernel():
     assert (cuda_blend.LAUNCHES, cuda_blend.K2_LAUNCHES) == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", ["2", "saturating"])
-def test_k2_matches_plain_on_card(cuda_device, name):
-    """K2 (with its index_add_ scatter) against plain_blend_bwd on the
-    card. Per feature column, at least 99.9 % of entries within atol 1e-5
-    + rtol 1e-3 and ||d|| / ||g_plain|| <= 1e-4; grad_bg rtol 1e-4. The
-    sums run in another order, index_add_ adds in an order that is not
-    fixed, and a pair at the T_EPS threshold may flip."""
-    feat, bins, bg, g = _bins_and_grad(name, cuda_device)
-    _, log_t, n_walked, walked = cuda_blend.blend_fwd(
-        feat, bins.gauss_id, bins.starts, bins.ends, bg, W, H)
-    got_f, got_b = cuda_blend.blend_bwd(feat, bins.gauss_id, bins.starts,
-                                        bins.ends, bg, W, H, g, log_t,
-                                        n_walked)
-    want_f, want_b = plain_blend_bwd(feat, bins.gauss_id, bins.starts,
-                                     bins.ends, bg, W, H, g)
-    torch.cuda.synchronize()
+def _assert_k2_bars(got_f, got_b, want_f, want_b):
+    """K2's bars against a reference: per feature column, at least 99.9 %
+    of entries within atol 1e-5 + rtol 1e-3 and ||d|| / ||g_ref|| <= 1e-4;
+    the radius column exactly 0; grad_bg rtol 1e-4."""
     for c in range(9):
         d = (got_f[:, c] - want_f[:, c]).abs()
         within = d <= 1e-5 + 1e-3 * want_f[:, c].abs()
@@ -194,4 +184,55 @@ def test_k2_matches_plain_on_card(cuda_device, name):
         assert float(d.norm()) <= 1e-4 * float(want_f[:, c].norm()) + 1e-12, c
     assert float(got_f[:, 9].abs().max()) == 0.0
     np.testing.assert_allclose(np_of(got_b), np_of(want_b), rtol=1e-4)
+
+
+def _k2_on_card(name, device, budget=BUDGET, scene=None):
+    """K1 then K2 on the card, and plain_blend_bwd on the same bins."""
+    feat, bins, bg, g = _bins_and_grad(name, device, budget, scene)
+    _, log_t, n_walked, walked = cuda_blend.blend_fwd(
+        feat, bins.gauss_id, bins.starts, bins.ends, bg, W, H)
+    args = (feat, bins.gauss_id, bins.starts, bins.ends, bg, W, H, g)
+    got = cuda_blend.blend_bwd(*args, log_t, n_walked)
+    want = plain_blend_bwd(*args)
+    torch.cuda.synchronize()
     assert int(n_walked.max()) <= int(walked.max())
+    return got, want, (args, log_t, n_walked)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["2", "saturating"])
+def test_k2_matches_plain_on_card(cuda_device, name):
+    """K2 (with its atomics onto the Gaussians) against plain_blend_bwd on
+    the card, within _assert_k2_bars: the sums run in another order, the
+    atomics add in an order that is not fixed, and a pair at the T_EPS
+    threshold may flip."""
+    (got_f, got_b), (want_f, want_b), _ = _k2_on_card(name, cuda_device)
+    _assert_k2_bars(got_f, got_b, want_f, want_b)
+
+
+@pytest.mark.cuda
+def test_k2_leaves_the_padding_gaussian_alone(cuda_device):
+    """A budget far above demand fills the list's unused slots with
+    Gaussian 0; with Gaussian 0 off screen its gradient is the plain
+    version's (zero), bit for bit: K2 reads and writes no padding slot."""
+    scene = make_scene(n=300, seed=2)
+    scene["means"][0] = (40.0, 0.0, 4.0)      # far right of the image
+    (got_f, got_b), (want_f, want_b), (args, _, _) = _k2_on_card(
+        "2", cuda_device, budget=16 * BUDGET, scene=scene)
+    bins_slots = args[1].shape[0]
+    listed = int((args[3] - args[2]).sum())
+    assert bins_slots - listed > 10 * listed, "most slots must be padding"
+    assert torch.equal(got_f[0], want_f[0])
+    assert float(got_f[0].abs().max()) == 0.0
+    assert float(got_f[:, 9].abs().max()) == 0.0
+    _assert_k2_bars(got_f, got_b, want_f, want_b)
+
+
+@pytest.mark.cuda
+def test_k2_two_calls_agree(cuda_device):
+    """The atomics make K2 not bit-reproducible; two calls on the same
+    inputs agree within the bars K2 is held to against plain."""
+    (f1, b1), _, (args, log_t, n_walked) = _k2_on_card("2", cuda_device)
+    f2, b2 = cuda_blend.blend_bwd(*args, log_t, n_walked)
+    torch.cuda.synchronize()
+    _assert_k2_bars(f2, b2, f1, b1)
