@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drives the hugs_tpu_torch serving render and scene training on one
-NVIDIA GPU.
+"""Drives the hugs_tpu_torch serving render, scene training and the
+avatar serving frame on one NVIDIA GPU.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It builds the CUDA kernels (K1, the forward blend, and K2, its backward,
@@ -31,6 +31,20 @@ sources in the checkout, then:
      training budget), K2 with that step's d(loss)/d(raw colour);
      each path runs with the kernel launch counts set to 0 just before
      it and read just after;
+  3c. the avatar serving path (scripts/fps_bench_tpu.py's frame, run
+     after phase 4's times): synthetic_smpl(288) subdivided twice gives
+     69,105 human Gaussians in capacity 131,072, decoded once
+     (canon_forward), compacted to a 2048-row bucket; a 100,000-Gaussian
+     scene at SH degree 3 in a radius-4 ball around the camera; 960x540
+     from the orbit's first camera. A rehearsal sizes the slot budget
+     from 20 frames' demand; then 20 frames, each a new body pose ->
+     human_forward (LBS of the cached decode) -> render_human_scene
+     (human_scene), one K1 launch per frame. Checks: (a) human_forward
+     on the card against the CPU, (b) K1 against plain on frame 0, (c)
+     the cached frame against the full forward (triplane and decoders
+     per frame), (d) no overflow, (e) 20 K1 launches; then the frame's
+     stage times, its device kernels and idle share, and K1's time and
+     bound on it;
   4. times on the card (CUDA events, median of 20 after warm-up): one
      request split into project / bin / blend, one training step split
      into forward / loss / backward / Adam + stats, one densify step,
@@ -115,6 +129,21 @@ SH_EVERY = 10
 DENSIFY_AT = 20
 RESET_AT = 35
 PCD_NOISE = 0.02
+# the avatar serving path: scripts/fps_bench_tpu.py's full-size frame
+AVATAR_VPB = 288          # synthetic_smpl vertices per bone
+AVATAR_SUBDIV = 2         # subdivisions of the template, with smoothing
+AVATAR_CAPACITY = 131_072
+AVATAR_N_HUMAN = 69_105   # Gaussians the template gives
+AVATAR_N_SCENE = 100_000
+AVATAR_FRAMES = 20
+# the rehearsal's budget ceiling: 2^21 at the TPU's 32x32 tiles
+# (fps_bench_tpu.py); at K1's 16x16 tiles this frame's demand is about
+# 2.54M slots
+AVATAR_SLOT_CAP = 1 << 22
+# human_forward on the card against the CPU
+AVATAR_ATOL = 1e-5
+# the frame of the cached decode against the full forward
+FULL_FORWARD_ATOL = 2e-5
 
 
 class SceneLR:
@@ -305,6 +334,271 @@ def held_grad(name, got, want, ref64=None):
     if failed:
         raise AssertionError(f"{name}: columns {failed} disagree")
     return worst
+
+
+def avatar_scene_points(n, seed):
+    """fps_bench_tpu.py's scene: n points uniform in [-4, 4]^3 pulled
+    into the radius-4 ball, and random colours."""
+    rng = np.random.RandomState(seed)
+    pts = rng.uniform(-4, 4, (n, 3)).astype(np.float32)
+    pts /= np.maximum(np.linalg.norm(pts, axis=1, keepdims=True) / 4.0, 1.0)
+    return pts, rng.rand(n, 3).astype(np.float32)
+
+
+def avatar_serving(dev, smi, project, slot_budget, cull_counts,
+                   tile_of_pixel, kernel_times):
+    """Phase 3c, the avatar serving path at full width (see the module
+    docstring), with main's helpers. Raises if a check fails; returns
+    K1's numbers on the avatar frame for the kernels line."""
+    from hugs_tpu_torch.data.cameras import get_rotating_camera
+    from hugs_tpu_torch.models import human_gs as hgs
+    from hugs_tpu_torch.models.scene_gs import create_from_pcd, scene_forward
+    from hugs_tpu_torch.models.smpl import synthetic_smpl
+    from hugs_tpu_torch.models.subdivide import subdivide_smpl_model
+    from hugs_tpu_torch.render import cuda_blend
+    from hugs_tpu_torch.render.blend import gauss_features, plain_blend
+    from hugs_tpu_torch.render.oracle import LOG_TEPS, clip01
+    from hugs_tpu_torch.render.renderer import render_human_scene
+    from hugs_tpu_torch.render.tiles import bin_gaussians
+
+    t0 = time.time()
+    smpl = synthetic_smpl(AVATAR_VPB, device=dev)
+    template = subdivide_smpl_model(smpl, smoothing=True,
+                                    n_iter=AVATAR_SUBDIV)
+    cfg = hgs.HumanGSConfig(use_deformer=True, disable_posedirs=True)
+    # the nets are drawn on the CPU from the seed, then moved to the card
+    gen = torch.Generator()
+    gen.manual_seed(SEED)
+    params, state, fixed, _ = hgs.init_human_gs(
+        gen, cfg, smpl, template, torch.zeros(10, device=dev), n_frames=1,
+        capacity=AVATAR_CAPACITY)
+    n_human = int(state.alive.sum())
+    if n_human != AVATAR_N_HUMAN:
+        raise AssertionError(f"the template gave {n_human} Gaussians, not "
+                             f"{AVATAR_N_HUMAN}")
+    with torch.no_grad():
+        # decode once at the training capacity, then right-size
+        canon = hgs.canon_forward(params, state, cfg)
+        params, state, canon = hgs.compact_for_inference(
+            params, state, canon, bucket=-(-n_human // 2048) * 2048)
+        pts, cols = avatar_scene_points(AVATAR_N_SCENE, SEED)
+        s_out = scene_forward(create_from_pcd(pts, cols, AVATAR_N_SCENE,
+                                              max_sh_degree=3, device=dev))
+    data = get_rotating_camera(img_size=(H, W), fov=0.95, dist=3.0,
+                               nframes=2, device=dev)[0]
+    cam = data["camera"]
+    black = torch.zeros(3, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    print(f"# avatar: {n_human} human Gaussians (capacity "
+          f"{AVATAR_CAPACITY}, compacted to {state.alive.shape[0]}), "
+          f"{AVATAR_N_SCENE} scene Gaussians (SH degree 3, rendered at the "
+          f"human's degree {int(state.active_sh_degree)}), {W}x{H}; set-up "
+          f"{setup_s:.1f} s (host clock: body, subdivision, decode, scene "
+          f"kNN)")
+
+    # each frame's pose: the previous one plus 0.01 sin(i + arange(69))
+    poses = [torch.zeros(69, device=dev)]
+    ar = torch.arange(69, dtype=torch.float32, device=dev)
+    for i in range(AVATAR_FRAMES - 1):
+        poses.append(poses[-1] + 0.01 * torch.sin(float(i) + ar))
+
+    def body_args(device):
+        """The frame's fixed SMPL arguments, as fps_bench_tpu.py passes."""
+        return dict(global_orient=torch.zeros(3, device=device),
+                    betas=torch.zeros(10, device=device),
+                    transl=torch.zeros(3, device=device),
+                    smpl_scale=torch.tensor(1.0, device=device))
+
+    card_args = body_args(dev)
+
+    def skin(pose, p=params, st=state, fx=fixed, c=canon, args=card_args):
+        """human_forward of a new pose (c=None: the full forward)."""
+        return hgs.human_forward(p, st, fx, cfg, body_pose=pose, canon_out=c,
+                                 compute_gt_lbs=False, **args)
+
+    def frame(pose, budget, c=canon):
+        return render_human_scene(data, skin(pose, c=c), s_out, black,
+                                  render_mode="human_scene",
+                                  instance_budget=budget)
+
+    def merged_pg(h_out):
+        """render_human_scene's merge and projection, for the stages."""
+        a = {k: torch.cat([h_out[k], s_out[k]]) for k in
+             ("xyz", "scales", "rotq", "opacity", "shs")}
+        return project(cam, a, torch.cat([h_out["alive"], s_out["alive"]]),
+                       h_out["active_sh_degree"])
+
+    with torch.no_grad():
+        # rehearsal: each frame's slot demand, from projection and binning
+        # (no blend launch)
+        demands = [int(bin_gaussians(merged_pg(skin(p)), W, H,
+                                     AVATAR_SLOT_CAP).n_slots)
+                   for p in poses]
+        budget = min(max(1 << 14, slot_budget(max(demands))),
+                     AVATAR_SLOT_CAP)
+        print(f"# avatar rehearsal: slot demand {min(demands)}-"
+              f"{max(demands)} over {AVATAR_FRAMES} frames -> budget "
+              f"{budget} (ceiling {AVATAR_SLOT_CAP})")
+
+        # (a) human_forward on the card against the CPU, same tensors
+        got = skin(poses[-1])
+        want = skin(poses[-1].cpu(), *(hgs.to_device(x, "cpu") for x in
+                                       (params, state, fixed, canon)),
+                    args=body_args("cpu"))
+        for k in ("xyz", "scales"):
+            d = float((got[k].cpu() - want[k]).abs().max())
+            print(f"# avatar human_forward {k}, card vs CPU: max |d| "
+                  f"{d:.3e} (bar {AVATAR_ATOL})")
+            if not d <= AVATAR_ATOL:
+                raise AssertionError(f"human_forward {k} differs on the card")
+        # q and -q are one rotation: compare each row at its closer sign
+        q, qc = got["rotq"].cpu(), want["rotq"]
+        flip = (q + qc).abs().amax(1) < (q - qc).abs().amax(1)
+        d = float(torch.where(flip[:, None], q + qc, q - qc).abs().max())
+        w_flip = float(qc[flip, 0].abs().max()) if bool(flip.any()) else 0.0
+        print(f"# avatar human_forward rotq, card vs CPU: max |d| {d:.3e} "
+              f"(bar {AVATAR_ATOL}), {int(flip.sum())} rows at the other "
+              f"sign, there |w| <= {w_flip:.1e}")
+        if not d <= AVATAR_ATOL or w_flip > 1e-4:
+            raise AssertionError("human_forward rotq differs on the card")
+
+        # (b) K1 against plain on frame 0's bins
+        pg0 = merged_pg(skin(poses[0]))
+        bins0 = bin_gaussians(pg0, W, H, budget)
+        feat0 = gauss_features(pg0)
+        img_k, logt_k, nwalk_k, walked = cuda_blend.blend_fwd(
+            feat0, bins0.gauss_id, bins0.starts, bins0.ends, black, W, H)
+        img_p, logt_p, pairs0 = plain_blend(feat0, bins0.gauss_id,
+                                            bins0.starts, bins0.ends, black,
+                                            W, H)
+        torch.cuda.synchronize()
+    counts = bins0.ends - bins0.starts
+    print(f"# avatar frame 0: {int(pg0.mask.sum())} of "
+          f"{pg0.mask.shape[0]} Gaussians visible; {int(counts.sum())} "
+          f"instances (demand {int(bins0.n_instances)} before culling, max "
+          f"{int(counts.max())} per tile), K1 walked {int(walked.sum())}")
+    if bool(bins0.overflowed):
+        raise AssertionError("avatar frame 0 overflowed its budget")
+    err = held("K1 raw image vs plain, avatar frame 0", img_k, img_p)
+    live = logt_p >= LOG_TEPS
+    print(f"# unsaturated pixels of avatar frame 0: {int(live.sum())} of "
+          f"{W * H}")
+    if bool(live.any()):
+        held("K1 log T vs plain, avatar frame 0 (unsaturated pixels)",
+             logt_k[live], logt_p[live])
+    if bool((nwalk_k > tile_of_pixel(walked)).any()):
+        raise AssertionError("a pixel of the avatar frame walked past its "
+                             "tile's walk")
+    same = float((nwalk_k.long() == pairs0[0]).float().mean())
+    print(f"# K1 n_walked equals the plain blend's tested count on "
+          f"{same * 100:.4f}% of the avatar frame's pixels")
+    if same < MIN_SHARE:
+        raise AssertionError("K1's n_walked disagrees on the avatar frame")
+
+    # the main path: 20 frames through the entry points
+    n_inst = []
+    cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
+    t0 = time.time()
+    with torch.no_grad():
+        images = []
+        for i, pose in enumerate(poses):
+            pkg = frame(pose, budget)
+            if bool(pkg["overflowed"]):     # (d)
+                raise AssertionError(f"avatar frame {i} overflowed")
+            n_inst.append(int(pkg["n_instances"]))
+            images.append(pkg["render"])
+    torch.cuda.synchronize()
+    frames_s = time.time() - t0
+    k1_launches, k2_launches = cuda_blend.LAUNCHES, cuda_blend.K2_LAUNCHES
+    print(f"# avatar: {AVATAR_FRAMES} frames in {frames_s:.3f} s (host "
+          f"clock), K1 launches {k1_launches}, K2 launches {k2_launches}; "
+          f"instances per frame before culling {n_inst}")
+    if k1_launches != AVATAR_FRAMES or k2_launches != 0:     # (e)
+        raise AssertionError(f"K1 launched {k1_launches} and K2 "
+                             f"{k2_launches} times for {AVATAR_FRAMES} "
+                             f"frames")
+    for i, img in enumerate(images):
+        if img.shape != (3, H, W) or not bool(torch.isfinite(img).all()) \
+                or float(img.min()) < 0.0 or float(img.max()) > 1.0:
+            raise AssertionError(f"avatar frame {i}: bad image")
+    d0 = float((images[0] - clip01(img_k)).abs().max())
+    moved = float((images[-1] - images[0]).abs().max())
+    print(f"# avatar frame 0 vs the K1 image of check (b), clipped: max |d| "
+          f"{d0:.3e}; frame {AVATAR_FRAMES - 1} vs frame 0: max |d| "
+          f"{moved:.3e}")
+    if d0 > 1e-6 or moved == 0.0:
+        raise AssertionError("the avatar frames are not what K1 gave")
+
+    # (c) the cached decode against the full forward, frame 0
+    with torch.no_grad():
+        full = frame(poses[0], budget, c=None)
+    dfull = float((full["render"] - images[0]).abs().max())
+    print(f"# avatar frame 0, full forward (triplane and decoders) vs "
+          f"cached decode: max |d| {dfull:.3e} (bar {FULL_FORWARD_ATOL})")
+    if bool(full["overflowed"]) or not dfull <= FULL_FORWARD_ATOL:
+        raise AssertionError("the full-forward frame differs")
+
+    # times: the frame by stage, the frame and the full-forward frame
+    stages = {"human_forward": [], "project": [], "bin": [], "blend": [],
+              "frame": []}
+    with torch.no_grad():
+        for rep in range(3 + REPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            ev[0].record()
+            h_out = skin(poses[rep % AVATAR_FRAMES])
+            ev[1].record()
+            pgr = merged_pg(h_out)
+            ev[2].record()
+            b = bin_gaussians(pgr, W, H, budget)
+            ev[3].record()
+            cuda_blend.blend_tiles(pgr, b, W, H, black)
+            ev[4].record()
+            ev[4].synchronize()
+            if rep >= 3:
+                for k, (e0, e1) in (("human_forward", (0, 1)),
+                                    ("project", (1, 2)), ("bin", (2, 3)),
+                                    ("blend", (3, 4)), ("frame", (0, 4))):
+                    stages[k].append(ev[e0].elapsed_time(ev[e1]))
+        stage_ms = {k: statistics.median(v) for k, v in stages.items()}
+        stage_ms["entry_frame"] = time_ms(lambda: frame(poses[0], budget))
+        stage_ms["full_frame"] = time_ms(lambda: frame(poses[0], budget,
+                                                       c=None))
+        stage_ms["full_human_forward"] = time_ms(
+            lambda: skin(poses[0], c=None))
+        profiles = {
+            "avatar frame": device_kernels(lambda: frame(poses[0], budget)),
+            "human_forward": device_kernels(lambda: skin(poses[0])),
+            "full-forward frame": device_kernels(
+                lambda: frame(poses[0], budget, c=None)),
+        }
+    print(f"# avatar frame {stage_ms['frame']:.4f} ms = human_forward "
+          f"{stage_ms['human_forward']:.4f} + project "
+          f"{stage_ms['project']:.4f} + bin {stage_ms['bin']:.4f} + blend "
+          f"{stage_ms['blend']:.4f} ms; through render_human_scene "
+          f"{stage_ms['entry_frame']:.4f} ms; full forward frame "
+          f"{stage_ms['full_frame']:.4f} ms (its human_forward "
+          f"{stage_ms['full_human_forward']:.4f} ms)  [{smi}]")
+    for what, (by_kernel, per_call, span_us) in profiles.items():
+        print_profile(what, PROFILED, by_kernel, per_call, span_us, smi)
+    k1_prof_ms = sum(us for name, us in profiles["avatar frame"][0].items()
+                     if "blend_fwd_kernel" in name) / 1e3
+
+    cull = cull_counts("avatar frame 0", feat0, bins0, nwalk_k)
+    t = kernel_times("avatar frame 0", feat0, bins0, black, None, logt_k,
+                     nwalk_k, pairs0, cull, kernels=("k1",))
+    print(f"# K1 profiler {k1_prof_ms:.4f} ms per avatar frame  [{smi}]")
+    return {
+        "launches": k1_launches, "k2_launches": k2_launches,
+        "max_abs_err": err, "ms": t["k1"],
+        "call_ms": t["k1_call"], "plain_ms": t["plain"],
+        "bound_ms": t["k1_bound"], "bound_by": t["k1_bound_by"],
+        "yardstick_bound_ms": t["k1_yardstick"],
+        "cull_dropped_share": cull["K1_dropped"],
+        "instances_frame0": int(counts.sum()), "budget": budget,
+        "frame_ms": stage_ms, "device_kernels_per_frame":
+            profiles["avatar frame"][1],
+    }
 
 
 def main():
@@ -814,9 +1108,10 @@ def main():
     k2_prof_ms = sum(us for name, us in by_kernel_t.items()
                      if "blend_bwd_kernel" in name) / 1e3
 
-    def kernel_times(frame, feat, b, bg, g, log_t, n_walked, pairs, cull):
-        """K1's and K2's times on one frame (device time from back-to-back
-        calls of blend_fwd and blend_bwd, for K2 its whole function: the
+    def kernel_times(frame, feat, b, bg, g, log_t, n_walked, pairs, cull,
+                     kernels=("k1", "k2")):
+        """K1's and K2's (or only the `kernels` named) times on one frame
+        (device time from back-to-back calls of blend_fwd and blend_bwd, for K2 its whole function: the
         zeroed outputs and the kernel with its atomics; one call alone
         adds the wrapper's host cost), their plain versions', and each
         kernel's bound, the larger of its operations and bytes over the
@@ -826,15 +1121,18 @@ def main():
         beside it the yardstick at the first kernels' count. Prints them
         and returns them in a dict."""
         args = (feat, b.gauss_id, b.starts, b.ends, bg, W, H)
-        bwd = args + (g, log_t, n_walked)
-        t = {"k1": time_ms(lambda: cuda_blend.blend_fwd(*args),
-                           inner=BACK_TO_BACK),
-             "k1_call": time_ms(lambda: cuda_blend.blend_fwd(*args)),
-             "k2": time_ms(lambda: cuda_blend.blend_bwd(*bwd),
-                           inner=BACK_TO_BACK),
-             "k2_call": time_ms(lambda: cuda_blend.blend_bwd(*bwd)),
-             "plain": time_ms(lambda: plain_blend(*args)),
-             "plain_bwd": time_ms(lambda: plain_blend_bwd(*args, g))}
+        t = {}
+        if "k1" in kernels:
+            t.update(k1=time_ms(lambda: cuda_blend.blend_fwd(*args),
+                                inner=BACK_TO_BACK),
+                     k1_call=time_ms(lambda: cuda_blend.blend_fwd(*args)),
+                     plain=time_ms(lambda: plain_blend(*args)))
+        if "k2" in kernels:
+            bwd = args + (g, log_t, n_walked)
+            t.update(k2=time_ms(lambda: cuda_blend.blend_bwd(*bwd),
+                                inner=BACK_TO_BACK),
+                     k2_call=time_ms(lambda: cuda_blend.blend_bwd(*bwd)),
+                     plain_bwd=time_ms(lambda: plain_blend_bwd(*args, g)))
         tested, blended = (int(x) for x in pairs.sum(dim=(1, 2)))
         n_inst = int((b.ends - b.starts).sum())
         n_tiles = b.starts.shape[0]
@@ -859,6 +1157,8 @@ def main():
               f"by the cull and tested, {blended} blended, {n_inst} "
               f"instances  [{smi}]")
         for k, (ops, ops_first, nbytes) in work.items():
+            if k not in kernels:
+                continue
             ops_ms, bytes_ms = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
             t[k + "_bound"] = max(ops_ms, bytes_ms)
             t[k + "_bound_by"] = "operations" if ops_ms >= bytes_ms \
@@ -895,22 +1195,33 @@ def main():
           f"{tstage_ms['update']:.4f} ms; densify step {densify_ms:.4f} ms"
           f"  [{smi}]")
 
+    # ---- 3c. the avatar serving path, after phase 4's times
+    avatar = avatar_serving(dev, smi, project, slot_budget, cull_counts,
+                            tile_of_pixel, kernel_times)
+
     # ---- 5. kernels line, 6. device line
     print(json.dumps({"kernels": [{
         "name": "K1 blend_fwd", "route": "cuda",
         "source": "hugs_tpu_torch/csrc/blend_fwd.cu",
         "replaces": "hugs_tpu/render/pallas_blend.py:354",
-        "launches": launches + k1_train,
-        "launches_by_path": {"serving": launches, "training": k1_train},
-        "max_abs_err": max_err, "frame": "serving (phase 2)",
+        "launches": launches + k1_train + avatar["launches"],
+        "launches_by_path": {"serving": launches, "training": k1_train,
+                             "avatar": avatar["launches"]},
+        "max_abs_err": max(max_err, avatar["max_abs_err"]),
+        "frame": "serving (phase 2)",
         "ms": serve_t["k1"], "call_ms": serve_t["k1_call"],
         "plain_ms": serve_t["plain"], "bound_ms": serve_t["k1_bound"],
         "bound_by": serve_t["k1_bound_by"], "library_ms": None,
         "yardstick_bound_ms": serve_t["k1_yardstick"],
         "training_frame": {k: train_t[k] for k in (
             "k1", "k1_call", "plain", "k1_bound", "k1_yardstick")},
+        "avatar_frame": {k: avatar[k] for k in (
+            "launches", "max_abs_err", "ms", "call_ms", "plain_ms",
+            "bound_ms", "bound_by", "yardstick_bound_ms", "instances_frame0",
+            "budget", "frame_ms", "device_kernels_per_frame")},
         "cull_dropped_share": {"serving": cull_serve["K1_dropped"],
-                               "training": cull_train["K1_dropped"]},
+                               "training": cull_train["K1_dropped"],
+                               "avatar": avatar["cull_dropped_share"]},
         **resources["K1"],
         "held_to": "plain_blend", "ok": True,
     }, {
@@ -918,7 +1229,8 @@ def main():
         "source": "hugs_tpu_torch/csrc/blend_bwd.cu",
         "replaces": "hugs_tpu/render/pallas_blend.py:486",
         "launches": k2_train,
-        "launches_by_path": {"serving": k2_serve, "training": k2_train},
+        "launches_by_path": {"serving": k2_serve, "training": k2_train,
+                             "avatar": avatar["k2_launches"]},
         "max_abs_err": k2_err, "frame": "training step 0 (view 0)",
         "ms": train_t["k2"], "call_ms": train_t["k2_call"],
         "plain_ms": train_t["plain_bwd"], "bound_ms": train_t["k2_bound"],

@@ -1,17 +1,23 @@
-"""Carries weights, optimizer state and cameras from the JAX package into
-the port.
+"""Carries weights, optimizer state, cameras and the human avatar from
+the JAX package into the port.
 
 Both sides meet at numpy: the caller passes a JAX SceneGS as
-{field: np.asarray(getattr(gs, field))} and a Camera likewise, so this
-module imports nothing of the JAX package. The port's render of a
-converted scene equals the JAX package's render of the original.
+{field: np.asarray(getattr(gs, field))}, a Camera likewise, and the
+human model's parameter tree as nested dicts of arrays, so this module
+imports nothing of the JAX package. The port's render of a converted
+scene or avatar equals the JAX package's render of the original.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from hugs_tpu_torch.models import nets
+from hugs_tpu_torch.models.human_gs import HumanGS, HumanGSState
 from hugs_tpu_torch.models.scene_gs import BUFFER_FIELDS, PARAM_FIELDS, SceneGS
+from hugs_tpu_torch.models.smpl import (
+    TENSOR_FIELDS, SMPLModel, make_smpl_model,
+)
 from hugs_tpu_torch.render.camera import Camera
 from hugs_tpu_torch.train.optim import GroupAdamState
 
@@ -52,3 +58,60 @@ def adam_state_from_numpy(mu: dict[str, np.ndarray], nu: dict[str, np.ndarray],
         mu=moments(mu), nu=moments(nu),
         step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
                           device=device))
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(x, np.float32), device=device)
+
+
+def smpl_model_from_numpy(arrays: dict, device: torch.device | str = "cuda"
+                          ) -> SMPLModel:
+    """SMPLModel from the numpy arrays of every SMPLModel field (a JAX
+    model's `faces` property gives the triangles)."""
+    return make_smpl_model(*(arrays[f] for f in TENSOR_FIELDS),
+                           arrays["parents"], arrays["faces"], device=device)
+
+
+def _layer(tree: dict, device):
+    """nets.Linear from {'w', 'b'}, nets.WeightNormLinear from
+    {'v', 'g', 'b'}; weights keep the (fan_in, fan_out) layout."""
+    if "v" in tree:
+        return nets.WeightNormLinear(_f32(tree["v"], device),
+                                     _f32(tree["g"], device),
+                                     _f32(tree["b"], device))
+    return nets.Linear(_f32(tree["w"], device), _f32(tree["b"], device))
+
+
+def human_gs_from_numpy(arrays: dict, device: torch.device | str = "cuda"
+                        ) -> HumanGS:
+    """HumanGS from the numpy arrays of a JAX HumanGS: its array fields
+    and the nested dicts of the triplane and the three decoders."""
+    def layers(name):
+        return {k: _layer(v, device) for k, v in arrays[name].items()}
+
+    return HumanGS(
+        xyz=_f32(arrays["xyz"], device),
+        triplane=nets.TriPlane(*(_f32(arrays["triplane"][k], device)
+                                 for k in ("plane_xy", "plane_xz",
+                                           "plane_yz"))),
+        appearance_dec=nets.AppearanceDecoder(**layers("appearance_dec")),
+        geometry_dec=nets.GeometryDecoder(**layers("geometry_dec")),
+        deformation_dec=nets.DeformationDecoder(**layers("deformation_dec")),
+        **{f: _f32(arrays[f], device)
+           for f in ("global_orient", "body_pose", "transl", "betas")})
+
+
+def human_state_from_numpy(arrays: dict, device: torch.device | str = "cuda"
+                           ) -> HumanGSState:
+    """HumanGSState from the numpy arrays of every HumanGSState field."""
+    fields = {}
+    for f in HumanGSState._fields:
+        a = np.asarray(arrays[f])
+        if f == "alive":
+            a = a.astype(bool)
+        elif f == "active_sh_degree":
+            a = a.astype(np.int32)
+        else:
+            a = a.astype(np.float32)
+        fields[f] = torch.as_tensor(a, device=device)
+    return HumanGSState(**fields)

@@ -1,0 +1,4 @@
+from hugs_tpu_torch.data.cameras import (
+    get_predefined_pose, get_rotating_camera, get_smpl_canon_params,
+    get_smpl_static_params, get_static_camera,
+)

@@ -104,7 +104,11 @@ def render_human_scene(
 ) -> dict[str, Any]:
     """Merged human+scene rendering. `data` carries the camera and image
     size: {'camera': Camera, 'width': int, 'height': int}; the Gaussian
-    sets are the dicts scene_forward (and, later, human_forward) return.
+    sets are the dicts human_forward and scene_forward return.
+
+    The merged set renders at the HUMAN's active SH degree, as the JAX
+    package does: at a freshly built avatar (degree 0) a scene trained to
+    degree 3 renders with its DC term only.
     """
     camera: Camera = data["camera"]
     width, height = data["width"], data["height"]
@@ -121,6 +125,7 @@ def render_human_scene(
                     device=out["xyz"].device))
             alive = torch.cat([alive_of(human_gs_out),
                                alive_of(scene_gs_out)])
+        # the human's degree for both sets, as in the JAX package
         sh_deg = human_gs_out["active_sh_degree"]
     elif render_mode == "human":
         attrs = {k: human_gs_out[k] for k in keys}

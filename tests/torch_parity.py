@@ -79,3 +79,63 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the GPU machine)")
     return torch.device("cuda", 0)
+
+
+def jax_tree(x):
+    """A JAX pytree of dicts and arrays as nested dicts of numpy arrays."""
+    if isinstance(x, dict):
+        return {k: jax_tree(v) for k, v in x.items()}
+    return np.asarray(x)
+
+
+def jax_human(vpb=12, capacity=None, n_frames=2, seed=0, **cfg_kw):
+    """A small JAX avatar on synthetic_smpl(vpb): (cfg, smpl, params,
+    state, fixed, init_values), betas drawn with numpy from `seed`, the
+    nets from PRNGKey(seed), n_features 8 and a 32^2 triplane."""
+    import jax
+    from hugs_tpu.models import human_gs as jh
+    from hugs_tpu.models.smpl import synthetic_smpl
+    cfg = jh.HumanGSConfig(n_features=8, triplane_res=32, **cfg_kw)
+    smpl = synthetic_smpl(verts_per_bone=vpb)
+    betas = (np.random.default_rng(seed).normal(size=10) * 0.5).astype(
+        np.float32)
+    params, state, fixed, init_values = jh.init_human_gs(
+        jax.random.PRNGKey(seed), cfg, smpl, smpl, jnp.asarray(betas),
+        n_frames=n_frames, capacity=capacity)
+    return cfg, smpl, params, state, fixed, init_values
+
+
+def smpl_arrays(smpl):
+    """The numpy arrays of every field of a JAX SMPLModel."""
+    from hugs_tpu_torch.models.smpl import TENSOR_FIELDS
+    out = {f: np.asarray(getattr(smpl, f)) for f in TENSOR_FIELDS}
+    out.update(parents=smpl.parents, faces=smpl.faces)
+    return out
+
+
+def human_to_torch(cfg, smpl, params, state, device="cpu"):
+    """The port's (cfg, params, state, fixed) of a JAX avatar: params and
+    state through convert, fixed recomputed by the port from the
+    converted body."""
+    from hugs_tpu_torch import convert
+    from hugs_tpu_torch.models import human_gs as th
+    tparams = convert.human_gs_from_numpy(
+        {f: jax_tree(getattr(params, f)) for f in params._fields}, device)
+    tstate = convert.human_state_from_numpy(
+        {f: np.asarray(getattr(state, f)) for f in state._fields}, device)
+    tsmpl = convert.smpl_model_from_numpy(smpl_arrays(smpl), device)
+    tfixed = th.compute_vitruvian(tsmpl, tparams.betas.detach())
+    return human_cfg_to_torch(cfg), tparams, tstate, tfixed
+
+
+def human_cfg_to_torch(cfg):
+    """The port's HumanGSConfig of a JAX one. The JAX fields the port
+    does not define (the SH settings of training) must hold their
+    defaults: the port could not honour another value."""
+    from hugs_tpu_torch.models import human_gs as th
+    kw = cfg._asdict()
+    ported = th.HumanGSConfig._fields
+    for k, v in kw.items():
+        if k not in ported and v != type(cfg)._field_defaults[k]:
+            raise NotImplementedError(f"HumanGSConfig.{k}={v!r} is not ported")
+    return th.HumanGSConfig(**{k: kw[k] for k in ported})
