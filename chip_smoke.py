@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Drives the hugs_tpu_torch serving render, scene training and the
-avatar serving frame on one NVIDIA GPU.
+"""Drives the hugs_tpu_torch serving render, scene training, the avatar
+serving frame and the three micro-benchmarks on one NVIDIA GPU.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
-It builds the CUDA kernels (K1, the forward blend, and K2, its backward,
-which also adds each instance's gradient onto its Gaussian) from the
-sources in the checkout, then:
+It builds the CUDA kernels (K1, the forward blend; K2, its backward,
+which also adds each instance's gradient onto its Gaussian, and S3, K2's
+skeleton variants, in the same source; S2, the elementwise rate probe;
+S1, the bf16 probe) from the sources in the checkout, one nvcc per
+source, all together, then:
 
   1. setup: TF32 off, the card's name and power limit, the build time,
      each kernel's registers, static shared memory, spills and resident
@@ -45,6 +47,22 @@ sources in the checkout, then:
      per frame), (d) no overflow, (e) 20 K1 launches; then the frame's
      stage times, its device kernels and idle share, and K1's time and
      bound on it;
+  3d. the micro-benchmarks (run after phase 4's times and 3c), each
+     through its entry point's function at its script's full size, with
+     the launch counts set to 0 just before and read just after: S2
+     (hugs_tpu_torch.micro.vpu_peak: GRID 512, INNER 64, REPS 3) the
+     fma, serial and blendmix rates and the FFMA count of fma's SASS
+     (must be INNER x 4 per step); S1 (micro_bf16: r 8192 and 32768, K
+     20) madd and exp in float32 and bfloat16, each r_scaling within
+     3.5-4.5; S3 (micro_bwd: phase 2's scene, g = ones) K2's skeleton
+     variants, K2 and K1 + K2 timed, each variant at K2's resident
+     blocks per SM (checked); then each kernel against its plain
+     version (S2 at grid 16, S1 at r 256 and K 2 from a linspace start,
+     S3 on the whole frame), each variant's bound, and K1's and K2's
+     operation counts over S2's blendmix rate (`ms_at_s2_blendmix_rate`:
+     a second reading beside the bound, not a bound: the counts weigh a
+     culled pair's 91 cheap operations as blendmix's mix, so a kernel
+     can beat it);
   4. times on the card (CUDA events, median of 20 after warm-up): one
      request split into project / bin / blend, one training step split
      into forward / loss / backward / Adam + stats, one densify step,
@@ -66,13 +84,15 @@ import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
 
 import numpy as np
 import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from hugs_tpu_torch.micro import card, device_ms  # noqa: E402
 
 W, H = 960, 540
 N_GAUSS = 50_000
@@ -144,6 +164,22 @@ AVATAR_SLOT_CAP = 1 << 22
 AVATAR_ATOL = 1e-5
 # the frame of the cached decode against the full forward
 FULL_FORWARD_ATOL = 2e-5
+# phase 3d, the micro-benchmarks: S2 held to its plain version at a grid
+# of 16 steps (INNER 64, REPS 3), every element within S2_RTOL of the
+# block's largest value (the plain version's exp and log1p are torch's,
+# the kernel's CUDA's; the fused multiply-adds round once on both sides);
+# S1 at 256 passes and 2 calls from a linspace start, float32 to rtol
+# 1e-6, bfloat16 to one bf16 ulp; S1's time at 32768 passes over its time
+# at 8192 within R_SCALING; S3's per-pixel and per-tile outputs within
+# S3_RTOL |plain| + S3_RTOL max |plain| (float32 sums in another order),
+# its grad_feat outputs to K2's bars
+S2_CHECK_GRID = 16
+S2_RTOL = 1e-5
+S1_CHECK_R, S1_CHECK_K = 256, 2
+R_SCALING = (3.5, 4.5)
+S3_RTOL = 1e-5
+# a skeleton's operations per kept pair: 9 multiplies, 9 adds to sum them
+OPS_SKEL = 18
 
 
 class SceneLR:
@@ -203,27 +239,6 @@ def view(i):
     return R, t
 
 
-def time_ms(fn, reps=REPS, warmup=3, inner=1):
-    """Median over `reps` of the CUDA-event time of `inner` back-to-back
-    calls of fn(), divided by `inner`, after warm-up. With inner > 1 the
-    host queues launches ahead of the card, so a kernel's time excludes
-    its wrapper's host cost."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return statistics.median(times)
-
-
 def device_kernels(fn, reps=PROFILED):
     """From torch.profiler's CUDA trace of `reps` calls of fn: device time
     by kernel name (us per call), device kernels per call, and the span
@@ -262,28 +277,6 @@ def print_profile(what, reps, by_kernel, per_call, span_us, smi, top=8):
           f"{(1 - busy_ms / span_ms) * 100:.1f}%  [{smi}]")
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]:
         print(f"#   {us:9.2f} us  {name[:90]}")
-
-
-def kernel_resources(log, kernel):
-    """Registers, static shared memory (bytes) and spill stores of the
-    entry function named `kernel` in nvcc's `-Xptxas -v` output."""
-    entry, out = None, None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line
-        elif entry is not None and kernel in entry:
-            if "spill stores" in line:
-                spills = int(line.split("bytes spill stores")[0]
-                             .split(",")[-1])
-                out = dict(out or {}, spill_bytes=spills)
-            if "registers" in line:
-                regs = int(line.split("Used")[1].split("registers")[0])
-                smem = int(line.split("bytes smem")[0].split(",")[-1]) \
-                    if "bytes smem" in line else 0
-                out = dict(out or {}, registers=regs, smem_bytes=smem)
-    if not out or "registers" not in out:
-        raise AssertionError(f"no ptxas report for {kernel}")
-    return out
 
 
 def held(name, got, want, atol=PIXEL_ATOL):
@@ -561,10 +554,10 @@ def avatar_serving(dev, smi, project, slot_budget, cull_counts,
                                     ("blend", (3, 4)), ("frame", (0, 4))):
                     stages[k].append(ev[e0].elapsed_time(ev[e1]))
         stage_ms = {k: statistics.median(v) for k, v in stages.items()}
-        stage_ms["entry_frame"] = time_ms(lambda: frame(poses[0], budget))
-        stage_ms["full_frame"] = time_ms(lambda: frame(poses[0], budget,
-                                                       c=None))
-        stage_ms["full_human_forward"] = time_ms(
+        stage_ms["entry_frame"] = device_ms(lambda: frame(poses[0], budget))
+        stage_ms["full_frame"] = device_ms(lambda: frame(poses[0], budget,
+                                                         c=None))
+        stage_ms["full_human_forward"] = device_ms(
             lambda: skin(poses[0], c=None))
         profiles = {
             "avatar frame": device_kernels(lambda: frame(poses[0], budget)),
@@ -593,7 +586,7 @@ def avatar_serving(dev, smi, project, slot_budget, cull_counts,
         "max_abs_err": err, "ms": t["k1"],
         "call_ms": t["k1_call"], "plain_ms": t["plain"],
         "bound_ms": t["k1_bound"], "bound_by": t["k1_bound_by"],
-        "yardstick_bound_ms": t["k1_yardstick"],
+        "yardstick_bound_ms": t["k1_yardstick"], "ops": t["k1_ops"],
         "cull_dropped_share": cull["K1_dropped"],
         "instances_frame0": int(counts.sum()), "budget": budget,
         "frame_ms": stage_ms, "device_kernels_per_frame":
@@ -601,11 +594,266 @@ def avatar_serving(dev, smi, project, slot_budget, cull_counts,
     }
 
 
+
+def micro_benchmarks(dev, smi, cull_counts):
+    """Phase 3d, the three micro-benchmarks through their entry points'
+    functions at the scripts' full sizes (see the module docstring), each
+    kernel then held to its plain version. Raises if a check fails;
+    returns their entries for the kernels line, the launches of S3's
+    run (K1's and K2's among them) and S2's blendmix rate (op/s)."""
+    from hugs_tpu_torch import build
+    from hugs_tpu_torch.micro import micro_bf16, micro_bwd, vpu_peak
+    from hugs_tpu_torch.render import cuda_blend
+    from hugs_tpu_torch.render.blend import _disassemble, plain_blend
+
+    # ---- S2: the rates, then each mode against plain at S2_CHECK_GRID
+    vpu_peak.LAUNCHES = 0
+    s2 = vpu_peak.measure(dev, vpu_peak.GRID, vpu_peak.INNER,
+                          vpu_peak.REPS)
+    s2_launches = vpu_peak.LAUNCHES
+    ffma = s2["ffma_per_step"]
+    print(f"# S2 vpu_peak: ({vpu_peak.P}, {vpu_peak.CHUNK}) f32, grid "
+          f"{s2['grid']}, inner {s2['inner']}, reps {s2['reps']}; "
+          f"{s2_launches} launches; FFMA in fma's SASS per grid step "
+          f"{ffma['fma']} (INNER x 4 = {ffma['expected']})  [{smi}]")
+    for mode in vpu_peak.MODES:
+        r = s2[mode]
+        print(f"#   S2 {mode}: {r['s_per_rep'] * 1e3:.4f} ms per call, "
+              f"{r['tera_ops_per_s']:.3f} T op/s "
+              f"({vpu_peak.ops_per_elem(mode, s2['inner'])} ops per "
+              f"element-step), "
+              f"{r['share_of_peak_fp32'] * 100:.1f}% of 67 TFLOP/s")
+    if ffma["fma"] != ffma["expected"]:
+        raise AssertionError("S2's fma chains were not compiled as "
+                             "INNER x 4 FFMA per step")
+    if s2_launches < len(vpu_peak.MODES) * vpu_peak.REPS:
+        raise AssertionError(f"S2 launched {s2_launches} times")
+    x = vpu_peak.start_block(dev)
+    s2_modes, s2_err = {}, 0.0
+    for mode in vpu_peak.MODES:
+        args = (mode, S2_CHECK_GRID, vpu_peak.INNER, vpu_peak.REPS)
+        got = vpu_peak.run(x, *args)
+        want = x
+        for _ in range(vpu_peak.REPS):
+            want = vpu_peak.plain_call(want, *args[:3])
+        d = float((got - want).abs().max())
+        bar = S2_RTOL * float(want.abs().max())
+        print(f"#   S2 {mode} kernel vs plain, grid {S2_CHECK_GRID}, inner "
+              f"{vpu_peak.INNER}, reps {vpu_peak.REPS}: max |d| {d:.3e} "
+              f"(bar {bar:.3e}, {S2_RTOL} of max |plain|)")
+        if not d <= bar:
+            raise AssertionError(f"S2 {mode} disagrees with its plain version")
+        s2_err = max(s2_err, d)
+        ops = vpu_peak.ops_per_elem(mode, s2["inner"]) * x.numel() \
+            * s2["grid"]
+        s2_modes[mode] = dict(
+            s2[mode], ms=s2[mode]["s_per_rep"] * 1e3,
+            bound_ms=ops / PEAK_FP32 * 1e3, max_abs_err=d,
+            check_ms=device_ms(lambda a=args: vpu_peak.run(x, *a), reps=5,
+                               warmup=1) / vpu_peak.REPS,
+            plain_ms=device_ms(lambda a=args: vpu_peak.plain_call(
+                x, *a[:3]), reps=3, warmup=1))
+    blendmix_rate = s2["blendmix"]["tera_ops_per_s"] * 1e12
+
+    # ---- S1: the rates and r_scaling, then each against plain at
+    # S1_CHECK_R passes, S1_CHECK_K calls, from a start that moves
+    micro_bf16.LAUNCHES = 0
+    s1 = micro_bf16.measure(dev, micro_bf16.RS, micro_bf16.K)
+    s1_launches = micro_bf16.LAUNCHES
+    print(f"# S1 micro_bf16: ({micro_bf16.P}, {micro_bf16.C}), K "
+          f"{s1['K']}, r {s1['rs']}; {s1_launches} launches  [{smi}]")
+    c = torch.tensor([[micro_bf16.C_VALUE]], device=dev)
+    x1 = torch.linspace(-2.0, 3.0, micro_bf16.P * micro_bf16.C,
+                        device=dev).reshape(micro_bf16.P, micro_bf16.C)
+    s1_modes, s1_err = {}, 0.0
+    for op in micro_bf16.OPS:
+        for name, dtype in micro_bf16.DTYPES.items():
+            key = f"{op}_{name}"
+            r = s1[key]
+            print(f"#   S1 {key}: " + ", ".join(
+                f"r {rr}: {v['ms_per_call']:.4f} ms per call, "
+                f"{v['gop_s']:.1f} Gop/s" for rr, v in r["per_r"].items())
+                + f"; r_scaling {r['r_scaling']:.3f}")
+            if not R_SCALING[0] <= r["r_scaling"] <= R_SCALING[1]:
+                raise AssertionError(f"S1 {key}: r_scaling {r['r_scaling']}"
+                                     f" outside {R_SCALING}")
+            xs = x1.to(dtype)
+            got = micro_bf16.block(c, xs, op, S1_CHECK_R, S1_CHECK_K)
+            want = xs
+            for _ in range(S1_CHECK_K):
+                want = micro_bf16.plain_passes(c, want, op, S1_CHECK_R)
+            got, want = got.float(), want.float()
+            d = (got - want).abs()
+            if name == "float32":
+                bar = "rtol 1e-6"
+                ok = bool((d <= 1e-6 * want.abs()).all())
+            else:   # one bf16 ulp: 8 significant bits
+                bar = "one bf16 ulp"
+                ulp = torch.exp2(torch.floor(torch.log2(
+                    want.abs().clamp(min=2.0 ** -126))) - 7)
+                ok = bool((d <= ulp).all())
+            moved = float((want - xs.float()).abs().max())
+            print(f"#   S1 {key} kernel vs plain, r {S1_CHECK_R}, K "
+                  f"{S1_CHECK_K}, linspace start: max |d| {float(d.max()):.3e}"
+                  f" ({bar}); the block moved by up to {moved:.3e}")
+            if not ok or moved == 0.0:
+                raise AssertionError(f"S1 {key} disagrees with its plain "
+                                     f"version, or did not move")
+            s1_err = max(s1_err, float(d.max()))
+            # one pass is one FMA (2 ops) for float32 madd, a multiply and
+            # an add for bf16 madd, an exp (as one) and an add for exp; bf16
+            # at twice the fp32 rate (two lanes per bf16x2 instruction)
+            peak = PEAK_FP32 * (2 if name == "bfloat16" else 1)
+            ops = 2 * xs.numel() * micro_bf16.RS[-1]
+            s1_modes[key] = dict(
+                {k: v for k, v in r.items() if k != "per_r"},
+                per_r={str(k): v for k, v in r["per_r"].items()},
+                ms=r["ms_per_call"], bound_ms=ops / peak * 1e3,
+                max_abs_err=float(d.max()),
+                check_ms=device_ms(lambda a=(xs, op): micro_bf16.passes(
+                    c, *a, S1_CHECK_R), reps=5, warmup=1),
+                plain_ms=device_ms(lambda a=(xs, op): micro_bf16.plain_passes(
+                    c, *a, S1_CHECK_R), reps=3, warmup=1))
+    for op in micro_bf16.OPS:
+        print(f"#   S1 {op}: bf16 / f32 = {s1[f'{op}_bf16_speedup']:.3f}")
+
+    # ---- S3: K2's skeleton variants on bench.py's frame
+    cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
+    for mode in cuda_blend.SKELETON_MODES:
+        cuda_blend.SKELETON_LAUNCHES[mode] = 0
+    fr = micro_bwd.frame(dev, N_GAUSS, W, H, SEED)
+    s3 = micro_bwd.measure(fr)
+    s3_launches = dict(cuda_blend.SKELETON_LAUNCHES, K1=cuda_blend.LAUNCHES,
+                       K2=cuda_blend.K2_LAUNCHES)
+    b = fr["bins"]
+    print(f"# S3 micro_bwd: {s3['gaussians']} Gaussians, {W}x{H}, "
+          f"{s3['instances']} instances in {s3['slots']} slots, "
+          f"{s3['pairs_walked']} pairs walked, g = ones; launches "
+          f"{s3_launches}  [{smi}]")
+    if min(s3_launches.values()) == 0:
+        raise AssertionError("an S3 variant was not launched")
+    k2_blocks = s3["variants"]["full"]["blocks_per_sm"]
+    for mode in micro_bwd.TIMED:
+        v = s3["variants"][mode]
+        pad = (f", {v['pad_bytes']} B of unused shared memory"
+               if "pad_bytes" in v else "")
+        print(f"#   S3 {mode}: {v['ms']:.4f} ms, "
+              f"{v['share_of_full'] * 100:.1f}% of full (K2), "
+              f"{v['blocks_per_sm']} blocks per SM{pad}")
+        if v["blocks_per_sm"] != k2_blocks:
+            raise AssertionError(f"S3 {mode} ran {v['blocks_per_sm']} blocks"
+                                 f" per SM, K2 {k2_blocks}")
+    args = (fr["feat"], b.gauss_id, b.starts, b.ends, fr["bg"], W, H,
+            fr["grad"], fr["log_t"], fr["n_walked"])
+    s3_err = 0.0
+    for mode in micro_bwd.VARIANTS:
+        got, got_bg = micro_bwd.variant(mode, fr)
+        want, want_bg = micro_bwd.plain_variant(mode, *args)
+        torch.cuda.synchronize()
+        if got.dim() == 2 and got.shape[1] == 10:
+            err = held_grad(f"S3 {mode} grad_feat vs plain", got[:, :9],
+                            want[:, :9])
+            if float(got[:, 9].abs().max()) != 0.0:
+                raise AssertionError(f"S3 {mode} wrote column 9")
+        else:   # a fixed-order sum per pixel, atomics of 8 warps per tile
+            d = (got - want).abs()
+            err = float(d.max())
+            bar = S3_RTOL * want.abs() + S3_RTOL * float(want.abs().max())
+            print(f"# S3 {mode} {tuple(got.shape)} vs plain: max |d| "
+                  f"{err:.3e}, max |plain| {float(want.abs().max()):.3e} "
+                  f"(bar {S3_RTOL} |plain| + {S3_RTOL} max |plain|)")
+            if not bool((d <= bar).all()):
+                raise AssertionError(f"S3 {mode} disagrees with plain")
+        bg_rel = float(((got_bg - want_bg).abs()
+                        / want_bg.abs().clamp(min=1e-30)).max())
+        if bg_rel > BG_RTOL:
+            raise AssertionError(f"S3 {mode} grad_bg disagrees ({bg_rel})")
+        s3_err = max(s3_err, err)
+        s3["variants"][mode]["max_abs_err"] = err
+        s3["variants"][mode]["plain_ms"] = device_ms(
+            lambda m=mode: micro_bwd.plain_variant(m, *args), reps=3,
+            warmup=1)
+    # bounds from the counts this frame needs: the cull's (tested kept
+    # pairs, culled and kept (warp, instance)s), the walk, the blend
+    cull = cull_counts("S3's frame", fr["feat"], b, fr["n_walked"])
+    _, _, pairs = plain_blend(fr["feat"], b.gauss_id, b.starts, b.ends,
+                              fr["bg"], W, H)
+    walked, blended = (int(v) for v in pairs.sum(dim=(1, 2)))
+    n_inst, n_tiles = s3["instances"], b.starts.shape[0]
+    staged = int(_disassemble(fr["n_walked"][None], 16)[:, 0].amax(1).sum())
+    # each pair of a skeleton: 9 multiplies and 9 adds to sum them
+    ops = {"skeleton": OPS_SKEL * cull["tested"] + OPS_CULL * cull["K2"]
+           + OPS_WARP_SUM * cull["K2_kept"],
+           "skeleton_no_cull": OPS_SKEL * walked + OPS_WARP_SUM * cull["K2"],
+           "skeleton_no_shuffle": OPS_SKEL * cull["tested"]
+           + OPS_CULL * cull["K2"],
+           "staging_only": 10 * staged,
+           "full": OPS_TESTED * cull["tested"] + OPS_CULL * cull["K2"]
+           + OPS_WARP_SUM * cull["K2_kept"] + OPS_BWD_BLENDED * blended}
+    n_feat = fr["feat"].numel() * 4
+    inputs = n_feat + n_inst * 4 + n_tiles * 4 + 12 + 5 * W * H * 4
+    outs = {"skeleton_no_shuffle": W * H * 4, "staging_only": n_tiles * 4}
+    for mode, n_ops in ops.items():
+        v = s3["variants"][mode]
+        ops_ms = n_ops / PEAK_FP32 * 1e3
+        bytes_ms = (inputs + outs.get(mode, n_feat) + 12) / PEAK_BYTES * 1e3
+        v.update(ops=n_ops, bound_ms=max(ops_ms, bytes_ms),
+                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        print(f"#   S3 {mode}: bound {v['bound_ms']:.5f} ms by "
+              f"{v['bound_by']} ({v['bound_ms'] / v['ms'] * 100:.1f}% of "
+              f"its time), plain {v['plain_ms']:.4f} ms")
+    log = build.build_logs[cuda_blend.BWD_SOURCE]
+    for i, mode in enumerate(cuda_blend.SKELETON_MODES, 1):
+        s3["variants"][mode].update(build.kernel_resources(
+            log, f"blend_bwd_skeleton_kernelILi{i}E"))
+    entries = [{
+        "name": "S2 vpu_peak", "route": "cuda",
+        "source": "hugs_tpu_torch/csrc/vpu_peak.cu",
+        "replaces": "scripts/vpu_peak.py:50",
+        "launches": s2_launches, "max_abs_err": s2_err,
+        "mode": "blendmix", "ms": s2_modes["blendmix"]["ms"],
+        "plain_ms": s2_modes["blendmix"]["plain_ms"],
+        "plain_size": f"grid {S2_CHECK_GRID} (the kernel there: check_ms)",
+        "bound_ms": s2_modes["blendmix"]["bound_ms"],
+        "bound_by": "operations", "library_ms": None,
+        "modes": s2_modes, "ffma_per_step": ffma,
+        "held_to": "vpu_peak.plain_call", "ok": True,
+    }, {
+        "name": "S1 micro_bf16", "route": "cuda",
+        "source": "hugs_tpu_torch/csrc/micro_bf16.cu",
+        "replaces": "scripts/micro_bf16.py:35",
+        "launches": s1_launches, "max_abs_err": s1_err,
+        "mode": "madd_bfloat16", "ms": s1_modes["madd_bfloat16"]["ms"],
+        "plain_ms": s1_modes["madd_bfloat16"]["plain_ms"],
+        "plain_size": f"r {S1_CHECK_R} (the kernel there: check_ms)",
+        "bound_ms": s1_modes["madd_bfloat16"]["bound_ms"],
+        "bound_by": "operations", "library_ms": None,
+        "modes": s1_modes,
+        "bf16_speedup": {op: s1[f"{op}_bf16_speedup"]
+                         for op in micro_bf16.OPS},
+        "held_to": "micro_bf16.plain_passes", "ok": True,
+    }, {
+        "name": "S3 blend_bwd_skeleton", "route": "cuda",
+        "source": "hugs_tpu_torch/csrc/blend_bwd.cu",
+        "replaces": "scripts/micro_bwd.py:42",
+        "launches": sum(s3_launches[m] for m in cuda_blend.SKELETON_MODES),
+        "launches_by_variant": s3_launches, "max_abs_err": s3_err,
+        "mode": "skeleton", "ms": s3["variants"]["skeleton"]["ms"],
+        "plain_ms": s3["variants"]["skeleton"]["plain_ms"],
+        "bound_ms": s3["variants"]["skeleton"]["bound_ms"],
+        "bound_by": s3["variants"]["skeleton"]["bound_by"],
+        "library_ms": None, "variants": s3["variants"],
+        "frame": {k: s3[k] for k in ("width", "height", "gaussians",
+                                     "instances", "slots", "pairs_walked")},
+        "held_to": "micro_bwd.plain_variant", "ok": True,
+    }]
+    return entries, s3_launches, blendmix_rate
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from hugs_tpu_torch import build
     from hugs_tpu_torch.models.scene_gs import (
         PARAM_FIELDS, compact, create_from_pcd, create_from_ply,
@@ -632,14 +880,14 @@ def main():
     # ---- 1. setup
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-    card = f"{smi} (torch {torch.__version__}, CUDA {torch.version.cuda})"
+    smi = card()
+    card_info = f"{smi} (torch {torch.__version__}, CUDA {torch.version.cuda})"
     print(smi)
     t0 = time.time()
-    build.build([cuda_blend.SOURCE, cuda_blend.BWD_SOURCE])   # in parallel
+    from hugs_tpu_torch.micro import micro_bf16, vpu_peak
+    # every kernel's source, one nvcc each, all started together
+    build.build([cuda_blend.SOURCE, cuda_blend.BWD_SOURCE, vpu_peak.SOURCE,
+                 micro_bf16.SOURCE])
     build_s = time.time() - t0
     print(f"# build: {build_s:.1f} s")
     for name, log in build.build_logs.items():
@@ -655,8 +903,9 @@ def main():
         # built earlier from the same source and flags
         ptxas = ("this run's nvcc" if source in build.compiled else
                  build.library_path(source).with_suffix(".log").name)
-        resources[k] = dict(kernel_resources(build.build_logs[source], entry),
-                            blocks_per_sm=occupancy[k], ptxas_report=ptxas)
+        resources[k] = dict(
+            build.kernel_resources(build.build_logs[source], entry),
+            blocks_per_sm=occupancy[k], ptxas_report=ptxas)
         r = resources[k]
         print(f"# {k} {entry}: {r['registers']} registers, "
               f"{r['smem_bytes']} B static shared memory, {r['spill_bytes']}"
@@ -1073,7 +1322,7 @@ def main():
     tstage_ms = {k: statistics.median(v) for k, v in tstages.items()}
     # the first call consumes the statistics the timed steps gathered;
     # later calls find nothing hot and time the step's fixed work
-    densify_ms = time_ms(lambda: scene_densify_step(
+    densify_ms = device_ms(lambda: scene_densify_step(
         state, split_noise(), extent, grad_threshold=0.0002,
         min_opacity=0.005))
     train_budget = max(train_budget, slot_budget(trainee_demand(state)))
@@ -1123,16 +1372,16 @@ def main():
         args = (feat, b.gauss_id, b.starts, b.ends, bg, W, H)
         t = {}
         if "k1" in kernels:
-            t.update(k1=time_ms(lambda: cuda_blend.blend_fwd(*args),
-                                inner=BACK_TO_BACK),
-                     k1_call=time_ms(lambda: cuda_blend.blend_fwd(*args)),
-                     plain=time_ms(lambda: plain_blend(*args)))
+            t.update(k1=device_ms(lambda: cuda_blend.blend_fwd(*args),
+                                  inner=BACK_TO_BACK),
+                     k1_call=device_ms(lambda: cuda_blend.blend_fwd(*args)),
+                     plain=device_ms(lambda: plain_blend(*args)))
         if "k2" in kernels:
             bwd = args + (g, log_t, n_walked)
-            t.update(k2=time_ms(lambda: cuda_blend.blend_bwd(*bwd),
-                                inner=BACK_TO_BACK),
-                     k2_call=time_ms(lambda: cuda_blend.blend_bwd(*bwd)),
-                     plain_bwd=time_ms(lambda: plain_blend_bwd(*args, g)))
+            t.update(k2=device_ms(lambda: cuda_blend.blend_bwd(*bwd),
+                                  inner=BACK_TO_BACK),
+                     k2_call=device_ms(lambda: cuda_blend.blend_bwd(*bwd)),
+                     plain_bwd=device_ms(lambda: plain_blend_bwd(*args, g)))
         tested, blended = (int(x) for x in pairs.sum(dim=(1, 2)))
         n_inst = int((b.ends - b.starts).sum())
         n_tiles = b.starts.shape[0]
@@ -1161,6 +1410,7 @@ def main():
                 continue
             ops_ms, bytes_ms = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
             t[k + "_bound"] = max(ops_ms, bytes_ms)
+            t[k + "_ops"] = ops
             t[k + "_bound_by"] = "operations" if ops_ms >= bytes_ms \
                 else "bytes"
             t[k + "_yardstick"] = max(ops_first / PEAK_FP32 * 1e3, bytes_ms)
@@ -1176,7 +1426,7 @@ def main():
                   f"({t[k + '_yardstick'] / t[k] * 100:.1f}%)")
         return t
 
-    print(f"# card: {card}")
+    print(f"# card: {card_info}")
     # phase 2's frame is the serving path's; step 0's frame is the
     # largest the training path gives K1 and K2
     serve_t = kernel_times("phase 2's frame (serving)", feat, bins, bg,
@@ -1199,6 +1449,26 @@ def main():
     avatar = avatar_serving(dev, smi, project, slot_budget, cull_counts,
                             tile_of_pixel, kernel_times)
 
+    # ---- 3d. the micro-benchmarks, after phase 4's times
+    micro, s3_launches, blendmix_rate = micro_benchmarks(dev, smi,
+                                                         cull_counts)
+    # K1 and K2 against the rate S2 measured on the blend's mix
+    at_s2 = {
+        "K1": {"serving": serve_t["k1_ops"], "training": train_t["k1_ops"],
+               "avatar": avatar["ops"]},
+        "K2": {"training": train_t["k2_ops"], "serving": serve_t["k2_ops"]}}
+    times = {"K1": {"serving": serve_t["k1"], "training": train_t["k1"],
+                    "avatar": avatar["ms"]},
+             "K2": {"training": train_t["k2"], "serving": serve_t["k2"]}}
+    for k, by_frame in at_s2.items():
+        for frame, ops in by_frame.items():
+            by_frame[frame] = ops / blendmix_rate * 1e3
+            print(f"# {k} on the {frame} frame: {ops:.4e} ops at S2's "
+                  f"blendmix rate {blendmix_rate / 1e12:.3f} T op/s = "
+                  f"{by_frame[frame]:.5f} ms "
+                  f"({by_frame[frame] / times[k][frame] * 100:.1f}% of its "
+                  f"{times[k][frame]:.4f} ms)  [{smi}]")
+
     # ---- 5. kernels line, 6. device line
     print(json.dumps({"kernels": [{
         "name": "K1 blend_fwd", "route": "cuda",
@@ -1206,7 +1476,8 @@ def main():
         "replaces": "hugs_tpu/render/pallas_blend.py:354",
         "launches": launches + k1_train + avatar["launches"],
         "launches_by_path": {"serving": launches, "training": k1_train,
-                             "avatar": avatar["launches"]},
+                             "avatar": avatar["launches"],
+                             "micro_bwd": s3_launches["K1"]},
         "max_abs_err": max(max_err, avatar["max_abs_err"]),
         "frame": "serving (phase 2)",
         "ms": serve_t["k1"], "call_ms": serve_t["k1_call"],
@@ -1219,6 +1490,7 @@ def main():
             "launches", "max_abs_err", "ms", "call_ms", "plain_ms",
             "bound_ms", "bound_by", "yardstick_bound_ms", "instances_frame0",
             "budget", "frame_ms", "device_kernels_per_frame")},
+        "ms_at_s2_blendmix_rate": at_s2["K1"],
         "cull_dropped_share": {"serving": cull_serve["K1_dropped"],
                                "training": cull_train["K1_dropped"],
                                "avatar": avatar["cull_dropped_share"]},
@@ -1230,7 +1502,8 @@ def main():
         "replaces": "hugs_tpu/render/pallas_blend.py:486",
         "launches": k2_train,
         "launches_by_path": {"serving": k2_serve, "training": k2_train,
-                             "avatar": avatar["k2_launches"]},
+                             "avatar": avatar["k2_launches"],
+                             "micro_bwd": s3_launches["K2"]},
         "max_abs_err": k2_err, "frame": "training step 0 (view 0)",
         "ms": train_t["k2"], "call_ms": train_t["k2_call"],
         "plain_ms": train_t["plain_bwd"], "bound_ms": train_t["k2_bound"],
@@ -1238,11 +1511,12 @@ def main():
         "yardstick_bound_ms": train_t["k2_yardstick"],
         "serving_frame": {k: serve_t[k] for k in (
             "k2", "k2_call", "plain_bwd", "k2_bound", "k2_yardstick")},
+        "ms_at_s2_blendmix_rate": at_s2["K2"],
         "cull_dropped_share": {"serving": cull_serve["K2_dropped"],
                                "training": cull_train["K2_dropped"]},
         **resources["K2"],
         "held_to": "plain_blend_bwd", "ok": True,
-    }]}))
+    }, *micro]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -87,3 +87,25 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _loaded:
         _loaded[name] = ctypes.CDLL(str(build([name])[name]))
     return _loaded[name]
+
+
+def kernel_resources(log, kernel):
+    """Registers, static shared memory (bytes) and spill stores of the
+    entry function named `kernel` in nvcc's `-Xptxas -v` output."""
+    entry, out = None, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line
+        elif entry is not None and kernel in entry:
+            if "spill stores" in line:
+                spills = int(line.split("bytes spill stores")[0]
+                             .split(",")[-1])
+                out = dict(out or {}, spill_bytes=spills)
+            if "registers" in line:
+                regs = int(line.split("Used")[1].split("registers")[0])
+                smem = int(line.split("bytes smem")[0].split(",")[-1]) \
+                    if "bytes smem" in line else 0
+                out = dict(out or {}, registers=regs, smem_bytes=smem)
+    if not out or "registers" not in out:
+        raise AssertionError(f"no ptxas report for {kernel}")
+    return out

@@ -77,6 +77,39 @@
 //
 // Built with -fmad=false, as K1 is, so the alpha of a pair and the cull
 // are bit-identical to K1's and to the plain PyTorch version's.
+//
+// S3, K2's skeleton: the tile's work is one template, `bwd_tile`, on a
+// variant. K2 is the `kFull` instantiation (blend_bwd_kernel); the others
+// (blend_bwd_skeleton_kernel) replace the TPU kernel `_skel_kernel` of
+// scripts/micro_bwd.py, which split the TPU kernel's fixed cost from its
+// gradient arithmetic, and split K2's the same way on this design:
+//   kSkeleton     all of K2 but the gradient math: pair_grad (the alpha
+//                 recompute, T_i, the compensated sums and the nine
+//                 products) becomes one multiply per sum, d_k = g_r f_k,
+//                 and the per-instance conic algebra goes; the per-pixel
+//                 setup, staging, cull, grouped walk, reduce-scatter, the
+//                 warp-order sum and the atomics stay. Output grad_feat:
+//                 f_k times the sum of g_r over the pixels that walk the
+//                 instance and whose warp keeps it.
+//   kNoCull       kSkeleton with every walked instance kept (no warp
+//                 cull): the Hopper-specific part of the fixed cost.
+//   kNoShuffle    kSkeleton without the sum across pixels (the TPU's
+//                 no_k8): no reduce-scatter, no warp sum, so no
+//                 per-instance sums and no atomics; each pixel adds its
+//                 own nine sums and writes their total to a (H, W) plane.
+//   kStagingOnly  the per-pixel setup, the batch loop, its loads and
+//                 syncs (the TPU's dma_only); each thread adds up the row
+//                 another thread staged, and the block adds its tile's
+//                 total to a (T,) checksum.
+// Every variant writes grad_bg as K2 does. Each output depends on all the
+// work its variant keeps, so nvcc cannot drop that work, and each has a
+// plain PyTorch version (hugs_tpu_torch/micro/micro_bwd.py).
+// Without the gradient math a variant needs fewer registers (and the
+// cull-free ones less shared memory) than K2, and would run more blocks
+// per SM; so each is launched with unused dynamic shared memory, the
+// least that brings it down to K2's resident blocks per SM
+// (residency_pad), and the variants' times differ from K2's by their
+// work, not by their residency.
 
 #include "blend_common.cuh"
 
@@ -90,6 +123,14 @@ constexpr int kGrad = 9;  // the nine sums per instance; the radius has none
 constexpr int kGroupLog = 3;
 constexpr int kGroup = 1 << kGroupLog;
 constexpr unsigned kAll = 0xffffffffu;
+
+enum Variant : int {
+  kFull = 0,
+  kSkeleton = 1,
+  kNoCull = 2,
+  kNoShuffle = 3,
+  kStagingOnly = 4
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -161,25 +202,39 @@ __device__ __forceinline__ void pair_grad(Pixel& p, const float* f, bool live,
   d[8] = d[5] * dy;
 }
 
+// The skeleton's stand-in for pair_grad: one multiply per sum.
+__device__ __forceinline__ void pair_skel(const Pixel& p, const float* f,
+                                          bool live, float d[kGrad]) {
+  const float s = live ? p.g0 : 0.0f;
+#pragma unroll
+  for (int k = 0; k < kGrad; ++k) d[k] = s * f[k];
+}
+
 // The warp's sums of 2^L consecutive kept instances, reduce-scattered:
 // `out` holds, for the instance `j` this lane was assigned (-1 if the
 // group ran out), the sum of the partials of the 2^L lanes whose index
 // differs from this lane's only in bits 4 down to 5 - L; lane bits 4 ..
 // 5 - L pick the instance. Instances are computed back to front, and each
 // stage runs as soon as both of its halves are computed.
-template <int L>
+template <int L, int V>
 __device__ __forceinline__ void group_sums(Pixel& p, Cursor& cur,
                                            float (*rows)[kFeat], int b0,
                                            int lane, float out[kGrad],
                                            int& j) {
   if constexpr (L == 0) {
     j = cur.pop();
-    pair_grad(p, rows[j < 0 ? 0 : j], j >= 0 && b0 + j < p.n_walk, out);
+    const float* f = rows[j < 0 ? 0 : j];
+    const bool live = j >= 0 && b0 + j < p.n_walk;
+    if constexpr (V == kFull) {
+      pair_grad(p, f, live, out);
+    } else {
+      pair_skel(p, f, live, out);
+    }
   } else {
     float a[kGrad], b[kGrad];
     int ja, jb;
-    group_sums<L - 1>(p, cur, rows, b0, lane, a, ja);
-    group_sums<L - 1>(p, cur, rows, b0, lane, b, jb);
+    group_sums<L - 1, V>(p, cur, rows, b0, lane, a, ja);
+    group_sums<L - 1, V>(p, cur, rows, b0, lane, b, jb);
     constexpr int off = 32 >> L;
     const bool upper = (lane & off) != 0;
 #pragma unroll
@@ -192,17 +247,21 @@ __device__ __forceinline__ void group_sums(Pixel& p, Cursor& cur,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-blend_bwd_kernel(const float* __restrict__ feat,
-                 const int* __restrict__ gauss_id,
-                 const int* __restrict__ starts,
-                 const float* __restrict__ bg,
-                 const float* __restrict__ log_t_fin,
-                 const int* __restrict__ n_walked,
-                 const float* __restrict__ grad,
-                 int width, int height, int nx,
-                 float* __restrict__ grad_feat,
-                 float* __restrict__ grad_bg) {
+// One 16x16 tile's work, variant V (the header says what each keeps).
+// `out` is the variant's own output: grad_feat (N, 10) for kFull,
+// kSkeleton and kNoCull, the (H, W) per-pixel plane for kNoShuffle, the
+// (T,) per-tile checksum for kStagingOnly.
+template <int V>
+__device__ __forceinline__ void bwd_tile(const float* __restrict__ feat,
+                                         const int* __restrict__ gauss_id,
+                                         const int* __restrict__ starts,
+                                         const float* __restrict__ bg,
+                                         const float* __restrict__ log_t_fin,
+                                         const int* __restrict__ n_walked,
+                                         const float* __restrict__ grad,
+                                         int width, int height, int nx,
+                                         float* __restrict__ out,
+                                         float* __restrict__ grad_bg) {
   __shared__ float s_feat[kBatch][kFeat];
   __shared__ int s_gid[kBatch];
   __shared__ float s_part[kWarps][kBatch][kGrad];
@@ -259,6 +318,11 @@ blend_bwd_kernel(const float* __restrict__ feat,
     if (v != 0.0f) atomicAdd(grad_bg + tid, v);
   }
 
+  float acc[kGrad];  // kNoShuffle: this pixel's own nine sums
+#pragma unroll
+  for (int k = 0; k < kGrad; ++k) acc[k] = 0.0f;
+  float chk = 0.0f;  // kStagingOnly: the rows this thread read
+
   for (int b = (walk + kBatch - 1) / kBatch - 1; b >= 0; --b) {
     const int b0 = b * kBatch;
     const int n = min(kBatch, walk - b0);
@@ -274,23 +338,43 @@ blend_bwd_kernel(const float* __restrict__ feat,
     }
     __syncthreads();
 
+    if constexpr (V == kStagingOnly) {
+      if (tid < n) {
+        const float* f = s_feat[n - 1 - tid];
+#pragma unroll
+        for (int k = 0; k < kFeat; ++k) chk += f[k];
+      }
+      continue;
+    }
+
     // the warp's mask: instances that can have alpha > 0 at one of its
     // pixels, and that some lane of it walked
 #pragma unroll
     for (int w = 0; w < kWords; ++w) {
       const int i = w * 32 + lane;
-      const unsigned m = __ballot_sync(
-          kAll, i < n && b0 + i < wwalk &&
-                    warp_keep(s_feat[i], tx0, ty0, warp));
+      bool kept = i < n && b0 + i < wwalk;
+      if constexpr (V != kNoCull) {
+        kept = kept && warp_keep(s_feat[i], tx0, ty0, warp);
+      }
+      const unsigned m = __ballot_sync(kAll, kept);
       if (lane == 0) s_mask[warp][w] = m;
     }
     __syncwarp();
 
     Cursor cur{s_mask[warp], kWords, 0u};
+    if constexpr (V == kNoShuffle) {
+      for (int j = cur.pop(); j >= 0; j = cur.pop()) {
+        float d[kGrad];
+        pair_skel(p, s_feat[j], b0 + j < p.n_walk, d);
+#pragma unroll
+        for (int k = 0; k < kGrad; ++k) acc[k] += d[k];
+      }
+      continue;
+    }
     while (cur.more()) {
       float r[kGrad];
       int j;
-      group_sums<kGroupLog>(p, cur, s_feat, b0, lane, r, j);
+      group_sums<kGroupLog, V>(p, cur, s_feat, b0, lane, r, j);
 #pragma unroll
       for (int off = 16 >> kGroupLog; off > 0; off >>= 1) {
 #pragma unroll
@@ -320,20 +404,137 @@ blend_bwd_kernel(const float* __restrict__ feat,
         }
       }
       if (any) {
-        const float* f = s_feat[tid];
-        const float op = f[3], ca = f[6], cb = f[7], cc = f[8];
-        const float g[kGrad] = {
-            s[0], s[1], s[2], op > 0.0f ? s[3] / op : 0.0f,
-            -(ca * s[4] + cb * s[5]), -(cc * s[5] + cb * s[4]),
-            -0.5f * s[6], -s[7], -0.5f * s[8]};
-        float* out = grad_feat + static_cast<size_t>(s_gid[tid]) * kFeat;
+        float* dst = out + static_cast<size_t>(s_gid[tid]) * kFeat;
+        if constexpr (V == kFull) {
+          const float* f = s_feat[tid];
+          const float op = f[3], ca = f[6], cb = f[7], cc = f[8];
+          const float g[kGrad] = {
+              s[0], s[1], s[2], op > 0.0f ? s[3] / op : 0.0f,
+              -(ca * s[4] + cb * s[5]), -(cc * s[5] + cb * s[4]),
+              -0.5f * s[6], -s[7], -0.5f * s[8]};
 #pragma unroll
-        for (int k = 0; k < kGrad; ++k) {
-          if (g[k] != 0.0f) atomicAdd(out + k, g[k]);
+          for (int k = 0; k < kGrad; ++k) {
+            if (g[k] != 0.0f) atomicAdd(dst + k, g[k]);
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < kGrad; ++k) {
+            if (s[k] != 0.0f) atomicAdd(dst + k, s[k]);
+          }
         }
       }
     }
   }
+
+  if constexpr (V == kNoShuffle) {
+    if (inside) {
+      float total = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kGrad; ++k) total += acc[k];
+      out[static_cast<size_t>(py_i) * width + px_i] = total;
+    }
+  }
+  if constexpr (V == kStagingOnly) {
+    chk = warp_sum(chk);
+    if (lane == 0 && chk != 0.0f) atomicAdd(out + t, chk);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+blend_bwd_kernel(const float* __restrict__ feat,
+                 const int* __restrict__ gauss_id,
+                 const int* __restrict__ starts,
+                 const float* __restrict__ bg,
+                 const float* __restrict__ log_t_fin,
+                 const int* __restrict__ n_walked,
+                 const float* __restrict__ grad,
+                 int width, int height, int nx,
+                 float* __restrict__ grad_feat,
+                 float* __restrict__ grad_bg) {
+  bwd_tile<kFull>(feat, gauss_id, starts, bg, log_t_fin, n_walked, grad,
+                  width, height, nx, grad_feat, grad_bg);
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+blend_bwd_skeleton_kernel(const float* __restrict__ feat,
+                          const int* __restrict__ gauss_id,
+                          const int* __restrict__ starts,
+                          const float* __restrict__ bg,
+                          const float* __restrict__ log_t_fin,
+                          const int* __restrict__ n_walked,
+                          const float* __restrict__ grad,
+                          int width, int height, int nx,
+                          float* __restrict__ out,
+                          float* __restrict__ grad_bg) {
+  bwd_tile<V>(feat, gauss_id, starts, bg, log_t_fin, n_walked, grad, width,
+              height, nx, out, grad_bg);
+}
+
+// The dynamic shared memory (bytes, a multiple of 128) that the launch of
+// variant V requests so that it has K2's resident blocks per SM: the
+// least that does, 0 if it has no more blocks than K2 already; -1 if no
+// amount gives exactly K2's count or a query fails. Found once.
+template <int V>
+int residency_pad() {
+  static int pad = -2;
+  if (pad != -2) return pad;
+  pad = -1;
+  const auto kernel = blend_bwd_skeleton_kernel<V>;
+  const int target = blocks_per_sm(blend_bwd_kernel);
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr{};
+  if (target <= 0 || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) {
+    return pad;
+  }
+  const int room = optin - static_cast<int>(attr.sharedSizeBytes);
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           room) != cudaSuccess) {
+    return pad;
+  }
+  for (int p = 0; p <= room; p += 128) {
+    int n = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads,
+                                                      p) != cudaSuccess) {
+      return pad;
+    }
+    if (n <= target) {
+      if (n == target) pad = p;
+      return pad;
+    }
+  }
+  return pad;
+}
+
+template <int V>
+cudaError_t launch_skeleton(const float* feat, const int* gauss_id,
+                            const int* starts, const float* bg,
+                            const float* log_t_fin, const int* n_walked,
+                            const float* grad, int width, int height, int nx,
+                            int n_tiles, float* out, float* grad_bg,
+                            cudaStream_t stream) {
+  const int pad = residency_pad<V>();
+  if (pad < 0) return cudaErrorInvalidConfiguration;
+  blend_bwd_skeleton_kernel<V><<<n_tiles, kThreads, pad, stream>>>(
+      feat, gauss_id, starts, bg, log_t_fin, n_walked, grad, width, height,
+      nx, out, grad_bg);
+  return cudaGetLastError();
+}
+
+// Variant V's resident blocks per SM at its pad; -1 as residency_pad.
+template <int V>
+int skeleton_blocks_per_sm(int* pad) {
+  *pad = residency_pad<V>();
+  int n = 0;
+  if (*pad < 0 || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &n, blend_bwd_skeleton_kernel<V>, kThreads, *pad) !=
+                      cudaSuccess) {
+    return -1;
+  }
+  return n;
 }
 
 }  // namespace
@@ -360,7 +561,54 @@ extern "C" int hugs_blend_bwd(const float* feat, const int* gauss_id,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launches S3, K2's skeleton variant `variant` (1 kSkeleton, 2 kNoCull,
+// 3 kNoShuffle, 4 kStagingOnly), with hugs_blend_bwd's arguments; `out`
+// is the variant's output (bwd_tile), which the caller zeroes with
+// grad_bg; each variant at K2's resident blocks per SM (residency_pad).
+// Returns cudaGetLastError(), cudaErrorInvalidValue for another variant,
+// or cudaErrorInvalidConfiguration if its residency cannot be pinned.
+extern "C" int hugs_blend_bwd_skeleton(int variant, const float* feat,
+                                       const int* gauss_id, const int* starts,
+                                       const float* bg,
+                                       const float* log_t_fin,
+                                       const int* n_walked, const float* grad,
+                                       int width, int height, int nx,
+                                       int n_tiles, float* out,
+                                       float* grad_bg, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (variant < kSkeleton || variant > kStagingOnly) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_tiles <= 0) return static_cast<int>(cudaGetLastError());
+#define HUGS_SKELETON(V)                                                     \
+  launch_skeleton<V>(feat, gauss_id, starts, bg, log_t_fin, n_walked, grad, \
+                     width, height, nx, n_tiles, out, grad_bg, s)
+  cudaError_t err;
+  switch (variant) {
+    case kSkeleton: err = HUGS_SKELETON(kSkeleton); break;
+    case kNoCull: err = HUGS_SKELETON(kNoCull); break;
+    case kNoShuffle: err = HUGS_SKELETON(kNoShuffle); break;
+    default: err = HUGS_SKELETON(kStagingOnly); break;
+  }
+#undef HUGS_SKELETON
+  return static_cast<int>(err);
+}
+
 // K2's resident blocks per SM, from the occupancy calculator.
 extern "C" int hugs_blend_bwd_blocks_per_sm() {
   return blocks_per_sm(blend_bwd_kernel);
+}
+
+// Skeleton variant `variant`'s resident blocks per SM as it is launched,
+// and in *pad the dynamic shared memory that pins it; -1 for another
+// variant or where residency_pad fails.
+extern "C" int hugs_blend_bwd_skeleton_blocks_per_sm(int variant, int* pad) {
+  *pad = -1;
+  switch (variant) {
+    case kSkeleton: return skeleton_blocks_per_sm<kSkeleton>(pad);
+    case kNoCull: return skeleton_blocks_per_sm<kNoCull>(pad);
+    case kNoShuffle: return skeleton_blocks_per_sm<kNoShuffle>(pad);
+    case kStagingOnly: return skeleton_blocks_per_sm<kStagingOnly>(pad);
+    default: return -1;
+  }
 }

@@ -15,6 +15,14 @@ computes the background's gradient, sum_p g T_fin [T_fin >= T_EPS]
 that the warp cull (`warp_cull`, a 16x2 rectangle of pixel centres per
 warp) shows to have alpha 0 at all of the warp's pixels.
 
+`blend_bwd_skeleton` launches S3, K2's skeleton variants (the
+counterpart of scripts/micro_bwd.py's `_skel_kernel`): K2's own tile
+loop with its gradient math replaced by one multiply per sum, with or
+without the warp cull and the sum across pixels, or its staging alone
+(csrc/blend_bwd.cu says what each keeps), each at K2's resident blocks
+per SM (`skeleton_residency`). CUDA tensors only; their plain versions
+are in hugs_tpu_torch/micro/micro_bwd.py.
+
 The TPU kernels' POWER_MXU mode (a matmul evaluation of the Gaussian
 exponent and of K2's pixel moments on the TPU's MXU, off by default) has
 no output of its own: K1 computes the same exponent directly and K2 sums
@@ -41,6 +49,11 @@ BWD_SOURCE = "blend_bwd"
 LAUNCHES = 0      # K1 launches since the count was last set to 0
 K2_LAUNCHES = 0   # K2 launches since the count was last set to 0
 WARP_RECT = (TILE, 2)   # the pixel rectangle of one warp of a tile
+# S3's variants, in the order of their numbers in blend_bwd.cu
+SKELETON_MODES = ("skeleton", "skeleton_no_cull", "skeleton_no_shuffle",
+                  "staging_only")
+# S3 launches per variant since the counts were last set to 0
+SKELETON_LAUNCHES = dict.fromkeys(SKELETON_MODES, 0)
 
 
 def _library(source: str, fn_name: str, argtypes) -> ctypes.CDLL:
@@ -56,6 +69,7 @@ _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGS = [_PTR] * 5 + [_I32] * 4 + [_PTR] * 5
 _BWD_ARGS = [_PTR] * 7 + [_I32] * 4 + [_PTR] * 3
 _CULL_ARGS = [_PTR] * 4 + [_I32] + [_PTR] * 2
+_SKEL_ARGS = [_I32] + [_PTR] * 7 + [_I32] * 4 + [_PTR] * 3
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape, device):
@@ -151,6 +165,45 @@ def blend_bwd(feat: torch.Tensor, gauss_id: torch.Tensor,
     return grad_feat, grad_bg
 
 
+def blend_bwd_skeleton(mode: str, feat: torch.Tensor,
+                       gauss_id: torch.Tensor, starts: torch.Tensor,
+                       ends: torch.Tensor, bg: torch.Tensor, width: int,
+                       height: int, grad_raw: torch.Tensor,
+                       log_t: torch.Tensor, n_walked: torch.Tensor):
+    """Launch S3, K2's skeleton variant `mode` (one of SKELETON_MODES), on
+    the current stream, with blend_bwd's arguments. CUDA tensors only.
+
+    Returns (out, grad_bg): grad_bg (3,) as K2's, and out the variant's
+    own output, grad_feat (N, 10) for "skeleton" and "skeleton_no_cull",
+    a (H, W) per-pixel plane for "skeleton_no_shuffle", a (T,) per-tile
+    checksum for "staging_only" (micro/micro_bwd.py's plain versions say
+    what each holds)."""
+    if mode not in SKELETON_MODES:
+        raise ValueError(f"unknown skeleton mode {mode!r}; expected one of "
+                         f"{SKELETON_MODES}")
+    dev, nx, T = _check_bins(feat, gauss_id, starts, ends, bg, width,
+                             height, "S3")
+    _check("grad_raw", grad_raw, torch.float32, (3, height, width), dev)
+    _check("log_t", log_t, torch.float32, (height, width), dev)
+    _check("n_walked", n_walked, torch.int32, (height, width), dev)
+    shape = {"skeleton_no_shuffle": (height, width),
+             "staging_only": (T,)}.get(mode, tuple(feat.shape))
+    out = torch.zeros(shape, dtype=torch.float32, device=dev)
+    grad_bg = torch.zeros((3,), dtype=torch.float32, device=dev)
+    lib = _library(BWD_SOURCE, "hugs_blend_bwd_skeleton", _SKEL_ARGS)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.hugs_blend_bwd_skeleton(
+            SKELETON_MODES.index(mode) + 1, feat.data_ptr(),
+            gauss_id.data_ptr(), starts.data_ptr(), bg.data_ptr(),
+            log_t.data_ptr(), n_walked.data_ptr(), grad_raw.data_ptr(),
+            width, height, nx, T, out.data_ptr(), grad_bg.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"S3 {mode} launch failed: cudaError {err}")
+    SKELETON_LAUNCHES[mode] += 1
+    return out, grad_bg
+
+
 def warp_cull(feat: torch.Tensor, gauss_id: torch.Tensor, tx: torch.Tensor,
               ty: torch.Tensor) -> torch.Tensor:
     """The warp cull of K1 and K2: (I,) bool, False where Gaussian
@@ -187,6 +240,23 @@ def blocks_per_sm() -> dict[str, int]:
                              ("K2", BWD_SOURCE,
                               "hugs_blend_bwd_blocks_per_sm")):
         out[name] = int(getattr(_library(source, fn, []), fn)())
+    return out
+
+
+def skeleton_residency() -> dict[str, dict[str, int]]:
+    """Each S3 variant's resident blocks per SM as it is launched, and the
+    unused dynamic shared memory (bytes) that pins it to K2's count
+    (csrc/blend_bwd.cu, residency_pad). Raises where it cannot be pinned."""
+    fn = "hugs_blend_bwd_skeleton_blocks_per_sm"
+    lib = _library(BWD_SOURCE, fn, [_I32, ctypes.POINTER(_I32)])
+    out = {}
+    for i, mode in enumerate(SKELETON_MODES, 1):
+        pad = _I32(-1)
+        n = int(getattr(lib, fn)(i, ctypes.byref(pad)))
+        if n < 0 or pad.value < 0:
+            raise RuntimeError(f"S3 {mode}: its residency cannot be pinned "
+                               f"to K2's")
+        out[mode] = {"blocks_per_sm": n, "pad_bytes": pad.value}
     return out
 
 

@@ -12,6 +12,7 @@ import torch
 
 import hugs_tpu_torch
 from hugs_tpu_torch import build
+from hugs_tpu_torch.micro import micro_bf16, vpu_peak
 from hugs_tpu_torch.render import cuda_blend
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -115,6 +116,11 @@ def test_library_path_follows_the_source():
     assert path == build.library_path(cuda_blend.SOURCE)
     assert build.library_path(cuda_blend.BWD_SOURCE).name.startswith(
         "blend_bwd-")
+    for source in (vpu_peak.SOURCE, micro_bf16.SOURCE):
+        path = build.library_path(source)
+        assert path.parent == build.BUILD_DIR and path.suffix == ".so"
+        assert path.name.startswith(f"{source}-")
+        assert (build.CSRC / f"{source}.cu").is_file()
 
 
 def test_library_path_follows_the_shared_header(monkeypatch, tmp_path):
