@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drives the hugs_tpu_torch serving render, scene training, the avatar
-serving frame and the three micro-benchmarks on one NVIDIA GPU.
+serving frame, the three micro-benchmarks and human training on one
+NVIDIA GPU.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It builds the CUDA kernels (K1, the forward blend; K2, its backward,
@@ -63,6 +64,29 @@ source, all together, then:
      a second reading beside the bound, not a bound: the counts weigh a
      culled pair's 91 cheap operations as blendmix's mix, so a kernel
      can beat it);
+  3e. the human training path (config[2], cfg_files/neuman/hugs_human.
+     yaml; run after 3d): check (b) first, one human_train_step on the
+     parity tests' small avatar on the card against the CPU; then the
+     ground truth of scripts/human_avatar_tpu.py, 24 frames of striped
+     splats on the posed synthetic_smpl(288) from the orbit at distance
+     2.6, each rendered on black and white (mask: transmittance < 0.5);
+     phase 3c's body (69,105 Gaussians) in the trainer's capacity
+     524,288 with the frames' poses; distill_init (HUMAN_DISTILL steps);
+     30 human_train_step calls cycling the frames (L1 0.8, SSIM 0.2,
+     patch LPIPS 1.0 on 4 patches of 128, LBS 1000, white background,
+     pose and translation optimised), one_up_sh_degree at step 10 (held
+     at degree 0) and human_densify_step at step 15; the budget from a
+     rehearsal of the whole run on a copy (its largest slot demand x
+     1.15: the splats grow after Adam's first steps). Checks: (a) K1
+     and K2 against their plain versions on step 0's whole frame, K2 fed
+     that step's d(loss)/d(raw colour) (float64 fallback), (c) every
+     loss, parameter, moment and gradient finite on the live rows, (d)
+     no overflow, (e) one K1 and one K2 launch per step, (f) step 0's
+     frame and draws give a lower L1 + SSIM + patch LPIPS after the run
+     (the LBS term, which does not depend on the frame, printed beside
+     it); then a step's stage times (the patch LPIPS alone beside them),
+     a distillation step, the densify, the device kernels and idle share
+     of a step, and K1's and K2's times and bounds on step 0's frame;
   4. times on the card (CUDA events, median of 20 after warm-up): one
      request split into project / bin / blend, one training step split
      into forward / loss / backward / Adam + stats, one densify step,
@@ -164,6 +188,22 @@ AVATAR_SLOT_CAP = 1 << 22
 AVATAR_ATOL = 1e-5
 # the frame of the cached decode against the full forward
 FULL_FORWARD_ATOL = 2e-5
+# the human training path (phase 3e): config[2]'s recipe,
+# cfg_files/neuman/hugs_human.yaml, on phase 3c's body at the trainer's
+# capacity (max_n_gaussians), against scripts/human_avatar_tpu.py's
+# ground truth: 24 frames of striped splats on the posed body, the orbit
+# at distance 2.6
+HUMAN_CAPACITY = 524_288
+HUMAN_FRAMES = 24
+HUMAN_DIST = 2.6
+HUMAN_DISTILL = 4000      # cut from the recipe's 7,000 for the time limit
+HUMAN_STEPS = 30
+HUMAN_DENSIFY_AT = 15
+HUMAN_SH_AT = 10          # one_up_sh_degree, held at sh_degree 0
+HUMAN_SH_DEGREE = 0
+HUMAN_EXTENT = 1.0        # densify_extent
+HUMAN_SLOT_CAP = 1 << 23  # the rehearsal's budget
+HUMAN_LOSS = dict(l_ssim_w=0.2, l_l1_w=0.8, l_lpips_w=1.0, l_lbs_w=1000.0)
 # phase 3d, the micro-benchmarks: S2 held to its plain version at a grid
 # of 16 steps (INNER 64, REPS 3), every element within S2_RTOL of the
 # block's largest value (the plain version's exp and log1p are torch's,
@@ -579,7 +619,7 @@ def avatar_serving(dev, smi, project, slot_budget, cull_counts,
 
     cull = cull_counts("avatar frame 0", feat0, bins0, nwalk_k)
     t = kernel_times("avatar frame 0", feat0, bins0, black, None, logt_k,
-                     nwalk_k, pairs0, cull, kernels=("k1",))
+                     nwalk_k, pairs0, cull, kernels=("k1",), plain_reps=3)
     print(f"# K1 profiler {k1_prof_ms:.4f} ms per avatar frame  [{smi}]")
     return {
         "launches": k1_launches, "k2_launches": k2_launches,
@@ -593,6 +633,458 @@ def avatar_serving(dev, smi, project, slot_budget, cull_counts,
             profiles["avatar frame"][1],
     }
 
+
+def gt_poses(f, n):
+    """scripts/human_avatar_tpu.py's ground-truth motion, frame f of n: a
+    swing of the arms and legs and a slow twist of the torso (axis-angle
+    body pose (69,) and global orient (3,))."""
+    t = 2.0 * np.pi * f / n
+    pose = np.zeros(69, np.float32)
+    # SMPL body joints (0-indexed into the 23 body joints): 0/1 hips,
+    # 3/4 knees, 15/16 shoulders, 17/18 elbows, 8 spine3
+    pose[0 * 3 + 0] = 0.35 * np.sin(t)
+    pose[1 * 3 + 0] = -0.35 * np.sin(t)
+    pose[3 * 3 + 0] = 0.5 * max(0.0, np.sin(t))
+    pose[4 * 3 + 0] = 0.5 * max(0.0, -np.sin(t))
+    pose[15 * 3 + 2] = 0.6 * np.sin(t)
+    pose[16 * 3 + 2] = -0.6 * np.sin(t)
+    pose[17 * 3 + 1] = 0.4 * np.cos(t)
+    pose[18 * 3 + 1] = -0.4 * np.cos(t)
+    pose[8 * 3 + 1] = 0.2 * np.sin(2 * t)
+    orient = np.array([0.0, 0.15 * np.sin(t), 0.0], np.float32)
+    return pose, orient
+
+
+def human_step_card_vs_cpu(dev):
+    """Check (b) of phase 3e: one human_train_step's loss, terms and
+    gradients on the card (K1, K2) against the same step on the CPU (the
+    plain blend), on train/human_check.py's small avatar (the parity
+    tests' size) at its bars."""
+    from hugs_tpu_torch.train import human_check as hc
+
+    worst = hc.compare_steps(hc.small_step(dev, SEED),
+                             hc.small_step("cpu", SEED))
+    print(f"# (b) one human_train_step at {hc.WIDTH}x{hc.HEIGHT}, card vs "
+          f"CPU: every term within {hc.LOSS_ATOL} + {hc.LOSS_RTOL} |v| and "
+          f"every gradient within {hc.GRAD_ATOL} + {hc.GRAD_RTOL} |g|; max "
+          f"|d| " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    return worst
+
+
+def human_training(dev, smi, project, slot_budget, cull_counts,
+                   tile_of_pixel, kernel_times):
+    """Phase 3e, the human training path at full width (see the module
+    docstring), with main's helpers. Raises if a check fails; returns its
+    numbers for the kernels line."""
+    import copy
+
+    from hugs_tpu_torch.data.cameras import get_rotating_camera
+    from hugs_tpu_torch.losses.lpips import LPIPS
+    from hugs_tpu_torch.losses.loss import HumanSceneLoss
+    from hugs_tpu_torch.models import human_gs as hgs
+    from hugs_tpu_torch.models.smpl import smpl_forward, synthetic_smpl
+    from hugs_tpu_torch.models.subdivide import subdivide_smpl_model
+    from hugs_tpu_torch.ops.knn import mean_sq_dist_to_knn
+    from hugs_tpu_torch.render import cuda_blend
+    from hugs_tpu_torch.render.blend import (
+        gauss_features, plain_blend, plain_blend_bwd,
+    )
+    from hugs_tpu_torch.render.oracle import LOG_TEPS, clip01
+    from hugs_tpu_torch.render.renderer import render
+    from hugs_tpu_torch.render.tiles import bin_gaussians
+    from hugs_tpu_torch.train import human_step as hst
+    from hugs_tpu_torch.train.optim import group_adam_init, leaves
+
+    worst_b = human_step_card_vs_cpu(dev)
+
+    # ---- the ground truth: striped splats on the posed body
+    t0 = time.time()
+    smpl = synthetic_smpl(AVATAR_VPB, device=dev)
+    vt = smpl.v_template
+    col = torch.stack([0.5 + 0.45 * torch.sin(25.0 * vt[:, 1]),
+                       0.5 + 0.45 * torch.sin(20.0 * vt[:, 0] + 2.0),
+                       0.5 + 0.45 * torch.cos(18.0 * vt[:, 2] + 4.0)], 1)
+    gt_shs = torch.zeros((vt.shape[0], 16, 3), device=dev)
+    gt_shs[:, 0, :] = (torch.clamp(col, 0, 1) - 0.5) / 0.28209479177387814
+    d2 = mean_sq_dist_to_knn(vt, k=3)
+    gt_scales = (torch.sqrt(torch.clamp(d2, min=1e-8)) * 0.9)[:, None] \
+        .repeat(1, 3)
+    gt_rotq = torch.tensor([1.0, 0, 0, 0], device=dev).repeat(vt.shape[0], 1)
+    gt_op = torch.full((vt.shape[0],), 0.95, device=dev)
+    cams = [c["camera"] for c in get_rotating_camera(
+        img_size=(H, W), fov=0.95, dist=HUMAN_DIST, nframes=HUMAN_FRAMES + 1,
+        angle_limit=2 * np.pi, device=dev)[:-1]]
+    poses = [gt_poses(f, HUMAN_FRAMES) for f in range(HUMAN_FRAMES)]
+    zeros3, betas = torch.zeros(3, device=dev), torch.zeros(10, device=dev)
+    black, white = torch.zeros(3, device=dev), torch.ones(3, device=dev)
+    frames = []
+    with torch.no_grad():
+        for f, (pose, orient) in enumerate(poses):
+            verts = smpl_forward(smpl, betas, torch.as_tensor(pose, device=dev),
+                                 torch.as_tensor(orient, device=dev),
+                                 zeros3).vertices
+            a = dict(xyz=verts, scales=gt_scales, rotq=gt_rotq,
+                     opacity=gt_op, shs=gt_shs)
+            budget = slot_budget(int(bin_gaussians(
+                project(cams[f], a, None, 0), W, H, 1 << 22).n_slots))
+            imgs = []
+            for bg in (black, white):
+                pkg = render(verts, gt_scales, gt_rotq, gt_op, gt_shs,
+                             cams[f], W, H, bg=bg, active_sh_degree=0,
+                             instance_budget=budget)
+                if bool(pkg["overflowed"]):
+                    raise AssertionError(f"ground truth {f} overflowed")
+                imgs.append(pkg["render"])
+            t_map = torch.clamp((imgs[1] - imgs[0]).mean(0), 0.0, 1.0)
+            frames.append((imgs[0], (t_map < 0.5).float()))
+    cover = [float(m.mean()) for _, m in frames]
+    print(f"# human training: ground truth {HUMAN_FRAMES} frames of "
+          f"{vt.shape[0]} striped splats on the posed synthetic_smpl("
+          f"{AVATAR_VPB}), {W}x{H}, mask cover {min(cover):.3f}-"
+          f"{max(cover):.3f}")
+
+    # ---- the avatar: phase 3c's body at the trainer's capacity
+    template = subdivide_smpl_model(smpl, smoothing=True,
+                                    n_iter=AVATAR_SUBDIV)
+    cfg = hgs.HumanGSConfig(use_deformer=True, disable_posedirs=True,
+                            init_scale_multiplier=0.5)
+    gen = torch.Generator()
+    gen.manual_seed(SEED)
+    params, state, fixed, init_values = hgs.init_human_gs(
+        gen, cfg, smpl, template, betas, n_frames=HUMAN_FRAMES,
+        capacity=HUMAN_CAPACITY,
+        init_body_pose=np.stack([p for p, _ in poses]),
+        init_global_orient=np.stack([o for _, o in poses]),
+        init_transl=np.zeros((HUMAN_FRAMES, 3), np.float32))
+    n_human = int(state.alive.sum())
+    if n_human != AVATAR_N_HUMAN:
+        raise AssertionError(f"the template gave {n_human} Gaussians")
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    targets = {k: v for k, v in init_values.items() if k != "edges"}
+
+    # ---- 1. the init distillation, then one distillation step's time on
+    # a copy (the trained avatar keeps exactly HUMAN_DISTILL steps)
+    t0 = time.time()
+    hst.distill_init(params, state, init_values, cfg,
+                     num_steps=HUMAN_DISTILL, log_every=HUMAN_DISTILL // 4)
+    with torch.no_grad():
+        distill_loss = float(hst.distill_loss(params, state, targets, cfg))
+    torch.cuda.synchronize()
+    distill_s = time.time() - t0
+    spare = copy.deepcopy(params)
+    spare_opt = group_adam_init({f: getattr(spare, f)
+                                 for f in hgs.NET_FIELDS})
+    lr = torch.tensor(1e-3, device=dev)
+    distill_ms = device_ms(lambda: hst.distill_step(spare, state, spare_opt,
+                                                    targets, lr, cfg))
+    del spare, spare_opt
+    print(f"# human training: {n_human} Gaussians in capacity "
+          f"{HUMAN_CAPACITY}; set-up {setup_s:.1f} s (host clock); "
+          f"distillation {HUMAN_DISTILL} steps in {distill_s:.1f} s (host "
+          f"clock), loss after {distill_loss:.6f}; one distillation step "
+          f"{distill_ms:.4f} ms  [{smi}]")
+
+    # ---- 2. the training run
+    tstate = hst.init_human_train_state(params, state)
+    static_lrs, xyz_sched = hst.make_human_lrs(optim_pose=True,
+                                               optim_trans=True)
+    lpips = LPIPS.create(device=dev)
+    loss_fn = HumanSceneLoss(**HUMAN_LOSS, num_patches=4, patch_size=128)
+    gen = torch.Generator(device=dev)      # the timed steps' draws
+    gen.manual_seed(SEED + 1)
+    one = torch.tensor(1.0, device=dev)
+
+    def forward(f):
+        """human_forward of frame f at the current state, no gradient, with
+        the skinning targets."""
+        with torch.no_grad():
+            return hgs.human_forward(tstate.params, tstate.state, fixed, cfg,
+                                     smpl_scale=one, dataset_idx=f)
+
+    def lbs_parts(out):
+        """The LBS term's parts on the live rows and on the dead ones:
+        l_lbs_w times each part's sum of squared skinning-weight
+        differences over every element of the capacity, as hugs_tpu
+        averages it (losses/loss.py:130)."""
+        sq = (out["lbs_weights"] - out["gt_lbs_weights"]) ** 2
+        part = sq.sum(1) * (HUMAN_LOSS["l_lbs_w"] / sq.numel())
+        alive = out["alive"]
+        return float(part[alive].sum()), float(part[~alive].sum())
+
+    def step_args(step):
+        f = step % HUMAN_FRAMES
+        rgb, mask = frames[f]
+        return (fixed, cams[f], rgb, mask, white, one, f)
+
+    def run(ts, budget, slots):
+        """The training run on ts: HUMAN_STEPS steps cycling the frames,
+        the SH step and the densify, the draws and the split noise from a
+        generator seeded anew; each step's slot demand goes to `slots`.
+        Returns the losses, step 0's terms and draws, and the densify's
+        counts."""
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED)
+        losses, terms, info, first = [], [], None, None
+        for step in range(HUMAN_STEPS):
+            if step == HUMAN_SH_AT:
+                hgs.one_up_sh_degree(ts.state, HUMAN_SH_DEGREE)
+            if step == HUMAN_DENSIFY_AT:
+                n0 = int(ts.state.alive.sum())
+                noise = torch.randn((2, HUMAN_CAPACITY, 3), generator=g,
+                                    device=dev)
+                _, info = hst.human_densify_step(
+                    ts, {k: aux[k] for k in ("opacity", "scales_canon",
+                                             "rotmat_canon")}, noise,
+                    HUMAN_EXTENT, grad_threshold=0.0002, min_opacity=0.005,
+                    max_screen_size=20.0, percent_dense=0.01,
+                    max_n_gaussians=HUMAN_CAPACITY)
+                info = dict({k: int(v) for k, v in info.items()},
+                            alive_before=n0)
+            draws = loss_fn.draws(g, H, W, "human", device=dev)
+            ts, aux = hst.human_train_step(
+                ts, *step_args(step), draws, xyz_sched(step), static_lrs,
+                lpips, cfg=cfg, loss_fn=loss_fn, width=W, height=H,
+                instance_budget=budget)
+            slots.append(int(aux["n_slots"]))
+            if bool(aux["overflowed"]):             # (d)
+                raise AssertionError(f"human step {step} overflowed budget "
+                                     f"{budget}; slot demand by step {slots}")
+            losses.append(float(aux["loss"]))
+            terms.append({k: float(v) for k, v in aux["loss_dict"].items()})
+            if step == 0:
+                first = draws
+        return losses, terms, first, info
+
+    # rehearsal: the whole run on a copy at a generous budget gives every
+    # step's slot demand (the splats grow after Adam's first steps, and
+    # the densify adds rows); the run itself takes that x 1.15
+    rehearsed = []
+    run(copy.deepcopy(tstate), HUMAN_SLOT_CAP, rehearsed)
+    budget = slot_budget(max(rehearsed))
+    # step 0's frame, kept to hold K1 and K2 on it after the run
+    o0 = forward(0)
+    lbs0 = lbs_parts(o0)
+    pg0 = project(cams[0], o0, o0["alive"], o0["active_sh_degree"])
+    bins0 = bin_gaussians(pg0, W, H, budget)
+    feat0 = gauss_features(pg0)
+    del o0
+    print(f"# human training: slot demand by step in the rehearsal "
+          f"{rehearsed} -> budget {budget} (ceiling {HUMAN_SLOT_CAP}); loss "
+          f"ssim {HUMAN_LOSS['l_ssim_w']}, l1 {HUMAN_LOSS['l_l1_w']}, lpips "
+          f"{HUMAN_LOSS['l_lpips_w']} on 4 patches of 128 (He-initialised "
+          f"VGG16), lbs {HUMAN_LOSS['l_lbs_w']}; white background")
+
+    slots = []
+    cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
+    t0 = time.time()
+    losses, terms, draws0, info = run(tstate, budget, slots)
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    k1_n, k2_n = cuda_blend.LAUNCHES, cuda_blend.K2_LAUNCHES
+    print(f"# human training: {HUMAN_STEPS} steps in {train_s:.3f} s (host "
+          f"clock, the densify included), K1 launches {k1_n}, K2 launches "
+          f"{k2_n}; densify at step {HUMAN_DENSIFY_AT}: {info}")
+    print("# human loss by step: " + " ".join(f"{v:.5f}" for v in losses))
+    for k in terms[0]:
+        print(f"#   {k} by step: " + " ".join(f"{t[k]:.5f}" for t in terms))
+    print(f"# human slot demand by step: {slots}")
+    if k1_n != HUMAN_STEPS or k2_n != HUMAN_STEPS:       # (e)
+        raise AssertionError(f"K1 launched {k1_n} and K2 {k2_n} times for "
+                             f"{HUMAN_STEPS} human training steps")
+    # (c) every loss finite, and every gradient: a non-finite gradient
+    # would stay in its Adam moments
+    live = tstate.state.alive
+    bad = [] if np.isfinite(losses).all() else ["loss"]
+    for group, p in hgs.params_of(tstate.params).items():
+        for name, x in (("param", p), ("mu", tstate.opt.mu[group]),
+                        ("nu", tstate.opt.nu[group])):
+            for t in leaves(x):
+                if t.shape[:1] == live.shape:
+                    t = t[live]
+                if not bool(torch.isfinite(t).all()):
+                    bad.append(f"{group} {name}")
+    if bad:
+        raise AssertionError(f"non-finite on live rows: {bad}")
+    print(f"# human training: every loss, parameter and Adam moment finite "
+          f"on the live rows; n_alive {int(live.sum())}, SH degree "
+          f"{int(tstate.state.active_sh_degree)}")
+
+    # (f) the loss of step 0's frame and draws, after the run. The check
+    # holds the terms the frame defines (L1, SSIM, patch LPIPS); the LBS
+    # term does not depend on the frame and rises in hugs_tpu's own first
+    # steps after the distillation, with or without dead rows, in step
+    # with the port (tests/test_torch_human_train.py::
+    # test_lbs_term_after_distillation_matches_jax); it is printed beside,
+    # split into its live and dead rows' parts
+    hook = torch.zeros((HUMAN_CAPACITY, 2), device=dev)
+    with torch.no_grad():
+        pkg, h_out = hst.human_render(tstate, fixed, cams[0], white, hook,
+                                      one, 0, cfg=cfg, width=W, height=H,
+                                      instance_budget=budget)
+        after, after_terms = hst.human_loss(loss_fn, draws0, *frames[0],
+                                            white, pkg, h_out, lpips)
+    lbs1 = lbs_parts(h_out)
+    after_terms = {k: float(v) for k, v in after_terms.items()}
+    photo0, photo = (sum(v for k, v in t.items() if k != "lbs")
+                     for t in (terms[0], after_terms))
+    print(f"# human training, step 0's frame and draws: L1 + SSIM + patch "
+          f"LPIPS {photo0:.6f} at step 0, {photo:.6f} after the run; LBS "
+          f"{terms[0]['lbs']:.6f}, {after_terms['lbs']:.6f} (live rows "
+          f"{lbs0[0]:.6f} + dead rows {lbs0[1]:.6f} before the run, "
+          f"{lbs1[0]:.6f} + {lbs1[1]:.6f} after); the whole loss "
+          f"{losses[0]:.6f}, {float(after):.6f}")
+    if not photo < photo0:
+        raise AssertionError("the loss of step 0's frame did not fall")
+
+    # (a) K1 and K2 against plain on step 0's frame, K2 fed that step's
+    # d(loss)/d(raw colour) (the clip's 0.5 at the bounds included)
+    raw0, logt0, nwalk0, walked0 = cuda_blend.blend_fwd(
+        feat0, bins0.gauss_id, bins0.starts, bins0.ends, white, W, H)
+    raw0p, logt0p, pairs0 = plain_blend(feat0, bins0.gauss_id, bins0.starts,
+                                        bins0.ends, white, W, H)
+    counts0 = bins0.ends - bins0.starts
+    print(f"# human step 0's frame: {int(pg0.mask.sum())} Gaussians visible, "
+          f"{int(counts0.sum())} instances (max {int(counts0.max())} per "
+          f"tile), K1 walked {int(walked0.sum())}")
+    k1_err = held("K1 raw image vs plain, human step 0's frame", raw0, raw0p)
+    lv = logt0p >= LOG_TEPS
+    held("K1 log T vs plain, human step 0's frame (unsaturated pixels)",
+         logt0[lv], logt0p[lv])
+    if bool((nwalk0 > tile_of_pixel(walked0)).any()):
+        raise AssertionError("a pixel of the human frame walked past its "
+                             "tile's walk")
+    raw_req = raw0.clone().requires_grad_()
+    loss0, _ = hst.human_loss(loss_fn, draws0, *frames[0], white,
+                              {"render": clip01(raw_req)}, None, lpips)
+    (g0,) = torch.autograd.grad(loss0, raw_req)
+    args0 = (feat0, bins0.gauss_id, bins0.starts, bins0.ends, white, W, H)
+    gf_k, gb_k = cuda_blend.blend_bwd(*args0, g0, logt0, nwalk0)
+    t0 = time.time()
+    gf_p, gb_p = plain_blend_bwd(*args0, g0)
+    torch.cuda.synchronize()
+    plain_bwd_s = time.time() - t0
+    gf_64, _ = plain_blend_bwd(feat0.double(), *args0[1:4], white.double(),
+                               W, H, g0.double())
+    print(f"# K2 on the whole human frame (plain_blend_bwd {plain_bwd_s:.1f}"
+          f" s, host clock)")
+    k2_err = held_grad("K2 grad_feat vs plain, human step 0's frame",
+                       gf_k[:, :9], gf_p[:, :9], gf_64[:, :9])
+    bg_rel = float(((gb_k - gb_p).abs() / gb_p.abs()).max())
+    print(f"# K2 grad_bg, human step 0's frame {gb_k.tolist()} vs plain "
+          f"{gb_p.tolist()}: max relative {bg_rel:.3e} (bar {BG_RTOL})")
+    if bg_rel > BG_RTOL:
+        raise AssertionError("K2 grad_bg disagrees on the human frame")
+    del gf_64
+
+    # ---- times: a step by stage, a densify, the profile, the kernels
+    stages = {k: [] for k in ("human_forward", "render", "loss", "backward",
+                              "update", "step")}
+    for rep in range(3 + REPS):
+        fx, cam, rgb, mask, bg, sc, f = step_args(rep)
+        draws = loss_fn.draws(gen, H, W, "human", device=dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        hook = torch.zeros((HUMAN_CAPACITY, 2), device=dev,
+                           requires_grad=True)
+        pkg, h_out = hst.human_render(tstate, fx, cam, bg, hook, sc, f,
+                                      cfg=cfg, width=W, height=H,
+                                      instance_budget=budget,
+                                      between=ev[1].record)
+        ev[2].record()
+        loss, _ = hst.human_loss(loss_fn, draws, rgb, mask, bg, pkg, h_out,
+                                 lpips)
+        ev[3].record()
+        grads, hook_grad = hst.human_grads(loss, tstate.params, hook)
+        ev[4].record()
+        hst.human_update(tstate, grads, hook_grad, pkg,
+                         xyz_sched(HUMAN_STEPS + rep), static_lrs, width=W,
+                         height=H)
+        ev[5].record()
+        ev[5].synchronize()
+        if rep == 3:
+            bad = [k for k, g in grads.items()
+                   if not all(bool(torch.isfinite(x[live] if x.shape[:1]
+                                                  == live.shape else x)
+                                   .all()) for x in leaves(g))]
+            if bad:
+                raise AssertionError(f"non-finite gradients: {bad}")
+        if rep >= 3:
+            for k, (e0, e1) in (("human_forward", (0, 1)), ("render", (1, 2)),
+                                ("loss", (2, 3)), ("backward", (3, 4)),
+                                ("update", (4, 5)), ("step", (0, 5))):
+                stages[k].append(ev[e0].elapsed_time(ev[e1]))
+    stage_ms = {k: statistics.median(v) for k, v in stages.items()}
+    # the patch LPIPS alone, forward and forward + backward
+    rgb, mask = frames[0]
+    img0 = pkg["render"].detach()
+    d0 = draws0
+
+    def lpips_term(x):
+        comp = x * mask + d0.lpips_bg * (1.0 - mask)
+        gtc = (rgb * mask + white[:, None, None] * (1.0 - mask)) * mask \
+            + d0.lpips_bg * (1.0 - mask)
+        return loss_fn._replace(lpips=lpips)._patch_lpips(d0.patches, mask,
+                                                          comp, gtc)
+
+    with torch.no_grad():
+        stage_ms["lpips_fwd"] = device_ms(lambda: lpips_term(img0))
+
+    def lpips_fwd_bwd():
+        x = img0.clone().requires_grad_()
+        torch.autograd.grad(lpips_term(x), x)
+
+    stage_ms["lpips_fwd_bwd"] = device_ms(lpips_fwd_bwd)
+    stage_ms["distill_step"] = distill_ms
+
+    def train_step():
+        hst.human_train_step(
+            tstate, *step_args(0), draws0, xyz_sched(HUMAN_STEPS), static_lrs,
+            lpips, cfg=cfg, loss_fn=loss_fn, width=W, height=H,
+            instance_budget=budget)
+
+    profile = device_kernels(train_step, reps=PROFILED_STEPS)
+    k2_prof_ms = sum(us for name, us in profile[0].items()
+                     if "blend_bwd_kernel" in name) / 1e3
+    # the first call consumes the statistics the timed steps gathered;
+    # later calls find nothing hot and time the step's fixed work
+    dens_out = {k: v.detach() for k, v in (
+        ("opacity", h_out["opacity"]), ("scales_canon", h_out["scales_canon"]),
+        ("rotmat_canon", h_out["rotmat_canon"]))}
+    stage_ms["densify"] = device_ms(lambda: hst.human_densify_step(
+        tstate, dens_out, torch.randn((2, HUMAN_CAPACITY, 3), generator=gen,
+                                      device=dev), HUMAN_EXTENT,
+        max_n_gaussians=HUMAN_CAPACITY))
+    print(f"# human training step {stage_ms['step']:.4f} ms = human_forward "
+          f"{stage_ms['human_forward']:.4f} + render {stage_ms['render']:.4f}"
+          f" + loss {stage_ms['loss']:.4f} + backward "
+          f"{stage_ms['backward']:.4f} + Adam and stats "
+          f"{stage_ms['update']:.4f} ms; the patch LPIPS alone: forward "
+          f"{stage_ms['lpips_fwd']:.4f} ms, forward + backward "
+          f"{stage_ms['lpips_fwd_bwd']:.4f} ms; distillation step "
+          f"{distill_ms:.4f} ms; densify step {stage_ms['densify']:.4f} ms"
+          f"  [{smi}]")
+    print_profile("human training step", PROFILED_STEPS, *profile, smi)
+    print(f"# K2 profiler {k2_prof_ms:.4f} ms per human training step  "
+          f"[{smi}]")
+
+    cull = cull_counts("human step 0's frame", feat0, bins0, nwalk0)
+    t = kernel_times("human step 0's frame", feat0, bins0, white, g0, logt0,
+                     nwalk0, pairs0, cull, plain_reps=1)
+    return {
+        "k1_launches": k1_n, "k2_launches": k2_n, "k1_err": k1_err,
+        "k2_err": k2_err, "times": t, "cull": cull, "stage_ms": stage_ms,
+        "instances_frame0": int(counts0.sum()),
+        "pairs_frame0": [int(x) for x in pairs0.sum(dim=(1, 2))],
+        "budget": budget, "losses": losses,
+        "frame0_photometric": [photo0, photo],
+        "frame0_lbs": [terms[0]["lbs"], after_terms["lbs"]],
+        "frame0_lbs_live_dead": [lbs0, lbs1],
+        "device_kernels_per_step": profile[1],
+        "device_idle_share": 1.0 - sum(profile[0].values()) / profile[2]
+        if profile[2] else None,
+        "card_vs_cpu_max_abs": worst_b,
+    }
 
 
 def micro_benchmarks(dev, smi, cull_counts):
@@ -876,6 +1368,7 @@ def main():
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    t_start = time.time()
 
     # ---- 1. setup
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1358,7 +1851,7 @@ def main():
                      if "blend_bwd_kernel" in name) / 1e3
 
     def kernel_times(frame, feat, b, bg, g, log_t, n_walked, pairs, cull,
-                     kernels=("k1", "k2")):
+                     kernels=("k1", "k2"), plain_reps=REPS):
         """K1's and K2's (or only the `kernels` named) times on one frame
         (device time from back-to-back calls of blend_fwd and blend_bwd, for K2 its whole function: the
         zeroed outputs and the kernel with its atomics; one call alone
@@ -1367,44 +1860,59 @@ def main():
         card's peaks: the operations this frame needs of the kernel (the
         pairs the cull keeps, the culls, the blended pairs; K2's
         per-instance gradient, 11 per (tile, instance), is left out), and
-        beside it the yardstick at the first kernels' count. Prints them
-        and returns them in a dict."""
+        beside it the yardstick at the first kernels' count. The plain
+        versions are timed over plain_reps calls (seconds each on a
+        saturated frame). Prints them and returns them in a dict."""
         args = (feat, b.gauss_id, b.starts, b.ends, bg, W, H)
+        plain_kw = dict(reps=plain_reps, warmup=min(3, plain_reps - 1))
         t = {}
         if "k1" in kernels:
             t.update(k1=device_ms(lambda: cuda_blend.blend_fwd(*args),
                                   inner=BACK_TO_BACK),
                      k1_call=device_ms(lambda: cuda_blend.blend_fwd(*args)),
-                     plain=device_ms(lambda: plain_blend(*args)))
+                     plain=device_ms(lambda: plain_blend(*args), **plain_kw))
         if "k2" in kernels:
             bwd = args + (g, log_t, n_walked)
             t.update(k2=device_ms(lambda: cuda_blend.blend_bwd(*bwd),
                                   inner=BACK_TO_BACK),
                      k2_call=device_ms(lambda: cuda_blend.blend_bwd(*bwd)),
-                     plain_bwd=device_ms(lambda: plain_blend_bwd(*args, g)))
+                     plain_bwd=device_ms(lambda: plain_blend_bwd(*args, g),
+                                         **plain_kw))
         tested, blended = (int(x) for x in pairs.sum(dim=(1, 2)))
         n_inst = int((b.ends - b.starts).sum())
         n_tiles = b.starts.shape[0]
         kept = cull["tested"]
+        # both kernels read a row of feat only through the lists: the
+        # distinct gauss_id of the valid slots [starts, ends)
+        n_slot = b.gauss_id.shape[0]
+        edge = torch.zeros(n_slot + 1, dtype=torch.int64, device=dev)
+        edge.index_add_(0, b.starts.long(), torch.ones_like(b.starts.long()))
+        edge.index_add_(0, b.ends.long(), -torch.ones_like(b.ends.long()))
+        valid = torch.cumsum(edge, 0)[:n_slot] > 0
+        n_rows = int(torch.unique(b.gauss_id[valid]).numel())
+        row_bytes = feat.shape[1] * 4
         work = {
-            # feat, the list, starts + ends, bg; image + log T + n_walked;
-            # walked
+            # the referenced rows of feat, the list, starts + ends, bg;
+            # image + log T + n_walked; walked
             "k1": (OPS_TESTED * kept + OPS_CULL * cull["K1"]
                    + OPS_BLENDED * blended,
                    OPS_TESTED * tested + OPS_BLENDED * blended,
-                   feat.numel() * 4 + n_inst * 4 + 2 * n_tiles * 4 + 3 * 4
+                   n_rows * row_bytes + n_inst * 4 + 2 * n_tiles * 4 + 3 * 4
                    + 5 * W * H * 4 + n_tiles * 4),
-            # feat, the list, starts, bg; g + log T + n_walked; K2's
-            # outputs, grad_feat (N, 10) and grad_bg
+            # the referenced rows of feat, the list, starts, bg; g + log T
+            # + n_walked; K2's outputs, grad_feat (N, 10) written whole
+            # (zeroed, then summed into) and grad_bg
             "k2": (OPS_TESTED * kept + OPS_CULL * cull["K2"]
                    + OPS_WARP_SUM * cull["K2_kept"]
                    + OPS_BWD_BLENDED * blended,
                    OPS_TESTED * tested + OPS_BWD_BLENDED_FIRST * blended,
-                   feat.numel() * 4 + n_inst * 4 + n_tiles * 4 + 3 * 4
+                   n_rows * row_bytes + n_inst * 4 + n_tiles * 4 + 3 * 4
                    + 5 * W * H * 4 + feat.numel() * 4 + 3 * 4)}
         print(f"# {frame}: {tested} pairs in the walk, {kept} of them kept "
               f"by the cull and tested, {blended} blended, {n_inst} "
-              f"instances  [{smi}]")
+              f"instances over {n_rows} of the {feat.shape[0]} rows of feat"
+              f"  [{smi}]")
+        t["feat_rows_read"] = n_rows
         for k, (ops, ops_first, nbytes) in work.items():
             if k not in kernels:
                 continue
@@ -1446,20 +1954,33 @@ def main():
           f"  [{smi}]")
 
     # ---- 3c. the avatar serving path, after phase 4's times
+    print(f"# phase 3c starts at {time.time() - t_start:.1f} s (host "
+          f"clock)")
     avatar = avatar_serving(dev, smi, project, slot_budget, cull_counts,
                             tile_of_pixel, kernel_times)
 
     # ---- 3d. the micro-benchmarks, after phase 4's times
+    print(f"# phase 3d starts at {time.time() - t_start:.1f} s (host "
+          f"clock)")
     micro, s3_launches, blendmix_rate = micro_benchmarks(dev, smi,
                                                          cull_counts)
+    # ---- 3e. the human training path, after 3d
+    print(f"# phase 3e starts at {time.time() - t_start:.1f} s (host "
+          f"clock)")
+    human = human_training(dev, smi, project, slot_budget, cull_counts,
+                           tile_of_pixel, kernel_times)
+    ht = human["times"]
+
     # K1 and K2 against the rate S2 measured on the blend's mix
     at_s2 = {
         "K1": {"serving": serve_t["k1_ops"], "training": train_t["k1_ops"],
-               "avatar": avatar["ops"]},
-        "K2": {"training": train_t["k2_ops"], "serving": serve_t["k2_ops"]}}
+               "avatar": avatar["ops"], "human_training": ht["k1_ops"]},
+        "K2": {"training": train_t["k2_ops"], "serving": serve_t["k2_ops"],
+               "human_training": ht["k2_ops"]}}
     times = {"K1": {"serving": serve_t["k1"], "training": train_t["k1"],
-                    "avatar": avatar["ms"]},
-             "K2": {"training": train_t["k2"], "serving": serve_t["k2"]}}
+                    "avatar": avatar["ms"], "human_training": ht["k1"]},
+             "K2": {"training": train_t["k2"], "serving": serve_t["k2"],
+                    "human_training": ht["k2"]}}
     for k, by_frame in at_s2.items():
         for frame, ops in by_frame.items():
             by_frame[frame] = ops / blendmix_rate * 1e3
@@ -1469,16 +1990,19 @@ def main():
                   f"({by_frame[frame] / times[k][frame] * 100:.1f}% of its "
                   f"{times[k][frame]:.4f} ms)  [{smi}]")
 
+    print(f"# all phases done at {time.time() - t_start:.1f} s (host clock)")
     # ---- 5. kernels line, 6. device line
     print(json.dumps({"kernels": [{
         "name": "K1 blend_fwd", "route": "cuda",
         "source": "hugs_tpu_torch/csrc/blend_fwd.cu",
         "replaces": "hugs_tpu/render/pallas_blend.py:354",
-        "launches": launches + k1_train + avatar["launches"],
+        "launches": launches + k1_train + avatar["launches"]
+        + human["k1_launches"],
         "launches_by_path": {"serving": launches, "training": k1_train,
                              "avatar": avatar["launches"],
+                             "human_training": human["k1_launches"],
                              "micro_bwd": s3_launches["K1"]},
-        "max_abs_err": max(max_err, avatar["max_abs_err"]),
+        "max_abs_err": max(max_err, avatar["max_abs_err"], human["k1_err"]),
         "frame": "serving (phase 2)",
         "ms": serve_t["k1"], "call_ms": serve_t["k1_call"],
         "plain_ms": serve_t["plain"], "bound_ms": serve_t["k1_bound"],
@@ -1490,30 +2014,51 @@ def main():
             "launches", "max_abs_err", "ms", "call_ms", "plain_ms",
             "bound_ms", "bound_by", "yardstick_bound_ms", "instances_frame0",
             "budget", "frame_ms", "device_kernels_per_frame")},
+        "human_training_frame": {
+            "ms": ht["k1"], "call_ms": ht["k1_call"], "plain_ms": ht["plain"],
+            "bound_ms": ht["k1_bound"], "bound_by": ht["k1_bound_by"],
+            "yardstick_bound_ms": ht["k1_yardstick"],
+            "instances": human["instances_frame0"],
+            "feat_rows_read": ht["feat_rows_read"]},
         "ms_at_s2_blendmix_rate": at_s2["K1"],
         "cull_dropped_share": {"serving": cull_serve["K1_dropped"],
                                "training": cull_train["K1_dropped"],
-                               "avatar": avatar["cull_dropped_share"]},
+                               "avatar": avatar["cull_dropped_share"],
+                               "human_training": human["cull"]["K1_dropped"]},
         **resources["K1"],
         "held_to": "plain_blend", "ok": True,
     }, {
         "name": "K2 blend_bwd", "route": "cuda",
         "source": "hugs_tpu_torch/csrc/blend_bwd.cu",
         "replaces": "hugs_tpu/render/pallas_blend.py:486",
-        "launches": k2_train,
+        "launches": k2_train + human["k2_launches"],
         "launches_by_path": {"serving": k2_serve, "training": k2_train,
                              "avatar": avatar["k2_launches"],
+                             "human_training": human["k2_launches"],
                              "micro_bwd": s3_launches["K2"]},
-        "max_abs_err": k2_err, "frame": "training step 0 (view 0)",
+        "max_abs_err": max(k2_err, human["k2_err"]),
+        "frame": "training step 0 (view 0)",
         "ms": train_t["k2"], "call_ms": train_t["k2_call"],
         "plain_ms": train_t["plain_bwd"], "bound_ms": train_t["k2_bound"],
         "bound_by": train_t["k2_bound_by"], "library_ms": None,
         "yardstick_bound_ms": train_t["k2_yardstick"],
         "serving_frame": {k: serve_t[k] for k in (
             "k2", "k2_call", "plain_bwd", "k2_bound", "k2_yardstick")},
+        "human_training_frame": {
+            "ms": ht["k2"], "call_ms": ht["k2_call"],
+            "plain_ms": ht["plain_bwd"], "bound_ms": ht["k2_bound"],
+            "bound_by": ht["k2_bound_by"],
+            "yardstick_bound_ms": ht["k2_yardstick"],
+            "instances": human["instances_frame0"],
+            "feat_rows_read": ht["feat_rows_read"],
+            "pairs_walked_blended": human["pairs_frame0"],
+            "step_ms": human["stage_ms"],
+            "device_kernels_per_step": human["device_kernels_per_step"],
+            "device_idle_share": human["device_idle_share"]},
         "ms_at_s2_blendmix_rate": at_s2["K2"],
         "cull_dropped_share": {"serving": cull_serve["K2_dropped"],
-                               "training": cull_train["K2_dropped"]},
+                               "training": cull_train["K2_dropped"],
+                               "human_training": human["cull"]["K2_dropped"]},
         **resources["K2"],
         "held_to": "plain_blend_bwd", "ok": True,
     }, *micro]}))

@@ -2,8 +2,9 @@
 the JAX package into the port.
 
 Both sides meet at numpy: the caller passes a JAX SceneGS as
-{field: np.asarray(getattr(gs, field))}, a Camera likewise, and the
-human model's parameter tree as nested dicts of arrays, so this module
+{field: np.asarray(getattr(gs, field))}, a Camera likewise, the human
+model's parameter tree as nested dicts of arrays, and an LPIPS's weight
+lists as numpy arrays, so this module
 imports nothing of the JAX package. The port's render of a converted
 scene or avatar equals the JAX package's render of the original.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from hugs_tpu_torch.losses.lpips import LPIPS, N_CONVS, VGG_BLOCKS
 from hugs_tpu_torch.models import nets
 from hugs_tpu_torch.models.human_gs import HumanGS, HumanGSState
 from hugs_tpu_torch.models.scene_gs import BUFFER_FIELDS, PARAM_FIELDS, SceneGS
@@ -115,3 +117,17 @@ def human_state_from_numpy(arrays: dict, device: torch.device | str = "cuda"
             a = a.astype(np.float32)
         fields[f] = torch.as_tensor(a, device=device)
     return HumanGSState(**fields)
+
+
+def lpips_from_numpy(conv_weights, conv_biases, lin_weights,
+                     has_pretrained: bool = False,
+                     device: torch.device | str = "cuda") -> LPIPS:
+    """LPIPS from the numpy arrays of a JAX LPIPS's lists: 13 conv
+    weights in HWIO (transposed to OIHW), their biases and the 5 heads
+    as they are."""
+    if len(conv_weights) != N_CONVS or len(lin_weights) != len(VGG_BLOCKS):
+        raise ValueError("an LPIPS has 13 convs and 5 heads")
+    arrays = {f"conv_{i}_w": w for i, w in enumerate(conv_weights)}
+    arrays.update({f"conv_{i}_b": b for i, b in enumerate(conv_biases)})
+    arrays.update({f"lin_{t}": w for t, w in enumerate(lin_weights)})
+    return LPIPS.from_arrays(arrays, has_pretrained, device)

@@ -44,15 +44,21 @@ def _gaussian_window_np(window_size: int, sigma: float) -> np.ndarray:
     return (g / g.sum()).astype(np.float32)
 
 
+def no_tf32_convs():
+    """A context in which cuDNN runs float32 convolutions in float32,
+    whatever the caller's global setting; the other cuDNN flags stay."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
+
+
 def _depthwise_blur(img: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """(C, H, W) zero-padded depthwise Gaussian blur, separable: a
     vertical then a horizontal 1-D pass."""
     c, k = img.shape[0], g.shape[0]
     kh = g.reshape(1, 1, k, 1).expand(c, 1, k, 1)
     kw = g.reshape(1, 1, 1, k).expand(c, 1, 1, k)
-    cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                     deterministic=cudnn.deterministic, allow_tf32=False):
+    with no_tf32_convs():
         out = F.conv2d(img[None], kh, padding=(k // 2, 0), groups=c)
         out = F.conv2d(out, kw, padding=(0, k // 2), groups=c)
     return out[0]

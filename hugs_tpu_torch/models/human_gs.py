@@ -1,4 +1,5 @@
-"""HUGS human avatar model (triplane + MLP decoders + LBS): serving.
+"""HUGS human avatar model (triplane + MLP decoders + LBS): serving and
+training.
 
 The counterpart of the JAX package's human model, split as it is:
 
@@ -18,9 +19,13 @@ attribute dict the renderer takes. A server decodes once (canon_forward),
 compacts (compact_for_inference) and then runs only the skinning per
 frame (human_forward with canon_out).
 
+Training (train/human_step.py) reads the parameter groups (`params_of`),
+accumulates the densification statistics (`add_densification_stats`),
+raises the SH degree (`one_up_sh_degree`) and densifies at fixed
+capacity (`densify_and_prune`), each in place.
+
 Human Gaussian scales are LINEAR (gelu output x scaling_multiplier), not
-log-space, as in the reference. Densification and the SH ramp of
-training are not ported yet.
+log-space, as in the reference.
 """
 from __future__ import annotations
 
@@ -55,7 +60,8 @@ STATE_ROW_FIELDS = ("scaling_multiplier", "max_radii2d",
 
 class HumanGSConfig(NamedTuple):
     """Static architecture and behaviour flags, each read by this module.
-    The SH degree ramp belongs to training and is not ported yet."""
+    The SH degree's ceiling is the trainer's argument to
+    one_up_sh_degree."""
     n_features: int = 32
     triplane_res: int = 256
     use_deformer: bool = True
@@ -108,6 +114,14 @@ class HumanGSFixed(NamedTuple):
 
 NET_FIELDS = ("triplane", "appearance_dec", "geometry_dec",
               "deformation_dec")
+PARAM_GROUPS = ("xyz",) + NET_FIELDS + ("global_orient", "body_pose",
+                                        "transl", "betas")
+
+
+def params_of(params: HumanGS) -> dict:
+    """The optimizer's groups by name, in the JAX package's field order:
+    tensors for xyz and the pose tables, modules for the nets."""
+    return {f: getattr(params, f) for f in PARAM_GROUPS}
 
 
 def compute_vitruvian(smpl: SMPLModel, betas: torch.Tensor) -> HumanGSFixed:
@@ -481,3 +495,127 @@ def human_forward(
         "gt_lbs_weights": gt_lbs_weights,
         "alive": state.alive,
     }
+
+
+# ---------------------------------------------------- densification
+
+@torch.no_grad()
+def add_densification_stats(state: HumanGSState, mean2d_grad: torch.Tensor,
+                            radii: torch.Tensor,
+                            visibility: torch.Tensor) -> HumanGSState:
+    """Accumulate screen-space gradient norms and max radii of the
+    visible, alive Gaussians, in place."""
+    gnorm = torch.linalg.norm(mean2d_grad[:, :2], dim=-1)
+    vis = visibility & state.alive
+    state.xyz_gradient_accum.add_(torch.where(vis, gnorm, 0.0))
+    state.denom.add_(vis.to(state.denom.dtype))
+    state.max_radii2d.copy_(torch.where(
+        vis, torch.maximum(state.max_radii2d, radii), state.max_radii2d))
+    return state
+
+
+@torch.no_grad()
+def one_up_sh_degree(state: HumanGSState,
+                     max_sh_degree: int) -> HumanGSState:
+    state.active_sh_degree.copy_(torch.clamp(state.active_sh_degree + 1,
+                                             max=max_sh_degree))
+    return state
+
+
+@torch.no_grad()
+def densify_and_prune(
+    params: HumanGS,
+    state: HumanGSState,
+    xyz_moments: list,
+    human_gs_out: dict,
+    noise: torch.Tensor,
+    grad_threshold: float,
+    min_opacity: float,
+    extent: float,
+    max_screen_size: float | None,
+    percent_dense: float = 0.01,
+    max_n_gaussians: int | None = None,
+) -> dict:
+    """Densify / clone / split / prune of the human Gaussians at fixed
+    capacity (reference hugs_trimlp.py:794-878), in place on params.xyz,
+    the state and the xyz Adam moments `xyz_moments` ([mu, nu]).
+
+    Only the canonical xyz and the per-row scaling_multiplier densify;
+    the criteria read the attributes the current forward decoded
+    (human_gs_out's opacity, scales_canon and rotmat_canon):
+      clone: grad >= threshold and max scale <= percent_dense * extent;
+      split: grad >= threshold, max scale > percent_dense * extent and
+             elongated (a scale at least twice the median); split_n
+             samples, multiplier / (0.8 split_n); the original is pruned;
+      prune: opacity < min_opacity, and with max_screen_size also
+             radius2d > max_screen_size or max scale > 0.1 * extent.
+    noise: (split_n, C, 3) standard normal draws for the split samples,
+    drawn by the caller. New rows go into dead rows in index order
+    (candidates past the free rows are dropped) with their xyz moments
+    zeroed; the statistics reset. Returns the counts n_cloned, n_split,
+    n_pruned, n_dropped and n_alive."""
+    cap = params.xyz.shape[0]
+    split_n = noise.shape[0]
+    grads = torch.where(state.denom > 0,
+                        state.xyz_gradient_accum / state.denom, 0.0)
+    opac = human_gs_out["opacity"].reshape(-1)
+    scales = human_gs_out["scales_canon"]
+    rotmat = human_gs_out["rotmat_canon"]
+    max_scale = torch.max(scales, dim=-1).values
+
+    hot = (grads >= grad_threshold) & state.alive
+    if max_n_gaussians is not None:
+        hot = hot & (torch.sum(state.alive) <= max_n_gaussians)
+    clone_sel = hot & (max_scale <= percent_dense * extent)
+    split_sel = hot & (max_scale > percent_dense * extent)
+    # the elongated-Gaussian filter (hugs_trimlp.py:820-823); the median
+    # of 3 is the middle value in both packages
+    med = torch.median(scales, dim=-1, keepdim=True).values
+    elongated = torch.any((scales - med) / torch.clamp(med, min=1e-12)
+                          >= 1.0, dim=-1)
+    split_sel = split_sel & elongated
+
+    prune = opac < min_opacity
+    if max_screen_size is not None:
+        prune = prune | (state.max_radii2d > max_screen_size) \
+            | (max_scale > 0.1 * extent)
+    prune = (prune | split_sel) & state.alive
+    alive = state.alive & ~prune
+
+    # candidates: every row as a clone, then split_n samples of every row
+    samples = torch.einsum("cij,scj->sci", rotmat,
+                           noise * torch.relu(scales)[None])
+    split_xyz = (params.xyz[None] + samples).reshape(split_n * cap, 3)
+    cand_xyz = torch.cat([params.xyz, split_xyz])
+    mult = state.scaling_multiplier
+    cand_mult = torch.cat([mult, (mult / (0.8 * split_n)).repeat(split_n,
+                                                                  1)])
+    cand_valid = torch.cat([clone_sel, split_sel.repeat(split_n)])
+
+    cand_rank = torch.cumsum(cand_valid.to(torch.int64), 0) - 1
+    # free rows in index order: a stable sort puts alive=False first
+    free_rows = torch.argsort(alive.to(torch.int8), stable=True)
+    n_free = cap - torch.sum(alive)
+    can_place = cand_valid & (cand_rank < n_free)
+    dest = free_rows[torch.clamp(cand_rank, 0, cap - 1)][can_place]
+
+    params.xyz[dest] = cand_xyz[can_place]
+    mult[dest] = cand_mult[can_place]
+    alive[dest] = True
+    newly_used = torch.zeros(cap, dtype=torch.bool, device=alive.device)
+    newly_used[dest] = True
+    for m in xyz_moments:
+        m[newly_used] = 0.0
+
+    info = {
+        "n_cloned": torch.sum(clone_sel),
+        "n_split": torch.sum(split_sel),
+        "n_pruned": torch.sum(prune & ~split_sel),
+        "n_dropped": torch.sum(cand_valid & ~can_place),
+        "n_alive": torch.sum(alive),
+    }
+    state.alive.copy_(alive)
+    state.xyz_gradient_accum.zero_()
+    state.denom.zero_()
+    state.max_radii2d.zero_()
+    return info

@@ -4,6 +4,13 @@ The triplane's feature lookup: F.grid_sample with align_corners=True,
 written as four flat gathers in the JAX package's operation order. Grid
 coordinates in [-1, 1] map to pixel-centre coordinates [0, S-1];
 samples outside are clamped to the border.
+
+The gathers are index_select, whose backward is index_add_ (atomic adds
+on the card). Indexing plane[idx] would differentiate through
+index_put_(accumulate=True), which on the card sorts the indices and
+sums each run of equal ones serially: an avatar at training capacity
+has hundreds of thousands of dead rows at the origin, all in one cell,
+and that sum took over a second per plane.
 """
 from __future__ import annotations
 
@@ -31,10 +38,10 @@ def grid_sample_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     wy = (y - y0.to(y.dtype))[:, None]
 
     flat = plane.reshape(H * W, -1)
-    f00 = flat[y0 * W + x0]
-    f01 = flat[y0 * W + x1]
-    f10 = flat[y1 * W + x0]
-    f11 = flat[y1 * W + x1]
+    f00 = torch.index_select(flat, 0, y0 * W + x0)
+    f01 = torch.index_select(flat, 0, y0 * W + x1)
+    f10 = torch.index_select(flat, 0, y1 * W + x0)
+    f11 = torch.index_select(flat, 0, y1 * W + x1)
 
     top = f00 * (1.0 - wx) + f01 * wx
     bot = f10 * (1.0 - wx) + f11 * wx

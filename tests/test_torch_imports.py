@@ -54,6 +54,18 @@ print("ok", len({_port_modules()!r}))
     assert out.stdout.startswith("ok")
 
 
+def test_human_training_modules_are_among_the_checked():
+    """The modules of the human training slice stand alone like the rest:
+    the two checks above walk them."""
+    modules = _port_modules()
+    sources = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for name in ("losses.sampler", "losses.lpips", "losses.loss",
+                 "train.human_step", "train.human_check"):
+        assert f"hugs_tpu_torch.{name}" in modules, name
+        assert os.path.join("hugs_tpu_torch", *name.split(".")) + ".py" \
+            in sources, name
+
+
 def _imported_names(path):
     tree = ast.parse(open(path).read(), path)
     for node in ast.walk(tree):

@@ -139,3 +139,55 @@ def human_cfg_to_torch(cfg):
         if k not in ported and v != type(cfg)._field_defaults[k]:
             raise NotImplementedError(f"HumanGSConfig.{k}={v!r} is not ported")
     return th.HumanGSConfig(**{k: kw[k] for k in ported})
+
+
+def jax_patch_draws(key, h, w, num_patches, patch_size):
+    """The draws hugs_tpu's sample_patches makes from `key`
+    (hugs_tpu/losses/sampler.py:33, :50, :57-60), as the port's
+    PatchDraws of CPU tensors."""
+    import jax
+    from hugs_tpu_torch.losses.sampler import PatchDraws
+    k_mode, k_pick, k_ux, k_uy = jax.random.split(key, 4)
+    return PatchDraws(
+        coin=torch.as_tensor(np.array(jax.random.uniform(k_mode))),
+        gumbel=torch.as_tensor(np.array(jax.random.gumbel(k_pick,
+                                                            (h * w,)))),
+        ux=torch.as_tensor(np.array(jax.random.randint(
+            k_ux, (num_patches,), 0, max(h - patch_size, 1)))).long(),
+        uy=torch.as_tensor(np.array(jax.random.randint(
+            k_uy, (num_patches,), 0, max(w - patch_size, 1)))).long())
+
+
+def jax_loss_draws(key, loss_fn, shape, render_mode, has_lpips=True):
+    """The draws hugs_tpu's HumanSceneLoss makes from `key`
+    (hugs_tpu/losses/loss.py:85, :88, :106, :114), as the port's
+    LossDraws; `loss_fn` is either package's HumanSceneLoss and
+    has_lpips says whether the call has an LPIPS."""
+    import jax
+    from hugs_tpu_torch.losses.loss import LossDraws
+    _, h, w = shape
+    out = {}
+
+    def draws(k_bg, k_patch):
+        return (torch.as_tensor(np.array(jax.random.uniform(k_bg, shape))),
+                jax_patch_draws(k_patch, h, w, loss_fn.num_patches,
+                                loss_fn.patch_size))
+
+    if loss_fn.l_lpips_w > 0.0 and has_lpips and render_mode != "scene":
+        key, k_bg, k_patch = jax.random.split(key, 3)
+        out["lpips_bg"], out["patches"] = draws(k_bg, k_patch)
+    if loss_fn.l_humansep_w > 0.0 and render_mode == "human_scene":
+        key, k_bg2, k_patch2 = jax.random.split(key, 3)
+        if has_lpips and loss_fn.l_lpips_w > 0.0:
+            out["lpips_bg_human"], out["patches_human"] = draws(k_bg2,
+                                                                k_patch2)
+    return LossDraws(**out)
+
+
+def jax_lpips_to_torch(lp, device="cpu"):
+    """The port's LPIPS of a JAX LPIPS, through convert."""
+    from hugs_tpu_torch import convert
+    return convert.lpips_from_numpy(
+        [np.asarray(w) for w in lp.conv_weights],
+        [np.asarray(b) for b in lp.conv_biases],
+        [np.asarray(w) for w in lp.lin_weights], lp.has_pretrained, device)
