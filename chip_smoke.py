@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drives the hugs_tpu_torch serving render, scene training, the avatar
-serving frame, the three micro-benchmarks and human training on one
-NVIDIA GPU.
+serving frame, the three micro-benchmarks, human training and joint
+human + scene training through the port's CLI on one NVIDIA GPU.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It builds the CUDA kernels (K1, the forward blend; K2, its backward,
@@ -87,6 +87,29 @@ source, all together, then:
      it); then a step's stage times (the patch LPIPS alone beside them),
      a distillation step, the densify, the device kernels and idle share
      of a step, and K1's and K2's times and bounds on step 0's frame;
+  3f. the joint training path (config[3], cfg_files/neuman/hugs_human_
+     scene.yaml unchanged in width: human capacity 524,288, scene
+     capacity 2,097,152, a 256^2 triplane, 2 subdivisions, L1 0.8, SSIM
+     0.2, patch LPIPS 1.0, LBS 1000, humansep 1.0, pose and translation
+     optimised, white background; run after 3e): check (b) first, one
+     joint step on the small avatar and a 300-point scene on the card
+     against the CPU; then a NeuMan-layout sequence written with the
+     port's PNG writer (phase 3e's striped body posed by gt_poses amid
+     phase 3c's 100,000-point scene, 960x540, 24 frames of the orbit at
+     2.6, masks from the body's alpha, COLMAP text cameras and points,
+     the SMPL parameters) and hugs_tpu_torch.main.main on it with the
+     cuts JOINT_CUTS lists (30 steps, a 1,000-step distillation, both
+     sets densified at steps 15 and 30, validate at 30). Checks: (a) K1
+     and K2 against their plain versions on step 0's merged frame (K2
+     fed that frame's d(loss)/d(raw colour), float64 too), (c) step 0's
+     frame and draws give lower L1 + SSIM + LPIPS terms (humansep's
+     included) after the run, every parameter and moment finite on the
+     live rows, (d) a new trainer resumes the final checkpoint bit for
+     bit, (e) validate's metrics finite under hugs_tpu's keys, (f) two
+     K2 launches per step and two K1 per render of a step; then a step
+     through the trainer and by stage, a distillation step, each
+     densify, the device kernels and idle share of a step, and K1's and
+     K2's times and bounds on the merged frame;
   4. times on the card (CUDA events, median of 20 after warm-up): one
      request split into project / bin / blend, one training step split
      into forward / loss / backward / Adam + stats, one densify step,
@@ -196,7 +219,7 @@ FULL_FORWARD_ATOL = 2e-5
 HUMAN_CAPACITY = 524_288
 HUMAN_FRAMES = 24
 HUMAN_DIST = 2.6
-HUMAN_DISTILL = 4000      # cut from the recipe's 7,000 for the time limit
+HUMAN_DISTILL = 1500      # cut from the recipe's 7,000 for the time limit
 HUMAN_STEPS = 30
 HUMAN_DENSIFY_AT = 15
 HUMAN_SH_AT = 10          # one_up_sh_degree, held at sh_degree 0
@@ -204,6 +227,27 @@ HUMAN_SH_DEGREE = 0
 HUMAN_EXTENT = 1.0        # densify_extent
 HUMAN_SLOT_CAP = 1 << 23  # the rehearsal's budget
 HUMAN_LOSS = dict(l_ssim_w=0.2, l_l1_w=0.8, l_lpips_w=1.0, l_lbs_w=1000.0)
+# the joint training path (phase 3f): config[3]'s recipe,
+# cfg_files/neuman/hugs_human_scene.yaml, unchanged in width, through
+# hugs_tpu_torch.main on a NeuMan-layout sequence the phase writes: phase
+# 3e's striped body posed by gt_poses and phase 3c's 100,000-point scene,
+# 960x540, 24 frames from the orbit at distance 2.6. Each override is a
+# cut of the recipe, printed with the phase
+JOINT_RECIPE = "cfg_files/neuman/hugs_human_scene.yaml"
+JOINT_FRAMES = 24
+JOINT_STEPS = 30
+JOINT_CUTS = {
+    "train.num_steps": JOINT_STEPS,              # recipe 14,998
+    "human.init_steps": 1000,                    # recipe 7,000
+    # densify at steps 15 and 30; from 0, so that the opacity reset a
+    # white background makes at densify_from_iter falls outside the run
+    "human.densify_from_iter": 0,                # recipe 3,000
+    "human.densification_interval": 15,          # recipe 600
+    "scene.densify_from_iter": 0,                # recipe 500
+    "scene.densification_interval": 15,          # recipe 100
+    "train.val_interval": JOINT_STEPS,           # recipe 1,000
+}
+JOINT_PCD_NOISE = 0.02
 # phase 3d, the micro-benchmarks: S2 held to its plain version at a grid
 # of 16 steps (INNER 64, REPS 3), every element within S2_RTOL of the
 # block's largest value (the plain version's exp and log1p are torch's,
@@ -1084,6 +1128,488 @@ def human_training(dev, smi, project, slot_budget, cull_counts,
         "device_idle_share": 1.0 - sum(profile[0].values()) / profile[2]
         if profile[2] else None,
         "card_vs_cpu_max_abs": worst_b,
+    }
+
+
+def write_neuman_sequence(root, dev, smi):
+    """Phase 3f's sequence in the NeuMan layout under root/synthetic, with
+    the port's PNG writer: each frame phase 3e's striped body, posed by
+    gt_poses, amid phase 3c's 100,000-point scene (create_from_pcd's
+    splats at opacity 0.5), rendered on white from the orbit at distance 2.6; the mask
+    where the body alone leaves less than half the light; COLMAP
+    cameras.txt / images.txt of the orbit (row-vector world-to-view,
+    as data/neuman.py reads them), points3D.txt the scene's points plus
+    N(0, 0.02^2) and the SMPL parameters. Returns the human mask's cover
+    by frame."""
+    from hugs_tpu_torch.data.cameras import get_rotating_camera
+    from hugs_tpu_torch.data.colmap import _rot_to_quat
+    from hugs_tpu_torch.models.scene_gs import create_from_pcd, scene_forward
+    from hugs_tpu_torch.models.smpl import smpl_forward, synthetic_smpl
+    from hugs_tpu_torch.ops.graphics import fov2focal
+    from hugs_tpu_torch.ops.knn import mean_sq_dist_to_knn
+    from hugs_tpu_torch.render.renderer import render
+    from hugs_tpu_torch.utils.png import write_png
+
+    path = os.path.join(root, "synthetic")
+    for sub in ("images", "segmentations", "sparse", "4d_humans"):
+        os.makedirs(os.path.join(path, sub))
+    smpl = synthetic_smpl(AVATAR_VPB, device=dev)
+    vt = smpl.v_template
+    col = torch.stack([0.5 + 0.45 * torch.sin(25.0 * vt[:, 1]),
+                       0.5 + 0.45 * torch.sin(20.0 * vt[:, 0] + 2.0),
+                       0.5 + 0.45 * torch.cos(18.0 * vt[:, 2] + 4.0)], 1)
+    h_shs = torch.zeros((vt.shape[0], 16, 3), device=dev)
+    h_shs[:, 0, :] = (torch.clamp(col, 0, 1) - 0.5) / 0.28209479177387814
+    h_scales = (torch.sqrt(torch.clamp(mean_sq_dist_to_knn(vt, k=3),
+                                       min=1e-8)) * 0.9)[:, None].repeat(1, 3)
+    h_rotq = torch.tensor([1.0, 0, 0, 0], device=dev).repeat(vt.shape[0], 1)
+    h_op = torch.full((vt.shape[0],), 0.95, device=dev)
+    pts, cols = avatar_scene_points(AVATAR_N_SCENE, SEED)
+    with torch.no_grad():
+        s_out = scene_forward(create_from_pcd(pts, cols, AVATAR_N_SCENE,
+                                              device=dev))
+    # the trainee starts from create_from_pcd's opacity 0.1
+    s_out["opacity"] = torch.full_like(s_out["opacity"], 0.5)
+    fov = 0.95
+    cams = get_rotating_camera(img_size=(H, W), fov=fov, dist=HUMAN_DIST,
+                               nframes=JOINT_FRAMES + 1,
+                               angle_limit=2 * np.pi, device=dev)[:-1]
+    zeros3, betas = torch.zeros(3, device=dev), torch.zeros(10, device=dev)
+    poses = [gt_poses(f, JOINT_FRAMES) for f in range(JOINT_FRAMES)]
+    cover, lines = [], []
+    with torch.no_grad():
+        for f, (pose, orient) in enumerate(poses):
+            cam = cams[f]["camera"]
+            verts = smpl_forward(smpl, betas, torch.as_tensor(pose, device=dev),
+                                 torch.as_tensor(orient, device=dev),
+                                 zeros3).vertices
+            budget = 1 << 23
+
+            def draw(xyz, scales, rotq, op, shs, bg):
+                pkg = render(xyz, scales, rotq, op, shs, cam, W, H, bg=bg,
+                             active_sh_degree=0, instance_budget=budget)
+                if bool(pkg["overflowed"]):
+                    raise AssertionError(f"sequence frame {f} overflowed")
+                return pkg["render"]
+
+            human = (verts, h_scales, h_rotq, h_op, h_shs)
+            t_map = torch.clamp((draw(*human, torch.ones(3, device=dev))
+                                 - draw(*human, zeros3)).mean(0), 0, 1)
+            mask = (t_map < 0.5)
+            merged = [torch.cat([a, s_out[k]]) for a, k in zip(
+                human, ("xyz", "scales", "rotq", "opacity", "shs"))]
+            img = draw(*merged, torch.ones(3, device=dev))
+            cover.append(float(mask.float().mean()))
+            write_png(f"{path}/images/{f:05d}.png",
+                      (img.permute(1, 2, 0).clamp(0, 1) * 255).round()
+                      .to(torch.uint8).cpu().numpy())
+            write_png(f"{path}/segmentations/{f:05d}.png",
+                      (mask.to(torch.uint8) * 255).cpu().numpy())
+            wv = cam.world_view.cpu().numpy().astype(np.float64)
+            q = _rot_to_quat(wv[:3, :3])
+            t = wv[3, :3]
+            lines.append(f"{f + 1} {q[0]} {q[1]} {q[2]} {q[3]} {t[0]} {t[1]} "
+                         f"{t[2]} 1 {f:05d}.png\n\n")
+    fx = fov2focal(fov, W)
+    fy = fov2focal(fov, H)
+    with open(f"{path}/sparse/cameras.txt", "w") as fh:
+        fh.write(f"1 PINHOLE {W} {H} {fx} {fy} {W / 2} {H / 2}\n")
+    with open(f"{path}/sparse/images.txt", "w") as fh:
+        fh.write("".join(lines))
+    noisy = pts + np.random.default_rng(SEED + 5).normal(
+        scale=JOINT_PCD_NOISE, size=pts.shape).astype(np.float32)
+    rgb = np.round(cols * 255).astype(int)
+    with open(f"{path}/sparse/points3D.txt", "w") as fh:
+        fh.write("".join(f"{i} {p[0]} {p[1]} {p[2]} {c[0]} {c[1]} {c[2]} 0\n"
+                         for i, (p, c) in enumerate(zip(noisy, rgb))))
+    np.savez(f"{path}/4d_humans/smpl_optimized_aligned_scale.npz",
+             betas=np.zeros((JOINT_FRAMES, 10), np.float32),
+             global_orient=np.stack([o for _, o in poses]),
+             body_pose=np.stack([p for p, _ in poses]),
+             transl=np.zeros((JOINT_FRAMES, 3), np.float32),
+             scale=np.ones(JOINT_FRAMES, np.float32))
+    return cover
+
+
+def joint_step_card_vs_cpu(dev):
+    """Check (b) of phase 3f: one joint step's loss, terms and gradients
+    (the merged frame and the human alone) on the card against the CPU,
+    on train/human_check.py's small avatar and a 300-point scene."""
+    from hugs_tpu_torch.train import human_check as hc
+
+    worst = hc.compare_steps(hc.small_joint_step(dev, SEED),
+                             hc.small_joint_step("cpu", SEED))
+    print(f"# (b) one joint step at {hc.WIDTH}x{hc.HEIGHT}, card vs CPU: "
+          f"every term within {hc.LOSS_ATOL} + {hc.LOSS_RTOL} |v| and every "
+          f"gradient within {hc.GRAD_ATOL} + {hc.GRAD_RTOL} |g|; max |d| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    return worst
+
+
+def joint_training(dev, smi, project, slot_budget, cull_counts,
+                   tile_of_pixel, kernel_times):
+    """Phase 3f, joint human + scene training (config[3]) through the
+    port's CLI function hugs_tpu_torch.main.main on the sequence of
+    write_neuman_sequence, with main's helpers. Checks (a)-(f) of the
+    module docstring; raises if one fails; returns its numbers."""
+    import copy
+
+    from hugs_tpu_torch import main as cli
+    from hugs_tpu_torch.cfg import load_config
+    from hugs_tpu_torch.models import human_gs as hgs
+    from hugs_tpu_torch.models import scene_gs as sgs
+    from hugs_tpu_torch.render import cuda_blend
+    from hugs_tpu_torch.render.blend import (
+        gauss_features, plain_blend, plain_blend_bwd,
+    )
+    from hugs_tpu_torch.render.oracle import LOG_TEPS, clip01
+    from hugs_tpu_torch.render.tiles import bin_gaussians
+    from hugs_tpu_torch.train import checkpoint as ckpt_io
+    from hugs_tpu_torch.train import human_step as hst
+    from hugs_tpu_torch.train import joint_step as jst
+    from hugs_tpu_torch.train.optim import group_adam_init, leaves
+    from hugs_tpu_torch.train.trainer import GaussianTrainer
+
+    t_phase = time.time()
+    worst_b = joint_step_card_vs_cpu(dev)
+    probe = {}
+    white = torch.ones(3, device=dev)
+
+    def frame_loss(tr, data, idx, draws, human_bg):
+        """The joint loss's terms of one frame at tr's states (no update),
+        the LBS term split into live and dead rows, and the render."""
+        js = jst.JointTrainState(human=tr.human, scene=tr.scene)
+        hook = torch.zeros((tr._h_cap + tr._s_cap, 2), device=dev)
+        with torch.no_grad():
+            pkg, out = jst.joint_render(
+                js, tr.fixed, data["camera"], white, human_bg, hook,
+                torch.tensor(1.0, device=dev), idx, cfg=tr.human_cfg,
+                width=W, height=H, instance_budget=tr._ibudget,
+                render_human_separate=True)
+            _, terms = jst.joint_loss(tr.loss_fn, draws, data["rgb"],
+                                      data["mask"], white, human_bg, pkg,
+                                      out, tr.lpips)
+            sq = (out["lbs_weights"] - out["gt_lbs_weights"]) ** 2
+            part = sq.sum(1) * (tr.loss_fn.l_lbs_w / sq.numel())
+            lbs = (float(part[out["alive"]].sum()),
+                   float(part[~out["alive"]].sum()))
+        return {k: float(v) for k, v in terms.items()}, lbs, pkg, out
+
+    class ProbedTrainer(GaussianTrainer):
+        """The CLI's trainer, which records itself and, before training,
+        the loss of step 0's frame and that frame's K1 / K2 inputs."""
+
+        def train(self):
+            probe["trainer"] = self
+            n = len(self.train_dataset)
+            idx = int(np.random.RandomState(self.cfg.seed).permutation(n)[0])
+            data = self.train_dataset[idx]
+            g = torch.Generator(device=dev).manual_seed(SEED + 7)
+            draws = self.loss_fn.draws(g, H, W, "human_scene", device=dev)
+            human_bg = torch.rand(3, generator=g, device=dev)
+            terms, lbs, pkg, out = frame_loss(self, data, idx, draws,
+                                              human_bg)
+            with torch.no_grad():
+                s_out = sgs.scene_forward(self.scene.gs)
+                a = {k: torch.cat([out[k], s_out[k]]) for k in
+                     ("xyz", "scales", "rotq", "opacity", "shs")}
+                pg = project(data["camera"], a,
+                             torch.cat([out["alive"], s_out["alive"]]),
+                             out["active_sh_degree"])
+                bins = bin_gaussians(pg, W, H, self._ibudget)
+            probe.update(idx=idx, data=data, draws=draws, human_bg=human_bg,
+                         before=terms, lbs_before=lbs, pg0=pg, bins0=bins,
+                         feat0=gauss_features(pg),
+                         human_img0=pkg["human_img"].detach(),
+                         budget0=self._ibudget,
+                         alive0=(int(out["alive"].sum()),
+                                 int(s_out["alive"].sum())))
+            del pkg, out, s_out, a
+            cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
+            t0 = time.time()
+            log = super().train()
+            torch.cuda.synchronize()
+            probe.update(train_s=time.time() - t0, k1=cuda_blend.LAUNCHES,
+                         k2=cuda_blend.K2_LAUNCHES, retries=self.retries)
+            return log
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.time()
+        cover = write_neuman_sequence(root, dev, smi)
+        seq_s = time.time() - t0
+        cfg = load_config(JOINT_RECIPE, [
+            f"dataset_path={root}", "dataset.seq=synthetic",
+            f"output_path={root}/out", "exp_name=phase3f",
+            f"tpu.smpl_vpb={AVATAR_VPB}"]
+            + [f"{k}={v}" for k, v in JOINT_CUTS.items()])
+        print(f"# joint training: sequence of {JOINT_FRAMES} frames at "
+              f"{W}x{H} written in {seq_s:.1f} s (host clock), human mask "
+              f"cover {min(cover):.3f}-{max(cover):.3f}; recipe "
+              f"{JOINT_RECIPE}: human capacity {cfg.human.max_n_gaussians}, "
+              f"scene capacity {cfg.scene.max_n_gaussians}, triplane "
+              f"{cfg.human.triplane_res}^2, {cfg.human.n_subdivision} "
+              f"subdivisions, loss {dict(cfg.human.loss)}; cuts "
+              f"{JOINT_CUTS}")
+        main_trainer = cli.GaussianTrainer
+        cli.GaussianTrainer = ProbedTrainer
+        try:
+            t0 = time.time()
+            rc = cli.main(cfg, device=dev)
+            torch.cuda.synchronize()
+            main_s = time.time() - t0
+        finally:
+            cli.GaussianTrainer = main_trainer
+        if rc != 0:
+            raise AssertionError(f"hugs_tpu_torch.main.main returned {rc}")
+        tr = probe["trainer"]
+        n_vals = len(tr.val_dataset)
+        k1_n, k2_n, retries = probe["k1"], probe["k2"], probe["retries"]
+        steps = JOINT_STEPS + 1
+        print(f"# joint training: main() {main_s:.1f} s (host clock; train "
+              f"{probe['train_s']:.1f} s for {steps} steps, distillation "
+              f"{cfg.human.init_steps} steps and validate included); alive "
+              f"before {probe['alive0']}, after "
+              f"({int(tr.human.state.alive.sum())}, "
+              f"{int(tr.scene.gs.alive.sum())}); budget {probe['budget0']} "
+              f"-> {tr._ibudget}, {retries} steps rendered again; K1 "
+              f"launches {k1_n}, K2 launches {k2_n} in train()")
+        # (f) two K2 per step (merged, human alone); two K1 per render of
+        # a step, and one per validated frame at val_interval
+        want_k1 = 2 * (steps + retries) + n_vals * (steps // JOINT_STEPS)
+        if k2_n != 2 * steps or k1_n != want_k1:
+            raise AssertionError(f"K1 launched {k1_n} (expected {want_k1}) "
+                                 f"and K2 {k2_n} (expected {2 * steps}) "
+                                 f"times in {steps} joint steps")
+        print(f"# (f) per joint step: {k2_n / steps:.0f} K2 launches, "
+              f"{(k1_n - n_vals) / (steps + retries):.0f} K1 launches per "
+              f"render of a step, {n_vals} K1 for the {n_vals} val frames")
+
+        # (e) validate's metrics, hugs_tpu's keys
+        with open(os.path.join(cfg.logdir, "results_eval.json")) as fh:
+            metrics = json.load(fh)
+        keys = {"hugs_psnr", "hugs_ssim", "hugs_lpips_uncalibrated",
+                "hugs_human_psnr", "hugs_human_ssim",
+                "hugs_human_lpips_uncalibrated"}
+        if set(metrics) != keys or not all(np.isfinite(list(
+                metrics.values()))):
+            raise AssertionError(f"validate gave {metrics}")
+        print(f"# (e) validate on {n_vals} val frames: {metrics}")
+        with open(os.path.join(cfg.logdir, "results_train.json")) as fh:
+            train_log = json.load(fh)
+        print(f"# joint loss by 10 steps (results_train.json): "
+              f"{[round(r['loss'], 6) for r in train_log]}")
+
+        # (c) step 0's frame and draws: L1 + SSIM + LPIPS and the humansep
+        # terms fall; the LBS term printed beside, live and dead rows
+        after, lbs_after, _, _ = frame_loss(tr, probe["data"], probe["idx"],
+                                            probe["draws"],
+                                            probe["human_bg"])
+        before = probe["before"]
+        photo0, photo = (sum(v for k, v in t.items() if k != "lbs")
+                         for t in (before, after))
+        print(f"# (c) step 0's frame and draws: the photometric terms "
+              f"{photo0:.6f} -> {photo:.6f} ({before} -> {after}); LBS live "
+              f"{probe['lbs_before'][0]:.6f} + dead "
+              f"{probe['lbs_before'][1]:.6f} -> {lbs_after[0]:.6f} + "
+              f"{lbs_after[1]:.6f}")
+        if not photo < photo0:
+            raise AssertionError("the joint loss of step 0's frame did not "
+                                 "fall")
+        live = tr.human.state.alive
+        bad = []
+        for group, p in hgs.params_of(tr.human.params).items():
+            for name, x in (("param", p), ("mu", tr.human.opt.mu[group]),
+                            ("nu", tr.human.opt.nu[group])):
+                for t in leaves(x):
+                    if t.shape[:1] == live.shape:
+                        t = t[live]
+                    if not bool(torch.isfinite(t).all()):
+                        bad.append(f"human {group} {name}")
+        s_live = tr.scene.gs.alive
+        for f, p in sgs.params_of(tr.scene.gs).items():
+            for name, x in (("param", p), ("mu", tr.scene.opt.mu[f]),
+                            ("nu", tr.scene.opt.nu[f])):
+                if not bool(torch.isfinite(x[s_live]).all()):
+                    bad.append(f"scene {f} {name}")
+        if bad:
+            raise AssertionError(f"non-finite on live rows: {bad}")
+
+        # (d) the checkpoint round trip: a new trainer resumes from the
+        # final checkpoint; every tensor equal bit for bit
+        cfg2 = copy.deepcopy(cfg)
+        cfg2.human.run_init = False
+        t0 = time.time()
+        tr2 = GaussianTrainer(cfg2, tr.train_dataset, tr.val_dataset,
+                              device=dev)
+        resume_s = time.time() - t0
+        n_t = 0
+        for what in ("human", "scene"):
+            a = ckpt_io.flatten(getattr(tr, what))
+            b = ckpt_io.flatten(getattr(tr2, what))
+            if set(a) != set(b):
+                raise AssertionError(f"resumed {what} has other tensors")
+            for k in a:
+                n_t += 1
+                if not torch.equal(a[k], b[k]):
+                    raise AssertionError(f"resumed {what} {k} differs")
+        ckpts = sorted(os.listdir(cfg.logdir_ckpt))
+        print(f"# (d) a new trainer resumed {ckpts} in {resume_s:.1f} s "
+              f"(host clock): {n_t} tensors, parameters, moments, "
+              f"statistics and step counts, equal bit for bit")
+        del tr2
+
+    # (a) K1 and K2 against plain on step 0's merged frame, K2 fed that
+    # frame's d(loss)/d(raw colour) with the human pass held fixed
+    feat0, bins0 = probe["feat0"], probe["bins0"]
+    data0 = probe["data"]
+    raw0, logt0, nwalk0, walked0 = cuda_blend.blend_fwd(
+        feat0, bins0.gauss_id, bins0.starts, bins0.ends, white, W, H)
+    raw0p, logt0p, pairs0 = plain_blend(feat0, bins0.gauss_id, bins0.starts,
+                                        bins0.ends, white, W, H)
+    counts0 = bins0.ends - bins0.starts
+    print(f"# joint step 0's merged frame: {int(probe['pg0'].mask.sum())} "
+          f"Gaussians visible, {int(counts0.sum())} instances (max "
+          f"{int(counts0.max())} per tile), K1 walked {int(walked0.sum())}")
+    k1_err = held("K1 raw image vs plain, joint step 0's frame", raw0, raw0p)
+    lv = logt0p >= LOG_TEPS
+    if bool(lv.any()):
+        held("K1 log T vs plain, joint step 0's frame (unsaturated pixels)",
+             logt0[lv], logt0p[lv])
+    else:
+        print("# joint step 0's frame: every pixel saturates, so K1's log T "
+              "stops at the threshold and the background gets no weight")
+    if bool((nwalk0 > tile_of_pixel(walked0)).any()):
+        raise AssertionError("a pixel of the joint frame walked past its "
+                             "tile's walk")
+    raw_req = raw0.clone().requires_grad_()
+    loss0, _ = jst.joint_loss(
+        tr.loss_fn, probe["draws"], data0["rgb"], data0["mask"], white,
+        probe["human_bg"], {"render": clip01(raw_req),
+                            "human_img": probe["human_img0"]}, None, tr.lpips)
+    (g0,) = torch.autograd.grad(loss0, raw_req)
+    args0 = (feat0, bins0.gauss_id, bins0.starts, bins0.ends, white, W, H)
+    gf_k, gb_k = cuda_blend.blend_bwd(*args0, g0, logt0, nwalk0)
+    t0 = time.time()
+    gf_p, gb_p = plain_blend_bwd(*args0, g0)
+    torch.cuda.synchronize()
+    plain_bwd_s = time.time() - t0
+    gf_64, _ = plain_blend_bwd(feat0.double(), *args0[1:4], white.double(),
+                               W, H, g0.double())
+    print(f"# K2 on the whole joint frame (plain_blend_bwd {plain_bwd_s:.1f}"
+          f" s, host clock)")
+    k2_err = held_grad("K2 grad_feat vs plain, joint step 0's frame",
+                       gf_k[:, :9], gf_p[:, :9], gf_64[:, :9])
+    # a saturated frame gives the background no weight: grad_bg 0 in both
+    bg_rel = float(((gb_k - gb_p).abs() / gb_p.abs().clamp(min=1e-30))
+                   .max())
+    print(f"# K2 grad_bg, joint step 0's frame {gb_k.tolist()} vs plain "
+          f"{gb_p.tolist()}: max relative {bg_rel:.3e} (bar {BG_RTOL})")
+    if not bg_rel <= BG_RTOL:
+        raise AssertionError("K2 grad_bg disagrees on the joint frame")
+    del gf_64, gf_p, gf_k
+
+    # ---- times: a step through the trainer, by stage, a distillation
+    # step, each densify, the profile, the kernels
+    tr.cfg.human.densify_until_iter = -1      # no densify in the timed steps
+    tr.cfg.scene.densify_until_iter = -1
+    n = len(tr.train_dataset)
+
+    def trainer_step(rep):
+        tr._train_step(JOINT_STEPS + 1 + rep, rep % n,
+                       tr.train_dataset[rep % n], False)
+
+    whole = []
+    for rep in range(3 + REPS):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        trainer_step(rep)
+        b.record()
+        b.synchronize()
+        if rep >= 3:
+            whole.append(a.elapsed_time(b))
+    stages = {k: [] for k in ("human_forward", "render", "loss", "backward",
+                              "update", "step")}
+    js = jst.JointTrainState(human=tr.human, scene=tr.scene)
+    one = torch.tensor(1.0, device=dev)
+    for rep in range(3 + REPS):
+        data = tr.train_dataset[rep % n]
+        bg, hbg, draws = tr._step_draws("human_scene", H, W)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        hook = torch.zeros((tr._h_cap + tr._s_cap, 2), device=dev,
+                           requires_grad=True)
+        pkg, out = jst.joint_render(
+            js, tr.fixed, data["camera"], bg, hbg, hook, one, rep % n,
+            cfg=tr.human_cfg, width=W, height=H, instance_budget=tr._ibudget,
+            render_human_separate=True, between=ev[1].record)
+        ev[2].record()
+        loss, _ = jst.joint_loss(tr.loss_fn, draws, data["rgb"], data["mask"],
+                                 bg, hbg, pkg, out, tr.lpips)
+        ev[3].record()
+        hg, sg, hk = jst.joint_grads(loss, js, hook)
+        ev[4].record()
+        jst.joint_update(js, hg, sg, hk, pkg, tr.h_xyz_sched(60 + rep),
+                         tr.h_static_lrs, tr.s_xyz_sched(60 + rep),
+                         tr.s_static_lrs, width=W, height=H)
+        ev[5].record()
+        ev[5].synchronize()
+        if rep >= 3:
+            for k, (e0, e1) in (("human_forward", (0, 1)), ("render", (1, 2)),
+                                ("loss", (2, 3)), ("backward", (3, 4)),
+                                ("update", (4, 5)), ("step", (0, 5))):
+                stages[k].append(ev[e0].elapsed_time(ev[e1]))
+    stage_ms = {k: statistics.median(v) for k, v in stages.items()}
+    stage_ms["trainer_step"] = statistics.median(whole)
+    dens_out = {k: out[k].detach() for k in ("opacity", "scales_canon",
+                                             "rotmat_canon")}
+    # the first call consumes the statistics the timed steps gathered
+    stage_ms["human_densify"] = device_ms(lambda: hst.human_densify_step(
+        tr.human, dens_out, tr._split_noise(tr._h_cap), 1.0,
+        max_n_gaussians=tr._h_cap))
+    stage_ms["scene_densify"] = device_ms(lambda: sgs.densify_and_prune(
+        tr.scene.gs, [tr.scene.opt.mu, tr.scene.opt.nu],
+        tr._split_noise(tr._s_cap), 0.0002, 0.005, float(tr.scene_extent),
+        None, max_n_gaussians=tr._s_cap))
+    nets = {f: getattr(tr.human.params, f) for f in hgs.NET_FIELDS}
+    d_opt = group_adam_init(nets)
+    targets = {k: v for k, v in tr.init_values.items() if k != "edges"}
+    lr = torch.tensor(1e-3, device=dev)
+    stage_ms["distill_step"] = device_ms(lambda: hst.distill_step(
+        tr.human.params, tr.human.state, d_opt, targets, lr, tr.human_cfg))
+    cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
+    profile = device_kernels(lambda: trainer_step(0), reps=PROFILED_STEPS)
+    per_step = (cuda_blend.LAUNCHES / PROFILED_STEPS,
+                cuda_blend.K2_LAUNCHES / PROFILED_STEPS)
+    print(f"# joint training step through the trainer "
+          f"{stage_ms['trainer_step']:.4f} ms; by stage {stage_ms['step']:.4f}"
+          f" ms = human_forward {stage_ms['human_forward']:.4f} + render "
+          f"{stage_ms['render']:.4f} + loss {stage_ms['loss']:.4f} + backward "
+          f"{stage_ms['backward']:.4f} + Adam and stats "
+          f"{stage_ms['update']:.4f} ms; distillation step "
+          f"{stage_ms['distill_step']:.4f} ms; human densify "
+          f"{stage_ms['human_densify']:.4f} ms, scene densify "
+          f"{stage_ms['scene_densify']:.4f} ms  [{smi}]")
+    print_profile("joint training step", PROFILED_STEPS, *profile, smi)
+    print(f"# profiled joint steps: {per_step[0]:.0f} K1 and {per_step[1]:.0f}"
+          f" K2 launches per step")
+    cull = cull_counts("joint step 0's frame", feat0, bins0, nwalk0)
+    t = kernel_times("joint step 0's frame", feat0, bins0, white, g0, logt0,
+                     nwalk0, pairs0, cull, plain_reps=1)
+    phase_s = time.time() - t_phase
+    print(f"# phase 3f: {phase_s:.1f} s (host clock)  [{smi}]")
+    return {
+        "k1_launches": k1_n, "k2_launches": k2_n, "k1_err": k1_err,
+        "k2_err": k2_err, "times": t, "cull": cull, "stage_ms": stage_ms,
+        "instances_frame0": int(counts0.sum()),
+        "pairs_frame0": [int(x) for x in pairs0.sum(dim=(1, 2))],
+        "budget": tr._ibudget, "retries": retries, "metrics": metrics,
+        "frame0_photometric": [photo0, photo],
+        "frame0_lbs_live_dead": [probe["lbs_before"], lbs_after],
+        "launches_per_step": per_step,
+        "device_kernels_per_step": profile[1],
+        "device_idle_share": 1.0 - sum(profile[0].values()) / profile[2]
+        if profile[2] else None,
+        "card_vs_cpu_max_abs": worst_b, "phase_s": phase_s,
     }
 
 
@@ -1970,17 +2496,26 @@ def main():
     human = human_training(dev, smi, project, slot_budget, cull_counts,
                            tile_of_pixel, kernel_times)
     ht = human["times"]
+    # ---- 3f. the joint training path through the CLI's main, after 3e
+    print(f"# phase 3f starts at {time.time() - t_start:.1f} s (host "
+          f"clock)")
+    joint = joint_training(dev, smi, project, slot_budget, cull_counts,
+                           tile_of_pixel, kernel_times)
+    jt = joint["times"]
 
     # K1 and K2 against the rate S2 measured on the blend's mix
     at_s2 = {
         "K1": {"serving": serve_t["k1_ops"], "training": train_t["k1_ops"],
-               "avatar": avatar["ops"], "human_training": ht["k1_ops"]},
+               "avatar": avatar["ops"], "human_training": ht["k1_ops"],
+               "joint_training": jt["k1_ops"]},
         "K2": {"training": train_t["k2_ops"], "serving": serve_t["k2_ops"],
-               "human_training": ht["k2_ops"]}}
+               "human_training": ht["k2_ops"],
+               "joint_training": jt["k2_ops"]}}
     times = {"K1": {"serving": serve_t["k1"], "training": train_t["k1"],
-                    "avatar": avatar["ms"], "human_training": ht["k1"]},
+                    "avatar": avatar["ms"], "human_training": ht["k1"],
+                    "joint_training": jt["k1"]},
              "K2": {"training": train_t["k2"], "serving": serve_t["k2"],
-                    "human_training": ht["k2"]}}
+                    "human_training": ht["k2"], "joint_training": jt["k2"]}}
     for k, by_frame in at_s2.items():
         for frame, ops in by_frame.items():
             by_frame[frame] = ops / blendmix_rate * 1e3
@@ -1997,12 +2532,14 @@ def main():
         "source": "hugs_tpu_torch/csrc/blend_fwd.cu",
         "replaces": "hugs_tpu/render/pallas_blend.py:354",
         "launches": launches + k1_train + avatar["launches"]
-        + human["k1_launches"],
+        + human["k1_launches"] + joint["k1_launches"],
         "launches_by_path": {"serving": launches, "training": k1_train,
                              "avatar": avatar["launches"],
                              "human_training": human["k1_launches"],
+                             "joint_training": joint["k1_launches"],
                              "micro_bwd": s3_launches["K1"]},
-        "max_abs_err": max(max_err, avatar["max_abs_err"], human["k1_err"]),
+        "max_abs_err": max(max_err, avatar["max_abs_err"], human["k1_err"],
+                           joint["k1_err"]),
         "frame": "serving (phase 2)",
         "ms": serve_t["k1"], "call_ms": serve_t["k1_call"],
         "plain_ms": serve_t["plain"], "bound_ms": serve_t["k1_bound"],
@@ -2020,23 +2557,32 @@ def main():
             "yardstick_bound_ms": ht["k1_yardstick"],
             "instances": human["instances_frame0"],
             "feat_rows_read": ht["feat_rows_read"]},
+        "joint_training_frame": {
+            "ms": jt["k1"], "call_ms": jt["k1_call"], "plain_ms": jt["plain"],
+            "bound_ms": jt["k1_bound"], "bound_by": jt["k1_bound_by"],
+            "yardstick_bound_ms": jt["k1_yardstick"],
+            "instances": joint["instances_frame0"],
+            "feat_rows_read": jt["feat_rows_read"],
+            "launches_per_step": joint["launches_per_step"][0]},
         "ms_at_s2_blendmix_rate": at_s2["K1"],
         "cull_dropped_share": {"serving": cull_serve["K1_dropped"],
                                "training": cull_train["K1_dropped"],
                                "avatar": avatar["cull_dropped_share"],
-                               "human_training": human["cull"]["K1_dropped"]},
+                               "human_training": human["cull"]["K1_dropped"],
+                               "joint_training": joint["cull"]["K1_dropped"]},
         **resources["K1"],
         "held_to": "plain_blend", "ok": True,
     }, {
         "name": "K2 blend_bwd", "route": "cuda",
         "source": "hugs_tpu_torch/csrc/blend_bwd.cu",
         "replaces": "hugs_tpu/render/pallas_blend.py:486",
-        "launches": k2_train + human["k2_launches"],
+        "launches": k2_train + human["k2_launches"] + joint["k2_launches"],
         "launches_by_path": {"serving": k2_serve, "training": k2_train,
                              "avatar": avatar["k2_launches"],
                              "human_training": human["k2_launches"],
+                             "joint_training": joint["k2_launches"],
                              "micro_bwd": s3_launches["K2"]},
-        "max_abs_err": max(k2_err, human["k2_err"]),
+        "max_abs_err": max(k2_err, human["k2_err"], joint["k2_err"]),
         "frame": "training step 0 (view 0)",
         "ms": train_t["k2"], "call_ms": train_t["k2_call"],
         "plain_ms": train_t["plain_bwd"], "bound_ms": train_t["k2_bound"],
@@ -2055,10 +2601,23 @@ def main():
             "step_ms": human["stage_ms"],
             "device_kernels_per_step": human["device_kernels_per_step"],
             "device_idle_share": human["device_idle_share"]},
+        "joint_training_frame": {
+            "ms": jt["k2"], "call_ms": jt["k2_call"],
+            "plain_ms": jt["plain_bwd"], "bound_ms": jt["k2_bound"],
+            "bound_by": jt["k2_bound_by"],
+            "yardstick_bound_ms": jt["k2_yardstick"],
+            "instances": joint["instances_frame0"],
+            "feat_rows_read": jt["feat_rows_read"],
+            "pairs_walked_blended": joint["pairs_frame0"],
+            "launches_per_step": joint["launches_per_step"][1],
+            "step_ms": joint["stage_ms"],
+            "device_kernels_per_step": joint["device_kernels_per_step"],
+            "device_idle_share": joint["device_idle_share"]},
         "ms_at_s2_blendmix_rate": at_s2["K2"],
         "cull_dropped_share": {"serving": cull_serve["K2_dropped"],
                                "training": cull_train["K2_dropped"],
-                               "human_training": human["cull"]["K2_dropped"]},
+                               "human_training": human["cull"]["K2_dropped"],
+                               "joint_training": joint["cull"]["K2_dropped"]},
         **resources["K2"],
         "held_to": "plain_blend_bwd", "ok": True,
     }, *micro]}))

@@ -6,7 +6,9 @@ Both sides meet at numpy: the caller passes a JAX SceneGS as
 model's parameter tree as nested dicts of arrays, and an LPIPS's weight
 lists as numpy arrays, so this module
 imports nothing of the JAX package. The port's render of a converted
-scene or avatar equals the JAX package's render of the original.
+scene or avatar equals the JAX package's render of the original, and a
+converted joint training state (`joint_state_from_numpy`) trains on as
+the original does.
 """
 from __future__ import annotations
 
@@ -16,12 +18,17 @@ import torch
 from hugs_tpu_torch.losses.lpips import LPIPS, N_CONVS, VGG_BLOCKS
 from hugs_tpu_torch.models import nets
 from hugs_tpu_torch.models.human_gs import HumanGS, HumanGSState
+from hugs_tpu_torch.models.human_gs import params_of as human_params_of
 from hugs_tpu_torch.models.scene_gs import BUFFER_FIELDS, PARAM_FIELDS, SceneGS
+from hugs_tpu_torch.models.scene_gs import params_of as scene_params_of
 from hugs_tpu_torch.models.smpl import (
     TENSOR_FIELDS, SMPLModel, make_smpl_model,
 )
 from hugs_tpu_torch.render.camera import Camera
+from hugs_tpu_torch.train.human_step import HumanTrainState
+from hugs_tpu_torch.train.joint_step import JointTrainState
 from hugs_tpu_torch.train.optim import GroupAdamState
+from hugs_tpu_torch.train.scene_step import SceneTrainState
 
 
 def scene_gs_from_numpy(arrays: dict[str, np.ndarray],
@@ -117,6 +124,56 @@ def human_state_from_numpy(arrays: dict, device: torch.device | str = "cuda"
             a = a.astype(np.float32)
         fields[f] = torch.as_tensor(a, device=device)
     return HumanGSState(**fields)
+
+
+def _flat_names(tree, prefix: str = "") -> dict:
+    """A nested dict of arrays as {dotted name: array}: the layout of a
+    module's moments (named_parameters names) in train/optim.py."""
+    if not isinstance(tree, dict):
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat_names(v, f"{prefix}{k}."))
+    return out
+
+
+def _moment(tree, group, device):
+    """One group's moment, laid out as train/optim.py lays out the
+    moments of `group` (the port's parameter, or module: a dict in its
+    named_parameters order, which a JAX tree's sorted keys need not
+    follow)."""
+    if isinstance(group, torch.nn.Module):
+        flat = _flat_names(tree)
+        return {n: _f32(flat[n], device) for n, _ in group.named_parameters()}
+    return _f32(tree, device)
+
+
+def joint_state_from_numpy(human: dict, scene: dict,
+                           device: torch.device | str = "cuda"
+                           ) -> JointTrainState:
+    """The port's JointTrainState of a JAX JointTrainState given as numpy:
+    human = {"params": a HumanGS's fields (the nets as nested dicts),
+    "state": a HumanGSState's fields, "opt": {"mu", "nu", "step"}} and
+    scene = {"gs": a SceneGS's fields, "opt": {"mu", "nu", "step"}}, each
+    moment tree shaped like its parameters."""
+    def opt(tree, groups):
+        return GroupAdamState(
+            mu={k: _moment(tree["mu"][k], g, device)
+                for k, g in groups.items()},
+            nu={k: _moment(tree["nu"][k], g, device)
+                for k, g in groups.items()},
+            step=torch.tensor(int(np.asarray(tree["step"])),
+                              dtype=torch.int32, device=device))
+
+    params = human_gs_from_numpy(human["params"], device)
+    gs = scene_gs_from_numpy(scene["gs"], device)
+    return JointTrainState(
+        human=HumanTrainState(
+            params=params, state=human_state_from_numpy(human["state"],
+                                                        device),
+            opt=opt(human["opt"], human_params_of(params))),
+        scene=SceneTrainState(gs=gs, opt=opt(scene["opt"],
+                                             scene_params_of(gs))))
 
 
 def lpips_from_numpy(conv_weights, conv_biases, lin_weights,

@@ -1,0 +1,104 @@
+"""The port's training command (the reference's and the JAX package's
+main.py):
+
+  python -m hugs_tpu_torch.main --cfg_file cfg_files/neuman/hugs_human_scene.yaml \\
+      [--cfg_id N] [--device cuda|cpu] [dotted.key=value ...]
+
+Merges the defaults, the YAML file and the dotted overrides, expands
+list-valued leaves into a grid of configurations (--cfg_id picks one),
+and for each: makes the logdir tree, loads the NeuMan train and val
+splits, trains, writes results_train.json and the final checkpoint,
+validates and writes results_eval.json. The device defaults to cuda; a
+run on the CPU must ask for it. animate and render_canonical, which the
+JAX package's main.py runs after validation, come with the animation
+slice and are not run here.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+from hugs_tpu_torch.cfg import get_cfg_items, load_config
+from hugs_tpu_torch.data.neuman import NeumanDataset
+from hugs_tpu_torch.train.trainer import GaussianTrainer
+
+
+def setup_logdir(cfg):
+    cfg.logdir = os.path.join(cfg.output_path, cfg.dataset.name,
+                              str(cfg.dataset.seq), cfg.exp_name)
+    cfg.logdir_ckpt = os.path.join(cfg.logdir, "ckpt")
+    for sub in ("", "ckpt", "train", "val", "meshes"):
+        os.makedirs(os.path.join(cfg.logdir, sub), exist_ok=True)
+    with open(os.path.join(cfg.logdir, "config_train.yaml"), "w") as f:
+        f.write(cfg.to_yaml())
+
+
+def build_datasets(cfg, device):
+    """(train, val) NeuMan splits, None where the sequence is missing."""
+    root = cfg.dataset_path or "data/neuman/dataset"
+    if cfg.dataset.name != "neuman" or not os.path.isdir(
+            os.path.join(root, str(cfg.dataset.seq))):
+        return None, None
+    train_ds = None
+    if not cfg.eval:
+        train_ds = NeumanDataset(
+            root, cfg.dataset.seq, "train", render_mode=cfg.mode,
+            add_bg_points=cfg.scene.add_bg_points,
+            num_bg_points=cfg.scene.num_bg_points,
+            bg_sphere_dist=cfg.scene.bg_sphere_dist,
+            clean_pcd=cfg.scene.clean_pcd, device=device)
+    val_ds = NeumanDataset(root, cfg.dataset.seq, "val",
+                           render_mode=cfg.mode, device=device)
+    return train_ds, val_ds
+
+
+def main(cfg, device: torch.device | str = "cuda") -> int:
+    np.random.seed(cfg.seed)
+    setup_logdir(cfg)
+    train_ds, val_ds = build_datasets(cfg, device)
+    if train_ds is None and not cfg.eval:
+        print(f"ERROR: dataset not found under "
+              f"{cfg.dataset_path or 'data/neuman/dataset'}: prepare the "
+              f"NeuMan data first", file=sys.stderr)
+        return 1
+    trainer = GaussianTrainer(cfg, train_ds, val_ds, device=device)
+    if not cfg.eval:
+        log = trainer.train()
+        with open(os.path.join(cfg.logdir, "results_train.json"), "w") as f:
+            json.dump(log, f)
+        trainer.save_ckpt()
+    if val_ds is not None:
+        metrics = trainer.validate()
+        with open(os.path.join(cfg.logdir, "results_eval.json"), "w") as f:
+            json.dump(metrics, f, indent=2)
+        print(json.dumps(metrics, indent=2))
+    return 0
+
+
+def cli(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cfg_file", type=str, default=None)
+    ap.add_argument("--cfg_id", type=int, default=-1)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("overrides", nargs="*")
+    args = ap.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("ERROR: no CUDA device; pass --device cpu to run on the CPU",
+              file=sys.stderr)
+        return 2
+    items = get_cfg_items(load_config(args.cfg_file, args.overrides))
+    if args.cfg_id >= 0:
+        items = [items[args.cfg_id]]
+    rc = 0
+    for c in items:
+        rc |= main(c, args.device) or 0
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(cli())

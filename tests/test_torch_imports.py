@@ -1,5 +1,7 @@
 """The port stands alone: hugs_tpu_torch and chip_smoke.py import neither
-jax nor hugs_tpu, and the kernel's launcher takes CUDA tensors only."""
+jax nor hugs_tpu, nor PIL or cv2 (the GPU machine has neither; the port
+reads and writes PNGs with utils/png.py), and the kernel's launcher
+takes CUDA tensors only."""
 import ast
 import os
 import pkgutil
@@ -16,7 +18,7 @@ from hugs_tpu_torch.micro import micro_bf16, vpu_peak
 from hugs_tpu_torch.render import cuda_blend
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "hugs_tpu")
+FORBIDDEN = ("jax", "jaxlib", "hugs_tpu", "PIL", "cv2")
 
 
 def _port_modules():
@@ -64,6 +66,22 @@ def test_human_training_modules_are_among_the_checked():
         assert f"hugs_tpu_torch.{name}" in modules, name
         assert os.path.join("hugs_tpu_torch", *name.split(".")) + ".py" \
             in sources, name
+
+
+def test_training_shell_modules_are_among_the_checked():
+    """The modules of the joint training slice and of the training shell
+    (configuration, data, checkpoints, trainer, CLI) stand alone like the
+    rest: the checks around this one walk them."""
+    modules = _port_modules()
+    sources = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for name in ("cfg", "cfg.config", "data.colmap", "data.native",
+                 "data.neuman", "utils.png", "utils.image",
+                 "train.checkpoint", "train.joint_step", "train.trainer",
+                 "main"):
+        assert f"hugs_tpu_torch.{name}" in modules, name
+        path = os.path.join("hugs_tpu_torch", *name.split("."))
+        assert path + ".py" in sources or os.path.join(
+            path, "__init__.py") in sources, name
 
 
 def _imported_names(path):

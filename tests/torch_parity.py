@@ -191,3 +191,89 @@ def jax_lpips_to_torch(lp, device="cpu"):
         [np.asarray(w) for w in lp.conv_weights],
         [np.asarray(b) for b in lp.conv_biases],
         [np.asarray(w) for w in lp.lin_weights], lp.has_pretrained, device)
+
+
+def flat_tree(tree, prefix=""):
+    """A nested dict of arrays (a JAX group) as {dotted name: numpy}; an
+    array alone as {"": numpy}."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat_tree(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: np.asarray(tree)}
+
+
+def flat_group(group):
+    """A port group (tensor, module, or a module's moments' dict) in
+    flat_tree's layout."""
+    if isinstance(group, torch.nn.Module):
+        return {n: np_of(p) for n, p in group.named_parameters()}
+    if isinstance(group, dict):
+        out = {}
+        for k, v in group.items():
+            out.update({f"{k}.{n}" if n else k: a
+                        for n, a in flat_group(v).items()})
+        return out
+    return {"": np_of(group)}
+
+
+def jax_joint_to_numpy(jstate):
+    """A hugs_tpu JointTrainState as the numpy trees
+    convert.joint_state_from_numpy takes: (human, scene)."""
+    def opt(o):
+        return {"mu": jax_tree(dict(o.mu)), "nu": jax_tree(dict(o.nu)),
+                "step": np.asarray(o.step)}
+    h, s = jstate.human, jstate.scene
+    human = {"params": {f: jax_tree(getattr(h.params, f))
+                        for f in h.params._fields},
+             "state": {f: np.asarray(getattr(h.state, f))
+                       for f in h.state._fields},
+             "opt": opt(h.opt)}
+    scene = {"gs": {f: np.asarray(getattr(s.gs, f)) for f in s.gs._fields},
+             "opt": opt(s.opt)}
+    return human, scene
+
+
+def _joint_sides(ts, js):
+    from hugs_tpu_torch.models import human_gs as th
+    from hugs_tpu_torch.models import scene_gs as tsg
+    return (("human", ts.human, js.human, th.PARAM_GROUPS,
+             lambda s: s.params, lambda s: s.state),
+            ("scene", ts.scene, js.scene, tsg.PARAM_FIELDS,
+             lambda s: s.gs, lambda s: s.gs))
+
+
+def assert_joint_close(ts, js, p_rtol=0.0):
+    """The port's JointTrainState against hugs_tpu's at the one-step
+    bars: every parameter atol 1e-6 (plus p_rtol relative) where hugs_tpu's
+    first moment is beyond rounding, 1e-7 (with eps 1e-15 an Adam step of
+    a gradient within rounding of 0 moves a parameter by up to its rate
+    either way); the first moments atol 1e-7 + rtol 1e-4, the second atol
+    1e-12 + rtol 1e-4; the densification statistics atol 1e-6 + rtol
+    1e-4; alive and the step counts exact."""
+    for name, t, j, groups, params, stats in _joint_sides(ts, js):
+        assert int(t.opt.step) == int(j.opt.step), name
+        np.testing.assert_array_equal(np_of(stats(t).alive),
+                                      np.asarray(stats(j).alive))
+        for group in groups:
+            p_t = flat_group(getattr(params(t), group))
+            mu_t = flat_group(t.opt.mu[group])
+            nu_t = flat_group(t.opt.nu[group])
+            p_j = flat_tree(getattr(params(j), group))
+            mu_j = flat_tree(j.opt.mu[group])
+            nu_j = flat_tree(j.opt.nu[group])
+            for key in mu_j:
+                err = f"{name} {group}.{key}"
+                np.testing.assert_allclose(mu_t[key], mu_j[key], atol=1e-7,
+                                           rtol=1e-4, err_msg=err)
+                np.testing.assert_allclose(nu_t[key], nu_j[key], atol=1e-12,
+                                           rtol=1e-4, err_msg=err)
+                hot = np.abs(mu_j[key]) > 1e-7
+                np.testing.assert_allclose(p_t[key][hot], p_j[key][hot],
+                                           atol=1e-6, rtol=p_rtol,
+                                           err_msg=err)
+        for f in ("xyz_gradient_accum", "denom", "max_radii2d"):
+            np.testing.assert_allclose(
+                np_of(getattr(stats(t), f)), np.asarray(getattr(stats(j), f)),
+                atol=1e-6, rtol=1e-4, err_msg=f"{name} {f}")
