@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drives the hugs_tpu_torch serving render, scene training, the avatar
-serving frame, the three micro-benchmarks, human training and joint
-human + scene training through the port's CLI on one NVIDIA GPU.
+serving frame, the three micro-benchmarks, human training, joint
+human + scene training through the port's CLI and the evaluation of its
+output (validate, animate, the turntable, the inference fast path) on
+one NVIDIA GPU.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It builds the CUDA kernels (K1, the forward blend; K2, its backward,
@@ -93,23 +95,49 @@ source, all together, then:
      0.2, patch LPIPS 1.0, LBS 1000, humansep 1.0, pose and translation
      optimised, white background; run after 3e): check (b) first, one
      joint step on the small avatar and a 300-point scene on the card
-     against the CPU; then a NeuMan-layout sequence written with the
-     port's PNG writer (phase 3e's striped body posed by gt_poses amid
-     phase 3c's 100,000-point scene, 960x540, 24 frames of the orbit at
-     2.6, masks from the body's alpha, COLMAP text cameras and points,
-     the SMPL parameters) and hugs_tpu_torch.main.main on it with the
-     cuts JOINT_CUTS lists (30 steps, a 1,000-step distillation, both
-     sets densified at steps 15 and 30, validate at 30). Checks: (a) K1
-     and K2 against their plain versions on step 0's merged frame (K2
-     fed that frame's d(loss)/d(raw colour), float64 too), (c) step 0's
-     frame and draws give lower L1 + SSIM + LPIPS terms (humansep's
-     included) after the run, every parameter and moment finite on the
-     live rows, (d) a new trainer resumes the final checkpoint bit for
-     bit, (e) validate's metrics finite under hugs_tpu's keys, (f) two
-     K2 launches per step and two K1 per render of a step; then a step
-     through the trainer and by stage, a distillation step, each
+     against the CPU; then a NeuMan-layout sequence `lab` written with
+     the port's PNG writer (phase 3e's striped body posed by gt_poses
+     amid phase 3c's 100,000-point scene, 960x540, 24 frames of the orbit
+     at 2.6, masks from the body's alpha, COLMAP text cameras and points,
+     the SMPL parameters) with an AMASS-layout clip of 80 frames (20
+     anim frames at lab's step 4: gt_poses' swing, orientations and
+     translations that lab's alignment carries back onto the trained
+     body) and hugs_tpu_torch.main.main on it with the cuts JOINT_CUTS
+     lists (30 steps, a 1,000-step distillation, both sets densified at
+     steps 15 and 30, validate at 30, an 8-frame turntable), which
+     after training validates, animates and renders the turntable.
+     Checks: (a) K1 and K2 against their plain versions on step 0's
+     merged frame (K2 fed that frame's d(loss)/d(raw colour), float64
+     too), (c) step 0's frame and draws give lower L1 + SSIM + LPIPS
+     terms (humansep's included) after the run, every parameter and
+     moment finite on the live rows, (d) a new trainer resumes the final
+     checkpoint bit for bit, (e) validate's metrics finite under
+     hugs_tpu's keys, (f) two K2 launches per step and two K1 per render
+     of a step, one K1 per frame of iteration 0's turntable, and after
+     train() one K1 per validated, animated and turntable frame; then a
+     step through the trainer and by stage, a distillation step, each
      densify, the device kernels and idle share of a step, and K1's and
      K2's times and bounds on the merged frame;
+  3g. evaluation (run after 3f): hugs_tpu_torch.evaluate.evaluate, the
+     entry function of `python -m hugs_tpu_torch.evaluate`, in-process
+     on phase 3f's output directory (the port's checkpoint at step 30 at
+     config[3]'s capacities): load, compact_for_eval, rehearse_budget
+     (binning-only probes of the val and anim frames), validate, animate
+     (20 frames) and the turntable. Checks: (a) K1 against plain on anim
+     frame 0's merged frame, (b) anim frame 0 on the card against the
+     same states on the CPU (human_forward at phase 3c's bar, the image
+     at EVAL_CPU_WH: the CPU's plain blend pads each tile to the densest),
+     (c) results_eval.json equals phase 3f's validate (1e-3 dB PSNR,
+     1e-5 SSIM), (d) 20 anim PNGs, one K1 per anim frame, none in the
+     rehearsal, no overflow, the human's share of every frame (its pass
+     alone, against its background) nonzero, consecutive frames
+     different, (e) the turntable's frames at 128^2, one K1 each, (f)
+     the fast path (train/trainer.py's PoseRenderer, render_poses) on
+     the 20 anim body poses from fps_bench_tpu.py's camera against
+     render_frame per pose; its frame latency (median of 20, CUDA
+     events), its split human_forward / project / bin / blend, its
+     device kernels per frame and idle share; then evaluate's stage
+     times and K1's time and bound on anim frame 0;
   4. times on the card (CUDA events, median of 20 after warm-up): one
      request split into project / bin / blend, one training step split
      into forward / loss / backward / Adam + stats, one densify step,
@@ -139,7 +167,9 @@ import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from hugs_tpu_torch.micro import card, device_ms  # noqa: E402
+from hugs_tpu_torch.micro import (  # noqa: E402
+    card, device_kernels, device_ms, feat_rows_read, warp_cull_counts,
+)
 
 W, H = 960, 540
 N_GAUSS = 50_000
@@ -238,6 +268,7 @@ JOINT_FRAMES = 24
 JOINT_STEPS = 30
 JOINT_CUTS = {
     "train.num_steps": JOINT_STEPS,              # recipe 14,998
+    "human.canon_nframes": 8,                    # recipe 60
     "human.init_steps": 1000,                    # recipe 7,000
     # densify at steps 15 and 30; from 0, so that the opacity reset a
     # white background makes at densify_from_iter falls outside the run
@@ -248,6 +279,13 @@ JOINT_CUTS = {
     "train.val_interval": JOINT_STEPS,           # recipe 1,000
 }
 JOINT_PCD_NOISE = 0.02
+# the anim split of phase 3f's sequence: an AMASS-layout clip of
+# ANIM_SOURCE_FRAMES frames, every 4th an anim frame (lab's 0:1000:4)
+ANIM_SOURCE_FRAMES = 80
+ANIM_FRAMES = ANIM_SOURCE_FRAMES // 4
+# phase 3g, evaluation: check (b) renders anim frame 0's camera at this
+# size on the card and on the CPU
+EVAL_CPU_WH = (160, 90)
 # phase 3d, the micro-benchmarks: S2 held to its plain version at a grid
 # of 16 steps (INNER 64, REPS 3), every element within S2_RTOL of the
 # block's largest value (the plain version's exp and log1p are torch's,
@@ -321,30 +359,6 @@ def view(i):
                   [-math.sin(a), 0.0, math.cos(a)]], np.float32)
     t = np.array([0.1 * i, -0.05 * i, 0.0], np.float32)
     return R, t
-
-
-def device_kernels(fn, reps=PROFILED):
-    """From torch.profiler's CUDA trace of `reps` calls of fn: device time
-    by kernel name (us per call), device kernels per call, and the span
-    per call from the first kernel's start to the last one's end (us)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    # device activity only: tracing host ops would slow the host, which
-    # sets the span
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name, n, first, last = {}, 0, math.inf, -math.inf
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us = e.time_range.elapsed_us() / reps
-            by_name[e.name] = by_name.get(e.name, 0.0) + us
-            n += 1
-            first = min(first, e.time_range.start)
-            last = max(last, e.time_range.end)
-    return by_name, n / reps, (last - first) / reps if n else 0.0
 
 
 def print_profile(what, reps, by_kernel, per_call, span_us, smi, top=8):
@@ -1132,15 +1146,16 @@ def human_training(dev, smi, project, slot_budget, cull_counts,
 
 
 def write_neuman_sequence(root, dev, smi):
-    """Phase 3f's sequence in the NeuMan layout under root/synthetic, with
-    the port's PNG writer: each frame phase 3e's striped body, posed by
-    gt_poses, amid phase 3c's 100,000-point scene (create_from_pcd's
-    splats at opacity 0.5), rendered on white from the orbit at distance 2.6; the mask
-    where the body alone leaves less than half the light; COLMAP
-    cameras.txt / images.txt of the orbit (row-vector world-to-view,
-    as data/neuman.py reads them), points3D.txt the scene's points plus
-    N(0, 0.02^2) and the SMPL parameters. Returns the human mask's cover
-    by frame."""
+    """Phase 3f's sequence in the NeuMan layout as sequence `lab` under
+    root/neuman, with the port's PNG writer: each frame phase 3e's striped
+    body, posed by gt_poses, amid phase 3c's 100,000-point scene
+    (create_from_pcd's splats at opacity 0.5), rendered on white from the
+    orbit at distance 2.6; the mask where the body alone leaves less than
+    half the light; COLMAP cameras.txt / images.txt of the orbit
+    (row-vector world-to-view, as data/neuman.py reads them),
+    points3D.txt the scene's points plus N(0, 0.02^2) and the SMPL
+    parameters. Also lab's AMASS clip at root/SFU (write_anim_clip).
+    Returns the human mask's cover by frame."""
     from hugs_tpu_torch.data.cameras import get_rotating_camera
     from hugs_tpu_torch.data.colmap import _rot_to_quat
     from hugs_tpu_torch.models.scene_gs import create_from_pcd, scene_forward
@@ -1150,7 +1165,7 @@ def write_neuman_sequence(root, dev, smi):
     from hugs_tpu_torch.render.renderer import render
     from hugs_tpu_torch.utils.png import write_png
 
-    path = os.path.join(root, "synthetic")
+    path = os.path.join(root, "neuman", "lab")
     for sub in ("images", "segmentations", "sparse", "4d_humans"):
         os.makedirs(os.path.join(path, sub))
     smpl = synthetic_smpl(AVATAR_VPB, device=dev)
@@ -1228,7 +1243,47 @@ def write_neuman_sequence(root, dev, smi):
              body_pose=np.stack([p for p, _ in poses]),
              transl=np.zeros((JOINT_FRAMES, 3), np.float32),
              scale=np.ones(JOINT_FRAMES, np.float32))
+    write_anim_clip(root, smpl)
     return cover
+
+
+def write_anim_clip(root, smpl):
+    """Lab's AMASS clip at root/SFU/0008 (data/neuman.py's MOCAP_PATHS):
+    ANIM_SOURCE_FRAMES frames of SMPL-H poses (156 angles, the hands at
+    rest) whose body swings as gt_poses over the clip, and translations.
+    Lab's alignment maps a body x to tr + s R x; each frame's orientation
+    is R^T times gt_poses' and its translation R^T (j0 - tr) / s - j0,
+    with j0 the rest pelvis, so that the aligned body stands where phase
+    3f trained it, s = 3 times its size."""
+    from hugs_tpu_torch.data.neuman import (
+        ALIGNMENTS, AMASS_SMPLH_TO_SMPL_JOINTS, MOCAP_PATHS, euler_matrix,
+    )
+    from hugs_tpu_torch.models.smpl import smpl_forward
+    from hugs_tpu_torch.ops.rotations import (
+        axis_angle_to_matrix, matrix_to_axis_angle,
+    )
+    tr, deg, sc = ALIGNMENTS["lab"]
+    rot = euler_matrix(*np.radians(deg)).astype(np.float64)
+    dev = smpl.v_template.device
+    z3 = torch.zeros(3, device=dev)
+    with torch.no_grad():
+        j0 = smpl_forward(smpl, torch.zeros(10, device=dev),
+                          torch.zeros(69, device=dev), z3, z3).joints[0]
+    j0 = j0.cpu().numpy().astype(np.float64)
+    transl = rot.T @ (j0 - np.asarray(tr)) / sc - j0
+    poses = np.zeros((ANIM_SOURCE_FRAMES, 156), np.float32)
+    for i in range(ANIM_SOURCE_FRAMES):
+        pose, orient = gt_poses(i, ANIM_SOURCE_FRAMES)
+        go = rot.T @ axis_angle_to_matrix(torch.as_tensor(
+            orient, dtype=torch.float64)).numpy()
+        smpl24 = np.concatenate([matrix_to_axis_angle(torch.as_tensor(
+            go)).numpy(), pose])
+        poses[i, AMASS_SMPLH_TO_SMPL_JOINTS] = smpl24
+    path = os.path.join(root, os.path.dirname(MOCAP_PATHS["lab"][0]))
+    os.makedirs(path)
+    np.savez(os.path.join(root, MOCAP_PATHS["lab"][0]), poses=poses,
+             trans=np.tile(transl.astype(np.float32),
+                           (ANIM_SOURCE_FRAMES, 1)))
 
 
 def joint_step_card_vs_cpu(dev):
@@ -1247,11 +1302,12 @@ def joint_step_card_vs_cpu(dev):
 
 
 def joint_training(dev, smi, project, slot_budget, cull_counts,
-                   tile_of_pixel, kernel_times):
+                   tile_of_pixel, kernel_times, root):
     """Phase 3f, joint human + scene training (config[3]) through the
     port's CLI function hugs_tpu_torch.main.main on the sequence of
-    write_neuman_sequence, with main's helpers. Checks (a)-(f) of the
-    module docstring; raises if one fails; returns its numbers."""
+    write_neuman_sequence under root, with main's helpers. Checks (a)-(f)
+    of the module docstring; raises if one fails; returns its numbers,
+    the run's logdir among them."""
     import copy
 
     from hugs_tpu_torch import main as cli
@@ -1333,130 +1389,152 @@ def joint_training(dev, smi, project, slot_budget, cull_counts,
                          k2=cuda_blend.K2_LAUNCHES, retries=self.retries)
             return log
 
-    with tempfile.TemporaryDirectory() as root:
+    t0 = time.time()
+    cover = write_neuman_sequence(root, dev, smi)
+    seq_s = time.time() - t0
+    cfg = load_config(JOINT_RECIPE, [
+        f"dataset_path={root}/neuman", "dataset.seq=lab",
+        f"output_path={root}/out", "exp_name=phase3f",
+        f"tpu.smpl_vpb={AVATAR_VPB}"]
+        + [f"{k}={v}" for k, v in JOINT_CUTS.items()])
+    print(f"# joint training: sequence of {JOINT_FRAMES} frames at "
+          f"{W}x{H} written in {seq_s:.1f} s (host clock), human mask "
+          f"cover {min(cover):.3f}-{max(cover):.3f}; recipe "
+          f"{JOINT_RECIPE}: human capacity {cfg.human.max_n_gaussians}, "
+          f"scene capacity {cfg.scene.max_n_gaussians}, triplane "
+          f"{cfg.human.triplane_res}^2, {cfg.human.n_subdivision} "
+          f"subdivisions, loss {dict(cfg.human.loss)}; cuts "
+          f"{JOINT_CUTS}")
+    main_trainer = cli.GaussianTrainer
+    cli.GaussianTrainer = ProbedTrainer
+    try:
         t0 = time.time()
-        cover = write_neuman_sequence(root, dev, smi)
-        seq_s = time.time() - t0
-        cfg = load_config(JOINT_RECIPE, [
-            f"dataset_path={root}", "dataset.seq=synthetic",
-            f"output_path={root}/out", "exp_name=phase3f",
-            f"tpu.smpl_vpb={AVATAR_VPB}"]
-            + [f"{k}={v}" for k, v in JOINT_CUTS.items()])
-        print(f"# joint training: sequence of {JOINT_FRAMES} frames at "
-              f"{W}x{H} written in {seq_s:.1f} s (host clock), human mask "
-              f"cover {min(cover):.3f}-{max(cover):.3f}; recipe "
-              f"{JOINT_RECIPE}: human capacity {cfg.human.max_n_gaussians}, "
-              f"scene capacity {cfg.scene.max_n_gaussians}, triplane "
-              f"{cfg.human.triplane_res}^2, {cfg.human.n_subdivision} "
-              f"subdivisions, loss {dict(cfg.human.loss)}; cuts "
-              f"{JOINT_CUTS}")
-        main_trainer = cli.GaussianTrainer
-        cli.GaussianTrainer = ProbedTrainer
-        try:
-            t0 = time.time()
-            rc = cli.main(cfg, device=dev)
-            torch.cuda.synchronize()
-            main_s = time.time() - t0
-        finally:
-            cli.GaussianTrainer = main_trainer
-        if rc != 0:
-            raise AssertionError(f"hugs_tpu_torch.main.main returned {rc}")
-        tr = probe["trainer"]
-        n_vals = len(tr.val_dataset)
-        k1_n, k2_n, retries = probe["k1"], probe["k2"], probe["retries"]
-        steps = JOINT_STEPS + 1
-        print(f"# joint training: main() {main_s:.1f} s (host clock; train "
-              f"{probe['train_s']:.1f} s for {steps} steps, distillation "
-              f"{cfg.human.init_steps} steps and validate included); alive "
-              f"before {probe['alive0']}, after "
-              f"({int(tr.human.state.alive.sum())}, "
-              f"{int(tr.scene.gs.alive.sum())}); budget {probe['budget0']} "
-              f"-> {tr._ibudget}, {retries} steps rendered again; K1 "
-              f"launches {k1_n}, K2 launches {k2_n} in train()")
-        # (f) two K2 per step (merged, human alone); two K1 per render of
-        # a step, and one per validated frame at val_interval
-        want_k1 = 2 * (steps + retries) + n_vals * (steps // JOINT_STEPS)
-        if k2_n != 2 * steps or k1_n != want_k1:
-            raise AssertionError(f"K1 launched {k1_n} (expected {want_k1}) "
-                                 f"and K2 {k2_n} (expected {2 * steps}) "
-                                 f"times in {steps} joint steps")
-        print(f"# (f) per joint step: {k2_n / steps:.0f} K2 launches, "
-              f"{(k1_n - n_vals) / (steps + retries):.0f} K1 launches per "
-              f"render of a step, {n_vals} K1 for the {n_vals} val frames")
+        rc = cli.main(cfg, device=dev)
+        torch.cuda.synchronize()
+        main_s = time.time() - t0
+    finally:
+        cli.GaussianTrainer = main_trainer
+    if rc != 0:
+        raise AssertionError(f"hugs_tpu_torch.main.main returned {rc}")
+    tr = probe["trainer"]
+    k1_after = cuda_blend.LAUNCHES - probe["k1"]
+    n_vals = len(tr.val_dataset)
+    n_anim = len(tr.anim_dataset) if tr.anim_dataset is not None else 0
+    n_canon = int(cfg.human.canon_nframes)
+    k1_n, k2_n, retries = probe["k1"], probe["k2"], probe["retries"]
+    steps = JOINT_STEPS + 1
+    print(f"# joint training: main() {main_s:.1f} s (host clock; train "
+          f"{probe['train_s']:.1f} s for {steps} steps, distillation "
+          f"{cfg.human.init_steps} steps and validate included); alive "
+          f"before {probe['alive0']}, after "
+          f"({int(tr.human.state.alive.sum())}, "
+          f"{int(tr.scene.gs.alive.sum())}); budget {probe['budget0']} "
+          f"-> {tr._ibudget}, {retries} steps rendered again; K1 "
+          f"launches {k1_n}, K2 launches {k2_n} in train()")
+    # (f) two K2 per step (merged, human alone); two K1 per render of
+    # a step, one per validated frame at val_interval and one per
+    # frame of iteration 0's turntable; after train(), one per frame
+    # main() validates, animates and turns
+    want_k1 = 2 * (steps + retries) + n_vals * (steps // JOINT_STEPS) \
+        + n_canon
+    if k2_n != 2 * steps or k1_n != want_k1:
+        raise AssertionError(f"K1 launched {k1_n} (expected {want_k1}) "
+                             f"and K2 {k2_n} (expected {2 * steps}) "
+                             f"times in {steps} joint steps")
+    if n_anim != ANIM_FRAMES or k1_after != n_vals + n_anim + n_canon:
+        raise AssertionError(
+            f"after train() main() launched K1 {k1_after} times for "
+            f"{n_vals} val, {n_anim} anim (expected {ANIM_FRAMES}) and "
+            f"{n_canon} turntable frames")
+    anim_pngs = sorted(os.listdir(os.path.join(cfg.logdir, "anim",
+                                               "final")))
+    canon_pngs = {it: len(os.listdir(os.path.join(cfg.logdir, "canon",
+                                                   it)))
+                  for it in ("000000", "final")}
+    if len(anim_pngs) != n_anim or set(canon_pngs.values()) != {n_canon}:
+        raise AssertionError(f"main() wrote {len(anim_pngs)} anim and "
+                             f"{canon_pngs} turntable frames")
+    print(f"# (f) per joint step: {k2_n / steps:.0f} K2 launches, "
+          f"{(k1_n - n_vals - n_canon) / (steps + retries):.0f} K1 "
+          f"launches per render of a step, {n_vals} K1 for the {n_vals}"
+          f" val frames, {n_canon} for iteration 0's turntable; after "
+          f"train(), {k1_after} K1 for {n_vals} val, {n_anim} anim and "
+          f"{n_canon} turntable frames, {len(anim_pngs)} anim PNGs, "
+          f"turntable PNGs {canon_pngs}")
 
-        # (e) validate's metrics, hugs_tpu's keys
-        with open(os.path.join(cfg.logdir, "results_eval.json")) as fh:
-            metrics = json.load(fh)
-        keys = {"hugs_psnr", "hugs_ssim", "hugs_lpips_uncalibrated",
-                "hugs_human_psnr", "hugs_human_ssim",
-                "hugs_human_lpips_uncalibrated"}
-        if set(metrics) != keys or not all(np.isfinite(list(
-                metrics.values()))):
-            raise AssertionError(f"validate gave {metrics}")
-        print(f"# (e) validate on {n_vals} val frames: {metrics}")
-        with open(os.path.join(cfg.logdir, "results_train.json")) as fh:
-            train_log = json.load(fh)
-        print(f"# joint loss by 10 steps (results_train.json): "
-              f"{[round(r['loss'], 6) for r in train_log]}")
+    # (e) validate's metrics, hugs_tpu's keys
+    with open(os.path.join(cfg.logdir, "results_eval.json")) as fh:
+        metrics = json.load(fh)
+    keys = {"hugs_psnr", "hugs_ssim", "hugs_lpips_uncalibrated",
+            "hugs_human_psnr", "hugs_human_ssim",
+            "hugs_human_lpips_uncalibrated"}
+    if set(metrics) != keys or not all(np.isfinite(list(
+            metrics.values()))):
+        raise AssertionError(f"validate gave {metrics}")
+    print(f"# (e) validate on {n_vals} val frames: {metrics}")
+    with open(os.path.join(cfg.logdir, "results_train.json")) as fh:
+        train_log = json.load(fh)
+    print(f"# joint loss by 10 steps (results_train.json): "
+          f"{[round(r['loss'], 6) for r in train_log]}")
 
-        # (c) step 0's frame and draws: L1 + SSIM + LPIPS and the humansep
-        # terms fall; the LBS term printed beside, live and dead rows
-        after, lbs_after, _, _ = frame_loss(tr, probe["data"], probe["idx"],
-                                            probe["draws"],
-                                            probe["human_bg"])
-        before = probe["before"]
-        photo0, photo = (sum(v for k, v in t.items() if k != "lbs")
-                         for t in (before, after))
-        print(f"# (c) step 0's frame and draws: the photometric terms "
-              f"{photo0:.6f} -> {photo:.6f} ({before} -> {after}); LBS live "
-              f"{probe['lbs_before'][0]:.6f} + dead "
-              f"{probe['lbs_before'][1]:.6f} -> {lbs_after[0]:.6f} + "
-              f"{lbs_after[1]:.6f}")
-        if not photo < photo0:
-            raise AssertionError("the joint loss of step 0's frame did not "
-                                 "fall")
-        live = tr.human.state.alive
-        bad = []
-        for group, p in hgs.params_of(tr.human.params).items():
-            for name, x in (("param", p), ("mu", tr.human.opt.mu[group]),
-                            ("nu", tr.human.opt.nu[group])):
-                for t in leaves(x):
-                    if t.shape[:1] == live.shape:
-                        t = t[live]
-                    if not bool(torch.isfinite(t).all()):
-                        bad.append(f"human {group} {name}")
-        s_live = tr.scene.gs.alive
-        for f, p in sgs.params_of(tr.scene.gs).items():
-            for name, x in (("param", p), ("mu", tr.scene.opt.mu[f]),
-                            ("nu", tr.scene.opt.nu[f])):
-                if not bool(torch.isfinite(x[s_live]).all()):
-                    bad.append(f"scene {f} {name}")
-        if bad:
-            raise AssertionError(f"non-finite on live rows: {bad}")
+    # (c) step 0's frame and draws: L1 + SSIM + LPIPS and the humansep
+    # terms fall; the LBS term printed beside, live and dead rows
+    after, lbs_after, _, _ = frame_loss(tr, probe["data"], probe["idx"],
+                                        probe["draws"],
+                                        probe["human_bg"])
+    before = probe["before"]
+    photo0, photo = (sum(v for k, v in t.items() if k != "lbs")
+                     for t in (before, after))
+    print(f"# (c) step 0's frame and draws: the photometric terms "
+          f"{photo0:.6f} -> {photo:.6f} ({before} -> {after}); LBS live "
+          f"{probe['lbs_before'][0]:.6f} + dead "
+          f"{probe['lbs_before'][1]:.6f} -> {lbs_after[0]:.6f} + "
+          f"{lbs_after[1]:.6f}")
+    if not photo < photo0:
+        raise AssertionError("the joint loss of step 0's frame did not "
+                             "fall")
+    live = tr.human.state.alive
+    bad = []
+    for group, p in hgs.params_of(tr.human.params).items():
+        for name, x in (("param", p), ("mu", tr.human.opt.mu[group]),
+                        ("nu", tr.human.opt.nu[group])):
+            for t in leaves(x):
+                if t.shape[:1] == live.shape:
+                    t = t[live]
+                if not bool(torch.isfinite(t).all()):
+                    bad.append(f"human {group} {name}")
+    s_live = tr.scene.gs.alive
+    for f, p in sgs.params_of(tr.scene.gs).items():
+        for name, x in (("param", p), ("mu", tr.scene.opt.mu[f]),
+                        ("nu", tr.scene.opt.nu[f])):
+            if not bool(torch.isfinite(x[s_live]).all()):
+                bad.append(f"scene {f} {name}")
+    if bad:
+        raise AssertionError(f"non-finite on live rows: {bad}")
 
-        # (d) the checkpoint round trip: a new trainer resumes from the
-        # final checkpoint; every tensor equal bit for bit
-        cfg2 = copy.deepcopy(cfg)
-        cfg2.human.run_init = False
-        t0 = time.time()
-        tr2 = GaussianTrainer(cfg2, tr.train_dataset, tr.val_dataset,
-                              device=dev)
-        resume_s = time.time() - t0
-        n_t = 0
-        for what in ("human", "scene"):
-            a = ckpt_io.flatten(getattr(tr, what))
-            b = ckpt_io.flatten(getattr(tr2, what))
-            if set(a) != set(b):
-                raise AssertionError(f"resumed {what} has other tensors")
-            for k in a:
-                n_t += 1
-                if not torch.equal(a[k], b[k]):
-                    raise AssertionError(f"resumed {what} {k} differs")
-        ckpts = sorted(os.listdir(cfg.logdir_ckpt))
-        print(f"# (d) a new trainer resumed {ckpts} in {resume_s:.1f} s "
-              f"(host clock): {n_t} tensors, parameters, moments, "
-              f"statistics and step counts, equal bit for bit")
-        del tr2
+    # (d) the checkpoint round trip: a new trainer resumes from the
+    # final checkpoint; every tensor equal bit for bit
+    cfg2 = copy.deepcopy(cfg)
+    cfg2.human.run_init = False
+    t0 = time.time()
+    tr2 = GaussianTrainer(cfg2, tr.train_dataset, tr.val_dataset,
+                          device=dev)
+    resume_s = time.time() - t0
+    n_t = 0
+    for what in ("human", "scene"):
+        a = ckpt_io.flatten(getattr(tr, what))
+        b = ckpt_io.flatten(getattr(tr2, what))
+        if set(a) != set(b):
+            raise AssertionError(f"resumed {what} has other tensors")
+        for k in a:
+            n_t += 1
+            if not torch.equal(a[k], b[k]):
+                raise AssertionError(f"resumed {what} {k} differs")
+    ckpts = sorted(os.listdir(cfg.logdir_ckpt))
+    print(f"# (d) a new trainer resumed {ckpts} in {resume_s:.1f} s "
+          f"(host clock): {n_t} tensors, parameters, moments, "
+          f"statistics and step counts, equal bit for bit")
+    del tr2
 
     # (a) K1 and K2 against plain on step 0's merged frame, K2 fed that
     # frame's d(loss)/d(raw colour) with the human pass held fixed
@@ -1610,6 +1688,348 @@ def joint_training(dev, smi, project, slot_budget, cull_counts,
         "device_idle_share": 1.0 - sum(profile[0].values()) / profile[2]
         if profile[2] else None,
         "card_vs_cpu_max_abs": worst_b, "phase_s": phase_s,
+        "logdir": cfg.logdir, "k1_after_train": k1_after,
+    }
+
+
+def evaluation(dev, smi, project, cull_counts, tile_of_pixel, kernel_times,
+               joint):
+    """Phase 3g, evaluation of phase 3f's output directory through
+    hugs_tpu_torch.evaluate.evaluate (the entry function of `python -m
+    hugs_tpu_torch.evaluate`), with main's helpers. Checks (a)-(f) of the
+    module docstring; raises if one fails; returns its numbers."""
+    import copy
+
+    from hugs_tpu_torch import evaluate as ev
+    from hugs_tpu_torch.data.cameras import get_rotating_camera
+    from hugs_tpu_torch.models import human_gs as hgs
+    from hugs_tpu_torch.render import cuda_blend
+    from hugs_tpu_torch.render.blend import gauss_features, plain_blend
+    from hugs_tpu_torch.render.oracle import LOG_TEPS, clip01
+    from hugs_tpu_torch.render.tiles import bin_gaussians
+    from hugs_tpu_torch.train.trainer import (
+        GaussianTrainer, PoseRenderer, render_poses,
+    )
+
+    t_phase = time.time()
+    logdir = joint["logdir"]
+    rec = {}
+
+    class Probed(GaussianTrainer):
+        """evaluate's trainer, which records itself, the rows and the
+        budget around compaction and rehearsal, K1's launches in each
+        stage, the animated frames and whether each overflowed."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            rec["trainer"] = self
+            self.anim_overflow = None
+
+        def _stage(self, name, fn):
+            n0 = cuda_blend.LAUNCHES
+            out = fn()
+            torch.cuda.synchronize()
+            rec[name + "_k1"] = cuda_blend.LAUNCHES - n0
+            return out
+
+        def compact_for_eval(self):
+            rec["rows_before"] = (self._h_cap, self._s_cap)
+            rec["alive"] = (int(self.human.state.alive.sum()),
+                            int(self.scene.gs.alive.sum()))
+            self._stage("compact", super().compact_for_eval)
+            rec["rows_after"] = (self._h_cap, self._s_cap)
+
+        def rehearse_budget(self, *a, **k):
+            rec["budget_before"] = self._ibudget
+            rec["budget"] = self._stage("rehearse", lambda: super(
+                Probed, self).rehearse_budget(*a, **k))
+            return rec["budget"]
+
+        def validate(self, t_iter=None):
+            return self._stage("validate", lambda: super(
+                Probed, self).validate(t_iter))
+
+        def render_frame(self, data, **kw):
+            out = super().render_frame(data, **kw)
+            if self.anim_overflow is not None:
+                self.anim_overflow.append(bool(out["overflowed"]))
+            return out
+
+        def animate(self, t_iter=None):
+            self.anim_overflow = []
+            rec["frames"] = self._stage("animate", lambda: super(
+                Probed, self).animate(t_iter))
+            rec["anim_overflow"], self.anim_overflow = self.anim_overflow, None
+            return rec["frames"]
+
+        def render_canonical(self, *a, **k):
+            rec["canon"] = self._stage("canonical", lambda: super(
+                Probed, self).render_canonical(*a, **k))
+            return rec["canon"]
+
+    # the main path: evaluate, with the counts set to 0 just before
+    times = {}
+    cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
+    t0 = time.time()
+    rc = ev.evaluate(logdir, dev, trainer_cls=Probed, times=times)
+    torch.cuda.synchronize()
+    eval_s = time.time() - t0
+    k1_n, k2_n = cuda_blend.LAUNCHES, cuda_blend.K2_LAUNCHES
+    if rc != 0:
+        raise AssertionError(f"hugs_tpu_torch.evaluate returned {rc}")
+    tr = rec["trainer"]
+    n_vals, n_anim = len(tr.val_dataset), len(tr.anim_dataset)
+    n_canon = int(tr.cfg.human.canon_nframes)
+    print(f"# evaluation: evaluate() {eval_s:.1f} s (host clock); rows "
+          f"(human, scene) {rec['rows_before']} -> {rec['rows_after']} by "
+          f"compact_for_eval, alive {rec['alive']}; rehearsed budget "
+          f"{rec['budget_before']} -> {rec['budget']} slots (training "
+          f"budget {joint['budget']}) over {n_vals} val and {n_anim} anim "
+          f"frames; K1 launches {k1_n} (rehearsal {rec['rehearse_k1']}, "
+          f"validate {rec['validate_k1']}, animate {rec['animate_k1']}, "
+          f"turntable {rec['canonical_k1']}), K2 {k2_n}")
+    stage_line = ", ".join(
+        f"{k} {v:.3f} s" for k, v in times.items())
+    print(f"# evaluation stages (host clock): {stage_line}; animate "
+          f"{times['animate'] / n_anim * 1e3:.1f} ms per frame, turntable "
+          f"{times['canonical'] / n_canon * 1e3:.1f} ms per frame  [{smi}]")
+    if n_anim != ANIM_FRAMES or k2_n != 0 \
+            or k1_n != n_vals + n_anim + n_canon:
+        raise AssertionError(f"evaluate launched K1 {k1_n} and K2 {k2_n} "
+                             f"times for {n_vals} val, {n_anim} anim "
+                             f"(expected {ANIM_FRAMES}) and {n_canon} "
+                             f"turntable frames")
+
+    # (c) compaction and rehearsal keep phase 3f's metrics
+    with open(os.path.join(logdir, "results_eval.json")) as fh:
+        metrics = json.load(fh)
+    want = joint["metrics"]
+    d_metric = {k: abs(metrics[k] - v) for k, v in want.items()}
+    print(f"# (c) results_eval.json {metrics} vs phase 3f's validate: "
+          f"|d| {d_metric}")
+    for k, d in d_metric.items():
+        bar = 1e-3 if "psnr" in k else 1e-5
+        if ("psnr" in k or "ssim" in k) and not d <= bar:
+            raise AssertionError(f"evaluation moved {k} by {d} (bar {bar})")
+
+    # (d) animate
+    frames = rec["frames"]
+    anim_dir = os.path.join(logdir, "anim", "final")
+    pngs = sorted(f for f in os.listdir(anim_dir) if f.endswith(".png"))
+    if len(pngs) != n_anim or len(frames) != n_anim:
+        raise AssertionError(f"animate wrote {len(pngs)} PNGs for "
+                             f"{n_anim} frames")
+    if rec["rehearse_k1"] != 0 or rec["animate_k1"] != n_anim:
+        raise AssertionError(f"K1 launched {rec['rehearse_k1']} times in "
+                             f"the rehearsal and {rec['animate_k1']} for "
+                             f"{n_anim} anim frames")
+    if any(rec["anim_overflow"]):
+        raise AssertionError(f"anim frames overflowed: "
+                             f"{rec['anim_overflow']}")
+    shares, moved = [], []
+    white, black = (torch.ones(3, device=dev), torch.zeros(3, device=dev))
+    for i in range(n_anim):
+        d = tr.anim_dataset[i]
+        ext = tr.ext_tfs_of(d)
+        on = [tr.render_frame(d, render_mode="human", ext_tfs=ext,
+                              bg=b)["render"] for b in (white, black)]
+        t_map = (on[0] - on[1]).mean(0)
+        shares.append(float((t_map < 0.5).float().mean()))
+        if i:
+            moved.append(float((frames[i] - frames[i - 1]).abs().max()))
+        img = frames[i]
+        if img.shape != (3, H, W) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"anim frame {i}: bad image")
+    print(f"# (d) {len(pngs)} anim PNGs, one K1 per frame, none in the "
+          f"rehearsal, no overflow; the human's share of each frame "
+          f"{[round(x, 4) for x in shares]}; max |d| between consecutive "
+          f"frames {min(moved):.3e}-{max(moved):.3e}")
+    if min(shares) <= 0.0 or min(moved) <= 0.0:
+        raise AssertionError("an anim frame shows no human or repeats the "
+                             "one before")
+
+    # (e) the turntable
+    canon = rec["canon"]
+    canon_dir = os.path.join(logdir, "canon", "final")
+    n_png = len([f for f in os.listdir(canon_dir) if f.endswith(".png")])
+    if rec["canonical_k1"] != n_canon or len(canon) != n_canon \
+            or n_png != n_canon \
+            or any(c.shape != (3, 128, 128) for c in canon):
+        raise AssertionError(f"the turntable: {len(canon)} frames, {n_png} "
+                             f"PNGs, {rec['canonical_k1']} K1 launches for "
+                             f"{n_canon}")
+    print(f"# (e) the turntable: {n_canon} frames at 128^2, {n_png} PNGs, "
+          f"one K1 each")
+
+    # (a) K1 against plain on anim frame 0's merged frame
+    d0 = tr.anim_dataset[0]
+    with torch.no_grad():
+        h_out, s_out = tr.forward_models(d0, ext_tfs=tr.ext_tfs_of(d0))
+        a = {k: torch.cat([h_out[k], s_out[k]]) for k in
+             ("xyz", "scales", "rotq", "opacity", "shs")}
+        pg0 = project(d0["camera"], a,
+                      torch.cat([h_out["alive"], s_out["alive"]]),
+                      h_out["active_sh_degree"])
+        bins0 = bin_gaussians(pg0, W, H, tr._ibudget)
+        feat0 = gauss_features(pg0)
+        bg = tr.bg_color
+        img_k, logt_k, nwalk_k, walked = cuda_blend.blend_fwd(
+            feat0, bins0.gauss_id, bins0.starts, bins0.ends, bg, W, H)
+        img_p, logt_p, pairs0 = plain_blend(feat0, bins0.gauss_id,
+                                            bins0.starts, bins0.ends, bg,
+                                            W, H)
+    counts = bins0.ends - bins0.starts
+    print(f"# anim frame 0: {int(pg0.mask.sum())} of {pg0.mask.shape[0]} "
+          f"Gaussians visible; {int(counts.sum())} instances (demand "
+          f"{int(bins0.n_instances)} before culling, max "
+          f"{int(counts.max())} per tile), K1 walked {int(walked.sum())}")
+    if bool(bins0.overflowed):
+        raise AssertionError("anim frame 0 overflowed the rehearsed budget")
+    k1_err = held("K1 raw image vs plain, anim frame 0", img_k, img_p)
+    live = logt_p >= LOG_TEPS
+    if bool(live.any()):
+        held("K1 log T vs plain, anim frame 0 (unsaturated pixels)",
+             logt_k[live], logt_p[live])
+    if bool((nwalk_k > tile_of_pixel(walked)).any()):
+        raise AssertionError("a pixel of anim frame 0 walked past its "
+                             "tile's walk")
+    d_entry = float((frames[0] - clip01(img_k)).abs().max())
+    print(f"# animate's frame 0 vs the K1 image of check (a), clipped: max "
+          f"|d| {d_entry:.3e}")
+    if d_entry > 1e-6:
+        raise AssertionError("animate's frame 0 is not what K1 gave")
+
+    # (b) anim frame 0 on the card against the same states on the CPU
+    cpu = torch.device("cpu")
+    twin = copy.copy(tr)
+    twin.device = cpu
+    twin.human = tr.human._replace(
+        params=hgs.to_device(tr.human.params, cpu),
+        state=hgs.to_device(tr.human.state, cpu), opt=None)
+    twin.scene = tr.scene._replace(gs=copy.deepcopy(tr.scene.gs).to(cpu),
+                                   opt=None)
+    twin.fixed = hgs.to_device(tr.fixed, cpu)
+    twin.bg_color = tr.bg_color.cpu()
+    twin._budget_rehearsed = False
+    ew, eh = EVAL_CPU_WH
+    d_card = dict(d0, width=ew, height=eh)
+    d_cpu = dict(d_card, camera=hgs.to_device(d0["camera"], cpu))
+    got_h, _ = tr.forward_models(d_card, ext_tfs=tr.ext_tfs_of(d_card))
+    want_h, _ = twin.forward_models(d_cpu, ext_tfs=twin.ext_tfs_of(d_cpu))
+    worst_b = {}
+    for k in ("xyz", "scales"):
+        worst_b[k] = float((got_h[k].cpu() - want_h[k]).abs().max())
+    got = tr.render_frame(d_card)
+    t0 = time.time()
+    want_img = twin.render_frame(d_cpu)
+    cpu_s = time.time() - t0
+    print(f"# (b) anim frame 0, card vs CPU: human_forward max |d| "
+          f"{worst_b} (bar {AVATAR_ATOL}); the merged frame at {ew}x{eh} "
+          f"({cpu_s:.1f} s on the CPU, host clock)")
+    if max(worst_b.values()) > AVATAR_ATOL or bool(got["overflowed"]) \
+            or bool(want_img["overflowed"]):
+        raise AssertionError("anim frame 0's human_forward differs on the "
+                             "card, or a render overflowed")
+    worst_b["image"] = held(f"anim frame 0 at {ew}x{eh}, card (K1) vs CPU "
+                            f"(plain)", got["render"],
+                            want_img["render"].to(dev))
+    del twin
+
+    # (f) the fast path on the 20 anim body poses from fps_bench_tpu.py's
+    # camera, against render_frame per pose
+    cam = get_rotating_camera(img_size=(H, W), fov=0.95, dist=3.0,
+                              nframes=2, device=dev)[0]
+    body = {"global_orient": np.zeros(3, np.float32),
+            "transl": np.zeros(3, np.float32),
+            "smpl_scale": np.float32(1.0)}
+    poses = [dict(cam, body_pose=tr.anim_dataset[i]["body_pose"],
+                  betas=tr.anim_dataset[i]["betas"]) for i in range(n_anim)]
+    cuda_blend.LAUNCHES = 0
+    fast = render_poses(tr, poses, body)
+    torch.cuda.synchronize()
+    fast_k1 = cuda_blend.LAUNCHES
+    pr = PoseRenderer(tr, body)
+    fast_budget = pr.rehearse(poses)
+    ref = []
+    for p in poses:
+        pkg = tr.render_frame(dict(body, **p), render_mode="human",
+                              bg=white, budget=max(tr._ibudget,
+                                                   fast_budget))
+        if bool(pkg["overflowed"]):
+            raise AssertionError("a render_frame of the fast path's poses "
+                                 "overflowed")
+        ref.append(pkg["render"])
+    print(f"# (f) render_poses: {n_anim} poses, budget {fast_budget}, K1 "
+          f"launches {fast_k1}")
+    if fast_k1 != n_anim:
+        raise AssertionError(f"render_poses launched K1 {fast_k1} times "
+                             f"for {n_anim} poses")
+    fast_err = held(f"render_poses vs render_frame, {n_anim} poses",
+                    torch.stack(fast), torch.stack(ref))
+    moved_f = float((fast[-1] - fast[0]).abs().max())
+    if moved_f == 0.0:
+        raise AssertionError("the fast path's poses render alike")
+    latency, stages = [], {"human_forward": [], "project": [], "bin": [],
+                           "blend": [], "frame": []}
+    with torch.no_grad():
+        for rep in range(3 + n_anim):
+            p = poses[rep % n_anim]
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            pr.render(p)
+            b.record()
+            b.synchronize()
+            if rep >= 3:
+                latency.append(a.elapsed_time(b))
+        for rep in range(3 + REPS):
+            p = poses[rep % n_anim]
+            ev_ = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            ev_[0].record()
+            ho = pr.human_forward(p)
+            ev_[1].record()
+            pgr = project(cam["camera"], ho, ho["alive"],
+                          ho["active_sh_degree"])
+            ev_[2].record()
+            br = bin_gaussians(pgr, W, H, pr.budget)
+            ev_[3].record()
+            cuda_blend.blend_tiles(pgr, br, W, H, pr.bg)
+            ev_[4].record()
+            ev_[4].synchronize()
+            if rep >= 3:
+                for k, (e0, e1) in (("human_forward", (0, 1)),
+                                    ("project", (1, 2)), ("bin", (2, 3)),
+                                    ("blend", (3, 4)), ("frame", (0, 4))):
+                    stages[k].append(ev_[e0].elapsed_time(ev_[e1]))
+        profile = device_kernels(lambda: pr.render(poses[0]))
+    stage_ms = {k: statistics.median(v) for k, v in stages.items()}
+    frame_ms = statistics.median(latency)
+    print(f"# (f) fast-path frame latency {frame_ms:.4f} ms (median of "
+          f"{n_anim}, CUDA events; {min(latency):.4f}-{max(latency):.4f}) "
+          f"= human_forward {stage_ms['human_forward']:.4f} + project "
+          f"{stage_ms['project']:.4f} + bin {stage_ms['bin']:.4f} + blend "
+          f"{stage_ms['blend']:.4f} ms (by stage {stage_ms['frame']:.4f} "
+          f"ms)  [{smi}]")
+    print_profile("fast-path frame", PROFILED, *profile, smi)
+
+    cull = cull_counts("anim frame 0", feat0, bins0, nwalk_k)
+    t = kernel_times("anim frame 0 (evaluation)", feat0, bins0, bg, None,
+                     logt_k, nwalk_k, pairs0, cull, kernels=("k1",),
+                     plain_reps=1)
+    phase_s = time.time() - t_phase
+    print(f"# phase 3g: {phase_s:.1f} s (host clock)  [{smi}]")
+    return {
+        "k1_launches": k1_n, "fast_launches": fast_k1, "k1_err": k1_err,
+        "fast_err": fast_err, "card_vs_cpu": worst_b, "times": t,
+        "cull": cull, "stage_s": times, "metrics": metrics,
+        "rows": [rec["rows_before"], rec["rows_after"]],
+        "budget": rec["budget"], "human_share": shares,
+        "instances_frame0": int(counts.sum()),
+        "fast_frame_ms": frame_ms, "fast_stage_ms": stage_ms,
+        "fast_budget": fast_budget,
+        "fast_device_kernels_per_frame": profile[1],
+        "fast_device_idle_share": 1.0 - sum(profile[0].values()) / profile[2]
+        if profile[2] else None,
+        "phase_s": phase_s,
     }
 
 
@@ -1991,44 +2411,10 @@ def main():
         return img[:H, :W]
 
     def cull_counts(frame, feat, b, n_walked):
-        """What the warp cull leaves the kernels to do on one frame, from
-        their own device cull. K2's warps cull their tile's instances up
-        to the most any of their 32 pixels walked in K1; K1's cull whole
-        chunks of 32 until every pixel of the warp has saturated. Returns
-        each kernel's culled (warp, instance) pairs and the share dropped,
-        K2's kept ones, and the (pixel, instance) pairs both kernels test:
-        the kept instances before each pixel's n_walked."""
-        rows = cuda_blend.WARP_RECT[1]
-        wpt = TILE // rows   # warps per tile
-        nw = torch.zeros((ny * TILE, nx * TILE), dtype=torch.int64,
-                         device=dev)
-        nw[:H, :W] = n_walked
-        # (tiles * wpt, 32): the n_walked of each warp's pixels
-        per_warp = nw.reshape(ny, wpt, rows, nx, TILE) \
-            .permute(0, 3, 1, 2, 4).reshape(-1, rows * TILE)
-        k2_len = per_warp.amax(1)
-        count = (b.ends - b.starts).long().repeat_interleave(wpt)
-        k1_len = torch.minimum((k2_len + 31) // 32 * 32, count)
-        seg0 = torch.cumsum(k1_len, 0) - k1_len
-        warp_of = torch.repeat_interleave(
-            torch.arange(k1_len.numel(), device=dev), k1_len)
-        offset = torch.arange(warp_of.numel(), device=dev) - seg0[warp_of]
-        t, w = warp_of // wpt, warp_of % wpt
-        gid = b.gauss_id[b.starts.long()[t] + offset]
-        keep = cuda_blend.warp_cull(
-            feat, gid, (t % nx).to(torch.int32),
-            ((t // nx) * wpt + w).to(torch.int32))
-        in_k2 = offset < k2_len[warp_of]
-        kept = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
-                          torch.cumsum(keep.long(), 0)])
-        s0 = seg0[:, None]
-        out = {"tested": int((kept[s0 + per_warp] - kept[s0]).sum()),
-               "K2_kept": int((keep & in_k2).sum())}
-        for k, n in (("K1", int(keep.numel())), ("K2", int(in_k2.sum()))):
-            kept_k = int(keep.sum()) if k == "K1" else out["K2_kept"]
-            out[k] = n
-            out[k + "_dropped"] = 1.0 - kept_k / n if n else 0.0
-            print(f"# warp cull, {frame}: {k}'s warps cull {n} (warp, "
+        """micro.warp_cull_counts on one frame, printed."""
+        out = warp_cull_counts(feat, b, n_walked, W, H)
+        for k in ("K1", "K2"):
+            print(f"# warp cull, {frame}: {k}'s warps cull {out[k]} (warp, "
                   f"instance) pairs and drop {out[k + '_dropped'] * 100:.2f}%"
                   f" of them")
         return out
@@ -2408,14 +2794,8 @@ def main():
         n_inst = int((b.ends - b.starts).sum())
         n_tiles = b.starts.shape[0]
         kept = cull["tested"]
-        # both kernels read a row of feat only through the lists: the
-        # distinct gauss_id of the valid slots [starts, ends)
-        n_slot = b.gauss_id.shape[0]
-        edge = torch.zeros(n_slot + 1, dtype=torch.int64, device=dev)
-        edge.index_add_(0, b.starts.long(), torch.ones_like(b.starts.long()))
-        edge.index_add_(0, b.ends.long(), -torch.ones_like(b.ends.long()))
-        valid = torch.cumsum(edge, 0)[:n_slot] > 0
-        n_rows = int(torch.unique(b.gauss_id[valid]).numel())
+        # both kernels read a row of feat only through the lists
+        n_rows = feat_rows_read(b)
         row_bytes = feat.shape[1] * 4
         work = {
             # the referenced rows of feat, the list, starts + ends, bg;
@@ -2496,24 +2876,30 @@ def main():
     human = human_training(dev, smi, project, slot_budget, cull_counts,
                            tile_of_pixel, kernel_times)
     ht = human["times"]
-    # ---- 3f. the joint training path through the CLI's main, after 3e
-    print(f"# phase 3f starts at {time.time() - t_start:.1f} s (host "
-          f"clock)")
-    joint = joint_training(dev, smi, project, slot_budget, cull_counts,
-                           tile_of_pixel, kernel_times)
-    jt = joint["times"]
+    with tempfile.TemporaryDirectory() as root:
+        # ---- 3f. the joint training path through the CLI's main, after 3e
+        print(f"# phase 3f starts at {time.time() - t_start:.1f} s (host "
+              f"clock)")
+        joint = joint_training(dev, smi, project, slot_budget, cull_counts,
+                               tile_of_pixel, kernel_times, root)
+        # ---- 3g. evaluation of 3f's output directory, after 3f
+        print(f"# phase 3g starts at {time.time() - t_start:.1f} s (host "
+              f"clock)")
+        evaln = evaluation(dev, smi, project, cull_counts, tile_of_pixel,
+                           kernel_times, joint)
+    jt, et = joint["times"], evaln["times"]
 
     # K1 and K2 against the rate S2 measured on the blend's mix
     at_s2 = {
         "K1": {"serving": serve_t["k1_ops"], "training": train_t["k1_ops"],
                "avatar": avatar["ops"], "human_training": ht["k1_ops"],
-               "joint_training": jt["k1_ops"]},
+               "joint_training": jt["k1_ops"], "evaluation": et["k1_ops"]},
         "K2": {"training": train_t["k2_ops"], "serving": serve_t["k2_ops"],
                "human_training": ht["k2_ops"],
                "joint_training": jt["k2_ops"]}}
     times = {"K1": {"serving": serve_t["k1"], "training": train_t["k1"],
                     "avatar": avatar["ms"], "human_training": ht["k1"],
-                    "joint_training": jt["k1"]},
+                    "joint_training": jt["k1"], "evaluation": et["k1"]},
              "K2": {"training": train_t["k2"], "serving": serve_t["k2"],
                     "human_training": ht["k2"], "joint_training": jt["k2"]}}
     for k, by_frame in at_s2.items():
@@ -2532,14 +2918,20 @@ def main():
         "source": "hugs_tpu_torch/csrc/blend_fwd.cu",
         "replaces": "hugs_tpu/render/pallas_blend.py:354",
         "launches": launches + k1_train + avatar["launches"]
-        + human["k1_launches"] + joint["k1_launches"],
+        + human["k1_launches"] + joint["k1_launches"]
+        + joint["k1_after_train"] + evaln["k1_launches"]
+        + evaln["fast_launches"],
         "launches_by_path": {"serving": launches, "training": k1_train,
                              "avatar": avatar["launches"],
                              "human_training": human["k1_launches"],
                              "joint_training": joint["k1_launches"],
+                             "joint_main_after_train":
+                                 joint["k1_after_train"],
+                             "evaluation": evaln["k1_launches"],
+                             "fast_path": evaln["fast_launches"],
                              "micro_bwd": s3_launches["K1"]},
         "max_abs_err": max(max_err, avatar["max_abs_err"], human["k1_err"],
-                           joint["k1_err"]),
+                           joint["k1_err"], evaln["k1_err"]),
         "frame": "serving (phase 2)",
         "ms": serve_t["k1"], "call_ms": serve_t["k1_call"],
         "plain_ms": serve_t["plain"], "bound_ms": serve_t["k1_bound"],
@@ -2564,12 +2956,25 @@ def main():
             "instances": joint["instances_frame0"],
             "feat_rows_read": jt["feat_rows_read"],
             "launches_per_step": joint["launches_per_step"][0]},
+        "evaluation_frame": {
+            "ms": et["k1"], "call_ms": et["k1_call"], "plain_ms": et["plain"],
+            "bound_ms": et["k1_bound"], "bound_by": et["k1_bound_by"],
+            "yardstick_bound_ms": et["k1_yardstick"],
+            "instances": evaln["instances_frame0"],
+            "feat_rows_read": et["feat_rows_read"],
+            "budget": evaln["budget"], "stage_s": evaln["stage_s"],
+            "fast_frame_ms": evaln["fast_frame_ms"],
+            "fast_stage_ms": evaln["fast_stage_ms"],
+            "fast_device_kernels_per_frame":
+                evaln["fast_device_kernels_per_frame"],
+            "fast_device_idle_share": evaln["fast_device_idle_share"]},
         "ms_at_s2_blendmix_rate": at_s2["K1"],
         "cull_dropped_share": {"serving": cull_serve["K1_dropped"],
                                "training": cull_train["K1_dropped"],
                                "avatar": avatar["cull_dropped_share"],
                                "human_training": human["cull"]["K1_dropped"],
-                               "joint_training": joint["cull"]["K1_dropped"]},
+                               "joint_training": joint["cull"]["K1_dropped"],
+                               "evaluation": evaln["cull"]["K1_dropped"]},
         **resources["K1"],
         "held_to": "plain_blend", "ok": True,
     }, {

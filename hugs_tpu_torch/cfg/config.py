@@ -14,9 +14,8 @@ What the port reads differently, by decision:
     their plain versions on the CPU; neither truncates a tile, so there is
     no backend to choose and no cap to set.
   - `check_supported` refuses what the port does not run yet:
-    `train.batch_size` > 1 and `tpu.gauss_shard` > 0 (the scale-out slice,
-    ROADMAP Slice G) and `train.save_progress_images` (the progress strip
-    and its video come with utils/vis.py, a later slice).
+    `train.batch_size` > 1, `train.anim_batch_size` > 1 and
+    `tpu.gauss_shard` > 0 (the scale-out slice, ROADMAP Slice G).
 """
 from __future__ import annotations
 
@@ -212,10 +211,10 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError(
             "tpu.gauss_shard (the Gaussian-sharded renderer) comes with the "
             "scale-out slice (ROADMAP Slice G)")
-    if cfg.train.get("save_progress_images", False):
+    if int(cfg.train.get("anim_batch_size", 1) or 1) > 1:
         raise NotImplementedError(
-            "train.save_progress_images (the progress strip and its video) "
-            "comes with utils/vis.py (ROADMAP Slice F)")
+            "train.anim_batch_size > 1 (the batched and sharded animate) "
+            "comes with the scale-out slice (ROADMAP Slice G)")
 
 
 def load_config(path: str | None = None,

@@ -8,7 +8,9 @@ lists as numpy arrays, so this module
 imports nothing of the JAX package. The port's render of a converted
 scene or avatar equals the JAX package's render of the original, and a
 converted joint training state (`joint_state_from_numpy`) trains on as
-the original does.
+the original does. `save_checkpoint_from_numpy` writes such a state in
+the port's checkpoint layout, so that a run trained by the JAX package
+resumes, evaluates and serves in the port.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from hugs_tpu_torch.models.smpl import (
     TENSOR_FIELDS, SMPLModel, make_smpl_model,
 )
 from hugs_tpu_torch.render.camera import Camera
+from hugs_tpu_torch.train import checkpoint as ckpt_io
 from hugs_tpu_torch.train.human_step import HumanTrainState
 from hugs_tpu_torch.train.joint_step import JointTrainState
 from hugs_tpu_torch.train.optim import GroupAdamState
@@ -174,6 +177,20 @@ def joint_state_from_numpy(human: dict, scene: dict,
             opt=opt(human["opt"], human_params_of(params))),
         scene=SceneTrainState(gs=gs, opt=opt(scene["opt"],
                                              scene_params_of(gs))))
+
+
+def save_checkpoint_from_numpy(ckpt_dir: str, iter_s: str, human: dict,
+                               scene: dict,
+                               device: torch.device | str = "cpu"
+                               ) -> JointTrainState:
+    """Writes a JAX JointTrainState given as numpy (joint_state_from_numpy's
+    `human` and `scene`: a restored hugs_tpu checkpoint's train states)
+    as the port's checkpoints human_{iter_s} and scene_{iter_s} under
+    ckpt_dir, which GaussianTrainer.load_latest_ckpt restores. Returns
+    the converted state."""
+    js = joint_state_from_numpy(human, scene, device)
+    ckpt_io.save(ckpt_dir, iter_s, human=js.human, scene=js.scene)
+    return js
 
 
 def lpips_from_numpy(conv_weights, conv_biases, lin_weights,

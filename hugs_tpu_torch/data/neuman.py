@@ -16,8 +16,14 @@ frame's SMPL parameters in numpy. Also the train / val / test split rule
 (every 5th offset frame, half test and half val, neuman.py:47-59), the
 scene point cloud with the optional background sphere (neuman.py:
 246-273) and the camera-extent radius of densification. Images are read
-with utils/png.py. The anim split (AMASS mocap, neuman.py:62-180) comes
-with the animation slice and raises here.
+with utils/png.py.
+
+The anim split (neuman.py:62-180): an AMASS motion clip per sequence
+(SMPL-H poses cut to SMPL's joints), read from `amass_root` (default
+{root}/..), with the sequence's manual alignment into the scene and
+cameras on an ellipse or a slide about one capture. Its items have no
+'rgb', 'mask' or 'bbox'; they carry 'manual_trans', 'manual_rotmat' and
+'manual_scale' instead.
 """
 from __future__ import annotations
 
@@ -32,6 +38,57 @@ from hugs_tpu_torch.data.cameras import _camera_from_w2c
 from hugs_tpu_torch.data.colmap import read_colmap_scene
 from hugs_tpu_torch.ops.graphics import focal2fov
 from hugs_tpu_torch.utils.png import read_png
+
+# AMASS SMPL-H -> SMPL joint subset (reference hugs/cfg/constants.py:11-16)
+AMASS_SMPLH_TO_SMPL_JOINTS = np.arange(0, 156).reshape(-1, 3)[[
+    0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18,
+    19, 20, 21, 22, 37]].reshape(-1)
+
+# each sequence's mocap clip: (path under amass_root, start, stop, step)
+# (reference neuman.py:62-86)
+MOCAP_PATHS = {
+    "seattle": ("SFU/0005/0005_SideSkip001_poses.npz", 0, 800, 4),
+    "citron": ("MPI_mosh/00093/irish_dance_poses.npz", 0, 1000, 4),
+    "parkinglot": ("SFU/0005/0005_2FeetJump001_poses.npz", 0, 1200, 4),
+    "bike": ("MPI_mosh/50002/misc_poses.npz", 0, 250, 1),
+    "jogging": ("SFU/0007/0007_Cartwheel001_poses.npz", 200, 1000, 8),
+    "lab": ("SFU/0008/0008_ChaCha001_poses.npz", 0, 1000, 4),
+}
+
+# the manual scene <- mocap alignment: (translation, XYZ euler degrees,
+# scale) (reference neuman.py:89-118)
+ALIGNMENTS = {
+    "seattle": ([-2.25, 1.08, 8.18], [90.4, -4.2, -1], 1.8),
+    "citron": ([6.33, 1.7, 10.7], [72.4, 168.2, -4.4], 2.5),
+    "parkinglot": ([-0.8, 2.35, 12.67], [94, -85, -363], 3.0),
+    "bike": ([0.0, 0.88, 3.89], [88.8, 180, 1.8], 1.0),
+    "jogging": ([0.0, 0.24, 0.33], [95.8, -1.2, -2.2], 0.25),
+    "lab": ([5.76, 3.03, 11.69], [90.4, -4.2, -1.8], 3.0),
+}
+
+# the anim cameras: (capture index, kind, parameters) (reference
+# rendering_caps, neuman.py:121-180)
+ANIM_CAMS = {
+    "seattle": (20, "ellipse", dict(a=1.5, b=0.05, laps=1, x0=0.0, fwd=0.0)),
+    "citron": (33, "ellipse", dict(a=0.45, b=0.09, laps=2, x0=0.2, fwd=0.0)),
+    "parkinglot": (23, "ellipse", dict(a=1.5, b=0.15, laps=2, x0=0.2,
+                                       fwd=0.0)),
+    "bike": (25, "slide", dict(interval=0.01)),
+    "jogging": (67, "slide", dict(interval=-0.01)),
+    "lab": (39, "ellipse", dict(a=1.5, b=0.03, laps=1, x0=0.0, fwd=0.2)),
+}
+
+
+def euler_matrix(ax, ay, az) -> np.ndarray:
+    """Rotation of XYZ euler angles in radians, Rz Ry Rx (the 'sxyz'
+    convention of transformations.euler_matrix), float32."""
+    cx, sx = math.cos(ax), math.sin(ax)
+    cy, sy = math.cos(ay), math.sin(ay)
+    cz, sz = math.cos(az), math.sin(az)
+    Rx = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+    Ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+    Rz = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+    return (Rz @ Ry @ Rx).astype(np.float32)
 
 
 def get_data_splits(n_frames: int):
@@ -114,12 +171,8 @@ class NeumanDataset:
                  render_mode: str = "human_scene",
                  add_bg_points: bool = False, num_bg_points: int = 204_800,
                  bg_sphere_dist: float = 5.0, clean_pcd: bool = False,
-                 cache: bool = True,
+                 amass_root: str | None = None, cache: bool = True,
                  device: torch.device | str = "cuda"):
-        if split == "anim":
-            raise NotImplementedError(
-                "the anim split (AMASS mocap) comes with the animation "
-                "slice (ROADMAP Slice F)")
         self.seq = seq
         self.split = split
         self.render_mode = render_mode
@@ -170,10 +223,62 @@ class NeumanDataset:
         c2w_pos = np.stack([-im.R.T @ im.t for im in scene.images])
         self.radius = camera_extent(c2w_pos)
 
-        tr, va, te = get_data_splits(n)
-        self.indices = {"train": tr, "val": va, "test": te}[split]
+        if split == "anim":
+            self._setup_anim(amass_root or os.path.join(root, ".."))
+        else:
+            tr, va, te = get_data_splits(n)
+            self.indices = {"train": tr, "val": va, "test": te}[split]
         self.cached_data = ([self.get_single_item(i)
                              for i in range(len(self))] if cache else None)
+
+    # ------------------------------------------------------------- anim
+
+    def _setup_anim(self, amass_root: str):
+        rel, s0, s1, skip = MOCAP_PATHS[self.seq]
+        motions = np.load(os.path.join(amass_root, rel))
+        poses = motions["poses"][s0:s1:skip][:, AMASS_SMPLH_TO_SMPL_JOINTS]
+        transl = motions["trans"][s0:s1:skip]
+        nf = poses.shape[0]
+        betas = self.smpl_params["betas"][0]
+        self.smpl_params = {
+            "global_orient": poses[:, :3].astype(np.float32),
+            "body_pose": poses[:, 3:].astype(np.float32),
+            "transl": transl.astype(np.float32),
+            "scale": np.ones(nf, np.float32),
+            "betas": np.tile(betas[None], (nf, 1)),
+        }
+        tr, rot_deg, sc = ALIGNMENTS[self.seq]
+        self.manual_trans = np.asarray(tr, np.float32)
+        self.manual_rotmat = euler_matrix(*(np.asarray(rot_deg) / 180 * np.pi))
+        self.manual_scale = np.float32(sc)
+        self.anim_frames = nf
+        base_idx, kind, prm = ANIM_CAMS[self.seq]
+        self.anim_caps = self._make_anim_caps(base_idx, kind, prm, nf)
+        self.indices = list(range(nf))
+
+    def _make_anim_caps(self, base_idx, kind, prm, nf):
+        """nf cameras with capture base_idx's rotation (the last capture
+        where the sequence has fewer), moved along an ellipse in its
+        right / up plane or slid along its right axis."""
+        base_idx = min(base_idx, len(self.colmap.images) - 1)
+        base = self.colmap.images[base_idx]
+        c2w_R = base.R.T
+        right, up, forward = c2w_R[:, 0], c2w_R[:, 1], c2w_R[:, 2]
+        pos0 = -base.R.T @ base.t
+        caps = []
+        for i in range(nf):
+            pos = pos0.copy()
+            if kind == "ellipse":
+                ang = prm["laps"] * i / nf * 2 * np.pi
+                pos = pos + right * (prm["a"] * np.cos(ang) + prm["x0"]) \
+                    + up * (prm["b"] * np.sin(ang)) + forward * prm["fwd"]
+            else:  # slide
+                pos = pos + right * prm["interval"] * i
+            t = -base.R @ pos
+            caps.append((base.R, t.astype(np.float32), base.camera_id))
+        return caps
+
+    # ------------------------------------------------------------ items
 
     def __len__(self):
         return len(self.indices)
@@ -192,7 +297,29 @@ class NeumanDataset:
 
     def get_single_item(self, i: int) -> dict[str, Any]:
         idx = self.indices[i]
-        im = self.colmap.images[idx]
+        if self.split == "anim":
+            R, t, cam_id = self.anim_caps[idx]
+            datum = {"manual_rotmat": self.manual_rotmat,
+                     "manual_trans": self.manual_trans,
+                     "manual_scale": self.manual_scale}
+        else:
+            im = self.colmap.images[idx]
+            R, t, cam_id = im.R, im.t, im.camera_id
+            datum = self._capture(idx)
+        cam, w, h, fovx, fovy = self._camera_of(R, t, cam_id)
+        datum.update({
+            "camera": cam, "width": w, "height": h,
+            "fovx": fovx, "fovy": fovy, "near": 0.01, "far": 100.0,
+            "betas": self.smpl_params["betas"][idx],
+            "global_orient": self.smpl_params["global_orient"][idx],
+            "body_pose": self.smpl_params["body_pose"][idx],
+            "transl": self.smpl_params["transl"][idx],
+            "smpl_scale": self.smpl_params["scale"][idx],
+        })
+        return datum
+
+    def _capture(self, idx: int) -> dict[str, Any]:
+        """Capture idx's image, human mask and the mask's box."""
         rgb = _load_image(self.img_files[idx])[..., :3]
         if self.msk_files:
             msk = _load_image(self.msk_files[idx])
@@ -212,19 +339,11 @@ class NeumanDataset:
         else:
             ymin = xmin = 0
             ymax, xmax = msk.shape[1] - 1, msk.shape[0] - 1
-        cam, w, h, fovx, fovy = self._camera_of(im.R, im.t, im.camera_id)
         return {
             "rgb": torch.as_tensor(np.ascontiguousarray(rgb.transpose(2, 0, 1)),
                                    device=self.device),
             "mask": torch.as_tensor(msk, device=self.device),
             "bbox": np.array([xmin, ymin, xmax, ymax], np.float32),
-            "camera": cam, "width": w, "height": h,
-            "fovx": fovx, "fovy": fovy, "near": 0.01, "far": 100.0,
-            "betas": self.smpl_params["betas"][idx],
-            "global_orient": self.smpl_params["global_orient"][idx],
-            "body_pose": self.smpl_params["body_pose"][idx],
-            "transl": self.smpl_params["transl"][idx],
-            "smpl_scale": self.smpl_params["scale"][idx],
         }
 
     def __getitem__(self, i):

@@ -6,12 +6,12 @@ main.py):
 
 Merges the defaults, the YAML file and the dotted overrides, expands
 list-valued leaves into a grid of configurations (--cfg_id picks one),
-and for each: makes the logdir tree, loads the NeuMan train and val
-splits, trains, writes results_train.json and the final checkpoint,
-validates and writes results_eval.json. The device defaults to cuda; a
-run on the CPU must ask for it. animate and render_canonical, which the
-JAX package's main.py runs after validation, come with the animation
-slice and are not run here.
+and for each: makes the logdir tree, loads the NeuMan train, val and
+anim splits (the anim split where its AMASS clip exists), trains, writes
+results_train.json and the final checkpoint, validates and writes
+results_eval.json, animates the anim split into logdir/anim and renders
+the canonical avatar's turntable into logdir/canon (reference main.py:
+24-108). The device defaults to cuda; a run on the CPU must ask for it.
 """
 from __future__ import annotations
 
@@ -32,18 +32,20 @@ def setup_logdir(cfg):
     cfg.logdir = os.path.join(cfg.output_path, cfg.dataset.name,
                               str(cfg.dataset.seq), cfg.exp_name)
     cfg.logdir_ckpt = os.path.join(cfg.logdir, "ckpt")
-    for sub in ("", "ckpt", "train", "val", "meshes"):
+    for sub in ("", "ckpt", "train", "val", "anim", "meshes", "canon"):
         os.makedirs(os.path.join(cfg.logdir, sub), exist_ok=True)
     with open(os.path.join(cfg.logdir, "config_train.yaml"), "w") as f:
         f.write(cfg.to_yaml())
 
 
 def build_datasets(cfg, device):
-    """(train, val) NeuMan splits, None where the sequence is missing."""
+    """(train, val, anim) NeuMan splits, None where the sequence is
+    missing; anim is None where its AMASS clip is missing or the
+    sequence has none."""
     root = cfg.dataset_path or "data/neuman/dataset"
     if cfg.dataset.name != "neuman" or not os.path.isdir(
             os.path.join(root, str(cfg.dataset.seq))):
-        return None, None
+        return None, None, None
     train_ds = None
     if not cfg.eval:
         train_ds = NeumanDataset(
@@ -54,19 +56,24 @@ def build_datasets(cfg, device):
             clean_pcd=cfg.scene.clean_pcd, device=device)
     val_ds = NeumanDataset(root, cfg.dataset.seq, "val",
                            render_mode=cfg.mode, device=device)
-    return train_ds, val_ds
+    try:
+        anim_ds = NeumanDataset(root, cfg.dataset.seq, "anim",
+                                render_mode=cfg.mode, device=device)
+    except (FileNotFoundError, KeyError):
+        anim_ds = None
+    return train_ds, val_ds, anim_ds
 
 
 def main(cfg, device: torch.device | str = "cuda") -> int:
     np.random.seed(cfg.seed)
     setup_logdir(cfg)
-    train_ds, val_ds = build_datasets(cfg, device)
+    train_ds, val_ds, anim_ds = build_datasets(cfg, device)
     if train_ds is None and not cfg.eval:
         print(f"ERROR: dataset not found under "
               f"{cfg.dataset_path or 'data/neuman/dataset'}: prepare the "
               f"NeuMan data first", file=sys.stderr)
         return 1
-    trainer = GaussianTrainer(cfg, train_ds, val_ds, device=device)
+    trainer = GaussianTrainer(cfg, train_ds, val_ds, anim_ds, device=device)
     if not cfg.eval:
         log = trainer.train()
         with open(os.path.join(cfg.logdir, "results_train.json"), "w") as f:
@@ -77,6 +84,10 @@ def main(cfg, device: torch.device | str = "cuda") -> int:
         with open(os.path.join(cfg.logdir, "results_eval.json"), "w") as f:
             json.dump(metrics, f, indent=2)
         print(json.dumps(metrics, indent=2))
+    if anim_ds is not None:
+        trainer.animate()
+    if cfg.mode in ("human", "human_scene"):
+        trainer.render_canonical(nframes=cfg.human.canon_nframes)
     return 0
 
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -46,6 +47,87 @@ def device_ms(fn, reps: int = 20, inner: int = 1, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
+
+
+def device_kernels(fn, reps: int = 5):
+    """From torch.profiler's CUDA trace of `reps` calls of fn: device time
+    by kernel name (us per call), device kernels per call, and the span
+    per call from the first kernel's start to the last one's end (us)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    # device activity only: tracing host ops would slow the host, which
+    # sets the span
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name, n, first, last = {}, 0, math.inf, -math.inf
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.elapsed_us() / reps
+            by_name[e.name] = by_name.get(e.name, 0.0) + us
+            n += 1
+            first = min(first, e.time_range.start)
+            last = max(last, e.time_range.end)
+    return by_name, n / reps, (last - first) / reps if n else 0.0
+
+
+def warp_cull_counts(feat, bins, n_walked, width: int, height: int) -> dict:
+    """What the warp cull leaves K1 and K2 to do on one frame, from their
+    own device cull (render/cuda_blend.py::warp_cull). K2's warps cull
+    their tile's instances up to the most any of their 32 pixels walked
+    in K1; K1's cull whole chunks of 32 until every pixel of the warp has
+    saturated. Returns each kernel's culled (warp, instance) pairs ("K1",
+    "K2") and the share dropped ("K1_dropped", "K2_dropped"), K2's kept
+    ones ("K2_kept"), and the (pixel, instance) pairs both kernels test:
+    the kept instances before each pixel's n_walked ("tested")."""
+    from hugs_tpu_torch.render import cuda_blend
+    from hugs_tpu_torch.render.tiles import TILE, tile_grid
+    dev = feat.device
+    nx, ny = tile_grid(width, height, TILE)
+    rows = cuda_blend.WARP_RECT[1]
+    wpt = TILE // rows   # warps per tile
+    nw = torch.zeros((ny * TILE, nx * TILE), dtype=torch.int64, device=dev)
+    nw[:height, :width] = n_walked
+    # (tiles * wpt, 32): the n_walked of each warp's pixels
+    per_warp = nw.reshape(ny, wpt, rows, nx, TILE) \
+        .permute(0, 3, 1, 2, 4).reshape(-1, rows * TILE)
+    k2_len = per_warp.amax(1)
+    count = (bins.ends - bins.starts).long().repeat_interleave(wpt)
+    k1_len = torch.minimum((k2_len + 31) // 32 * 32, count)
+    seg0 = torch.cumsum(k1_len, 0) - k1_len
+    warp_of = torch.repeat_interleave(
+        torch.arange(k1_len.numel(), device=dev), k1_len)
+    offset = torch.arange(warp_of.numel(), device=dev) - seg0[warp_of]
+    t, w = warp_of // wpt, warp_of % wpt
+    gid = bins.gauss_id[bins.starts.long()[t] + offset]
+    keep = cuda_blend.warp_cull(feat, gid, (t % nx).to(torch.int32),
+                                ((t // nx) * wpt + w).to(torch.int32))
+    in_k2 = offset < k2_len[warp_of]
+    kept = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                      torch.cumsum(keep.long(), 0)])
+    s0 = seg0[:, None]
+    out = {"tested": int((kept[s0 + per_warp] - kept[s0]).sum()),
+           "K2_kept": int((keep & in_k2).sum())}
+    for k, n in (("K1", int(keep.numel())), ("K2", int(in_k2.sum()))):
+        kept_k = int(keep.sum()) if k == "K1" else out["K2_kept"]
+        out[k] = n
+        out[k + "_dropped"] = 1.0 - kept_k / n if n else 0.0
+    return out
+
+
+def feat_rows_read(bins) -> int:
+    """The rows of feat that K1 and K2 read: the distinct gauss_id of the
+    valid slots [starts, ends) of each tile."""
+    n_slot = bins.gauss_id.shape[0]
+    starts, ends = bins.starts.long(), bins.ends.long()
+    edge = torch.zeros(n_slot + 1, dtype=torch.int64,
+                       device=bins.gauss_id.device)
+    edge.index_add_(0, starts, torch.ones_like(starts))
+    edge.index_add_(0, ends, -torch.ones_like(ends))
+    valid = torch.cumsum(edge, 0)[:n_slot] > 0
+    return int(torch.unique(bins.gauss_id[valid]).numel())
 
 
 def card() -> str:

@@ -43,6 +43,7 @@ def render(
     instance_budget: int | None = None,
     gauss_mesh=None,
     gauss_frag_cap: int | None = None,
+    bin_only: bool = False,
 ) -> dict[str, Any]:
     """Render one view. Returns a dict with 'render' (3, H, W), 'radii'
     (N,), 'visibility_filter' (N,) bool, and the binning diagnostics
@@ -51,6 +52,8 @@ def render(
     mean2d_grad_hook: an (N, 2) zero tensor added to the projected means;
     d(loss)/d(hook) is the pixel-space mean2d gradient.
     instance_budget: the binning's slot budget (default max(4N, 65536)).
+    bin_only: stop after the binning (the 'tiled' backend): the dict has
+    no 'render' and no blend kernel is launched; a slot-demand probe.
     gauss_mesh / gauss_frag_cap: the Gaussian-sharded renderer, not
     ported yet."""
     if gauss_mesh is not None or gauss_frag_cap is not None:
@@ -73,21 +76,24 @@ def render(
     elif backend == "tiled":
         budget = instance_budget or max(4 * means3d.shape[0], 1 << 16)
         bins = bin_gaussians(pg, width, height, budget, TILE)
-        img = cuda_blend.blend_tiles(pg, bins, width, height, bg)
+        img = None if bin_only else cuda_blend.blend_tiles(
+            pg, bins, width, height, bg)
         overflowed = bins.overflowed
         n_instances = bins.n_instances
         n_slots = bins.n_slots
     else:
         raise ValueError(f"unknown backend: {backend}")
 
-    return {
-        "render": img,
+    out = {
         "radii": pg.radius,
         "visibility_filter": pg.mask & (pg.radius > 0),
         "overflowed": overflowed,
         "n_instances": n_instances,
         "n_slots": n_slots,
     }
+    if img is not None:
+        out["render"] = img
+    return out
 
 
 def render_human_scene(

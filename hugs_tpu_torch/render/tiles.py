@@ -48,11 +48,13 @@ def tile_grid(width: int, height: int, tile=TILE) -> tuple[int, int]:
     return (-(-width // tw), -(-height // th))
 
 
-def _floor_index(x: torch.Tensor, hi: int) -> torch.Tensor:
-    """floor(x) as int32, clipped to [0, hi]; clamped in float first so
-    that off-screen coordinates convert without overflow."""
-    return torch.clamp(torch.floor(x), -1.0, hi + 1.0).to(torch.int32) \
-        .clamp(0, hi)
+def _floor_index(x: torch.Tensor, hi: int, add: int = 0) -> torch.Tensor:
+    """floor(x) + add as int32, clipped to [0, hi]; clamped in float first
+    so that off-screen coordinates convert without overflow. The end of
+    a span adds 1 before the clip, so that a span wholly left of or above
+    the image is empty."""
+    return (torch.clamp(torch.floor(x), -1.0, hi + 1.0).to(torch.int32)
+            + add).clamp(0, hi)
 
 
 def tile_spans(pg, width: int, height: int, tile=TILE):
@@ -85,8 +87,8 @@ def tile_spans(pg, width: int, height: int, tile=TILE):
     mask = pg.mask & (opr >= MIN_ALPHA)
     tx0 = _floor_index((mxr - rx) / tw, nx)
     ty0 = _floor_index((myr - ry) / th, ny)
-    tx1 = torch.clamp(_floor_index((mxr + rx) / tw, nx) + 1, 0, nx)
-    ty1 = torch.clamp(_floor_index((myr + ry) / th, ny) + 1, 0, ny)
+    tx1 = _floor_index((mxr + rx) / tw, nx, add=1)
+    ty1 = _floor_index((myr + ry) / th, ny, add=1)
     w = torch.where(mask, tx1 - tx0, 0)
     h = torch.where(mask, ty1 - ty0, 0)
     return tx0, ty0, w, h, nx, ny
@@ -165,8 +167,12 @@ def bin_gaussians(pg, width: int, height: int, budget: int, tile=TILE,
     total = ends_g[-1] if n else torch.zeros((), dtype=torch.int64,
                                              device=dev)
 
-    # instance s belongs to the Gaussian whose run [offset, end) holds s
-    slot = torch.arange(budget, dtype=torch.int64, device=dev)
+    # instance s belongs to the Gaussian whose run [offset, end) holds s.
+    # Slots past the demand hold nothing: on the CPU, where reading the
+    # demand costs no synchronisation, only those up to it are made; on
+    # the card the whole budget, so that no shape waits for the host
+    n_slot = budget if dev.type != "cpu" else min(budget, int(total))
+    slot = torch.arange(n_slot, dtype=torch.int64, device=dev)
     gid = torch.searchsorted(ends_g, slot, right=True).clamp(max=max(n - 1, 0))
     keep = slot < total
     rank = slot - offsets[gid]

@@ -9,6 +9,14 @@ with a retry of a step that overflowed it, the densify / opacity reset /
 SH ramp / checkpoint / validation cadence, and the evaluation metrics
 (PSNR, SSIM and LPIPS of the whole frame and of the human's box).
 
+The serving half: animate (the anim split's AMASS motion, aligned into
+the scene by the split's manual transform), render_canonical (the
+rotating-camera turntable of the canonical avatar), the iteration-0 and
+anim_interval dumps (scene and human PLYs, the turntable, the
+animation), the progress strip and its video, compact_for_eval and
+rehearse_budget (a binning-only probe of the val and anim frames that
+sizes the instance budget), and render_poses, the inference fast path.
+
 Random draws: the frame order is np.random.RandomState(cfg.seed)'s, so
 the port visits frames in the JAX package's order; every other draw
 (the per-step backgrounds, the loss's LPIPS background and patches, the
@@ -20,16 +28,17 @@ the JAX package does) is rendered again at the grown budget before
 anything is updated: the forward is a separate stage from the update,
 so no copy of the states is needed for the retry.
 
-Not here yet: train.batch_size > 1 and the Gaussian-sharded renders
-(the scale-out slice; cfg.check_supported refuses them), the progress
-strip, the iteration-0 dumps, animate and render_canonical (the
-animation slice).
+Not here yet: train.batch_size > 1, train.anim_batch_size > 1 and the
+Gaussian-sharded renders (the scale-out slice; cfg.check_supported
+refuses them).
 """
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import time
+import traceback
 from typing import Any
 
 import numpy as np
@@ -48,8 +57,12 @@ from hugs_tpu_torch.train import checkpoint as ckpt_io
 from hugs_tpu_torch.train import human_step as hst
 from hugs_tpu_torch.train import joint_step as jst
 from hugs_tpu_torch.train import scene_step as sst
-from hugs_tpu_torch.utils.image import save_image_grid
+from hugs_tpu_torch.utils.image import create_video, save_image_grid, save_png
 from hugs_tpu_torch.utils.ply import save_gaussian_ply
+
+# the pkg keys a binning-only render gives: render_frame stops after the
+# binning when `outputs` asks for these alone
+BIN_OUTPUTS = frozenset({"n_slots", "overflowed", "n_instances"})
 
 
 def _budget_bucket(needed: int) -> int:
@@ -63,12 +76,14 @@ def _budget_bucket(needed: int) -> int:
 
 class GaussianTrainer:
     def __init__(self, cfg: Config, train_dataset=None, val_dataset=None,
-                 smpl_model=None, device: torch.device | str = "cuda"):
+                 anim_dataset=None, smpl_model=None,
+                 device: torch.device | str = "cuda"):
         check_supported(cfg)
         self.cfg = cfg
         self.device = dev = torch.device(device)
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
+        self.anim_dataset = anim_dataset
         self.eval_metrics: dict[str, Any] = {}
         self.rng = np.random.RandomState(cfg.seed)
         self.gen = torch.Generator(device=dev).manual_seed(int(cfg.seed))
@@ -237,6 +252,7 @@ class GaussianTrainer:
                           f"{t_iter}: raise tpu.instance_budget (dropped "
                           f"Gaussian instances degrade quality)")
             self._periodic(t_iter, aux, data)
+        self._finish_progress_video()
         # the final checkpoint: the interval ones miss the last steps
         if cfg.logdir and cfg.train.num_steps % \
                 cfg.train.save_ckpt_interval != 0:
@@ -407,26 +423,59 @@ class GaussianTrainer:
 
     def _periodic(self, t_iter: int, aux: dict, data=None):
         """The SH one-up every 1000 steps; with a logdir, the train-view
-        dump every 1000, the checkpoint and validation at their
-        intervals."""
+        dump every 1000, the progress strip, the checkpoint and
+        validation at their intervals, the iteration-0 dumps and, every
+        anim_interval, the human PLY, animate and the turntable. The
+        progress strip and the two dump hooks are observability: an
+        error there is printed as a warning and training goes on."""
         cfg = self.cfg
         if t_iter % 1000 == 0 and t_iter > 0:
             if self.human is not None:
                 hgs.one_up_sh_degree(self.human.state, cfg.human.sh_degree)
             if self.scene is not None:
                 sgs.one_up_sh_degree(self.scene.gs, cfg.scene.sh_degree)
-        if not cfg.logdir or t_iter == 0:
+        if not cfg.logdir:
             return
-        if t_iter % 1000 == 0 and data is not None:
+        has_human = cfg.mode in ("human", "human_scene") \
+            and self.human is not None
+        if t_iter > 0 and t_iter % 1000 == 0 and data is not None:
             # the train view, target beside render (gs_trainer.py:307-314)
             pkg = self.render_frame(data)
             save_image_grid([data["rgb"], pkg["render"]],
                             f"{cfg.logdir}/train/{t_iter:06d}.png")
-        if t_iter % cfg.train.save_ckpt_interval == 0:
+        if cfg.train.save_progress_images and t_iter > 0 and has_human \
+                and t_iter % cfg.train.progress_save_interval == 0:
+            self._observe(f"progress image({t_iter})",
+                          lambda: self._save_progress_frame(t_iter))
+        if t_iter > 0 and t_iter % cfg.train.save_ckpt_interval == 0:
             self.save_ckpt(t_iter)
-        if t_iter % cfg.train.val_interval == 0 \
+        if t_iter > 0 and t_iter % cfg.train.val_interval == 0 \
                 and self.val_dataset is not None:
             self.validate(t_iter)
+        if t_iter == 0:
+            self._observe("iter-0 dumps", self._iter0_dumps)
+        anim_every = int(cfg.train.get("anim_interval", 0) or 0)
+        if t_iter > 0 and anim_every > 0 and t_iter % anim_every == 0:
+            def anim_dumps():
+                # reference gs_trainer.py:371-378
+                self._save_human_ply(t_iter)
+                if self.anim_dataset is not None:
+                    self.animate(t_iter)
+                if has_human:
+                    self.render_canonical(t_iter,
+                                          nframes=cfg.human.canon_nframes)
+            self._observe(f"animate({t_iter})", anim_dumps)
+
+    @staticmethod
+    def _observe(what: str, fn):
+        """Runs an observability hook; an error is printed as a warning,
+        its traceback to stderr, so that a long run survives it."""
+        try:
+            fn()
+        except Exception as e:          # noqa: BLE001
+            traceback.print_exc()
+            print(f"WARNING: {what} failed (continuing training): "
+                  f"{type(e).__name__}: {e}")
 
     def _log_jsonl(self, rec: dict):
         """One record appended to logdir/metrics.jsonl."""
@@ -437,57 +486,89 @@ class GaussianTrainer:
 
     # --------------------------------------------------------- rendering
 
+    def _tensor(self, x, default) -> torch.Tensor:
+        """A frame's field as a float32 tensor on the device: a tensor
+        moved there, anything else through numpy; `default` where the
+        frame lacks it."""
+        x = default if x is None else x
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device, torch.float32)
+        return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+
     def _pose_kw(self, data) -> dict:
         """The frame's SMPL parameters as tensors on the device."""
-        dev = self.device
         z3 = np.zeros(3, np.float32)
         return dict(
-            global_orient=torch.as_tensor(
-                np.asarray(data.get("global_orient", z3), np.float32),
-                device=dev),
-            body_pose=torch.as_tensor(np.asarray(
-                data.get("body_pose", np.zeros(69)), np.float32), device=dev),
-            betas=torch.as_tensor(np.asarray(
-                data.get("betas", np.zeros(10)), np.float32), device=dev),
-            transl=torch.as_tensor(np.asarray(data.get("transl", z3),
-                                              np.float32), device=dev),
-            smpl_scale=torch.as_tensor(
-                np.asarray(data.get("smpl_scale", 1.0), np.float32),
-                device=dev).reshape(()))
+            global_orient=self._tensor(data.get("global_orient"), z3),
+            body_pose=self._tensor(data.get("body_pose"), np.zeros(69)),
+            betas=self._tensor(data.get("betas"), np.zeros(10)),
+            transl=self._tensor(data.get("transl"), z3))
+
+    def _scale(self, data) -> torch.Tensor:
+        return self._tensor(data.get("smpl_scale"), 1.0).reshape(())
+
+    def ext_tfs_of(self, data):
+        """The anim split's alignment of a frame, (manual_trans,
+        manual_rotmat, manual_scale) as tensors on the device; None for a
+        frame without one."""
+        if "manual_trans" not in data:
+            return None
+        return (self._tensor(data["manual_trans"], None),
+                self._tensor(data["manual_rotmat"], None),
+                self._tensor(data["manual_scale"], None).reshape(()))
 
     @torch.no_grad()
-    def forward_models(self, data):
+    def forward_models(self, data, dataset_idx: int = -1, ext_tfs=None,
+                       use_dataset_pose: bool = True):
         """(human_forward's dict, scene_forward's dict) for one frame,
-        posed by the frame's SMPL parameters, without the skinning
-        targets; None for a model the trainer lacks."""
+        without the skinning targets; None for a model the trainer lacks.
+        The body takes the frame's SMPL parameters (use_dataset_pose) or
+        the learned ones of frame max(dataset_idx, 0), then the frame's
+        scale and the alignment `ext_tfs` (translation, rotation matrix,
+        scale), if given."""
         h_out = s_out = None
         if self.human is not None:
+            pose = self._pose_kw(data) if use_dataset_pose else {}
+            if ext_tfs is not None:
+                ext_tfs = tuple(self._tensor(x, None) for x in ext_tfs)
+                ext_tfs = ext_tfs[:2] + (ext_tfs[2].reshape(()),)
             h_out = hgs.human_forward(
                 self.human.params, self.human.state, self.fixed,
-                self.human_cfg, dataset_idx=0, compute_gt_lbs=False,
-                **self._pose_kw(data))
+                self.human_cfg, smpl_scale=self._scale(data),
+                dataset_idx=max(dataset_idx, 0), ext_tfs=ext_tfs,
+                compute_gt_lbs=False, **pose)
         if self.scene is not None:
             s_out = sgs.scene_forward(self.scene.gs)
         return h_out, s_out
 
     @torch.no_grad()
     def render_frame(self, data, render_mode: str | None = None, bg=None,
+                     ext_tfs=None, use_dataset_pose: bool = True,
+                     outputs: tuple | None = None,
                      budget: int | None = None):
-        """Renders one frame at the trainer's budget (or `budget`).
-        After rehearse_budget, the first render of each (mode, size,
-        budget) is checked for an overflow."""
+        """Renders one frame at the trainer's budget (or `budget`): the
+        pkg dict, or with `outputs` the tuple of those keys. Outputs of
+        the binning alone (BIN_OUTPUTS, e.g. ("n_slots", "overflowed"))
+        stop after the binning and launch no blend: the rehearsal's
+        probe. After rehearse_budget, the first full render of each
+        (mode, size, budget) is checked for an overflow."""
         render_mode = render_mode or self.cfg.mode
         if render_mode == "human_scene" and self.scene is None:
             render_mode = "human"
         if self.human is None and render_mode != "scene":
             render_mode = "scene"
         budget = int(budget or self._ibudget)
-        h_out, s_out = self.forward_models(data)
+        h_out, s_out = self.forward_models(data, ext_tfs=ext_tfs,
+                                           use_dataset_pose=use_dataset_pose)
         W, H = data["width"], data["height"]
+        bin_only = outputs is not None and set(outputs) <= BIN_OUTPUTS
         out = render_human_scene(
             {"camera": data["camera"], "width": W, "height": H}, h_out,
             s_out, bg_color=self.bg_color if bg is None else bg,
-            render_mode=render_mode, instance_budget=budget)
+            render_mode=render_mode, instance_budget=budget,
+            bin_only=bin_only)
+        if outputs is not None:
+            return tuple(out[k] for k in outputs)
         key = (render_mode, W, H, budget)
         if self._budget_rehearsed and key not in self._overflow_checked:
             self._overflow_checked.add(key)
@@ -586,15 +667,7 @@ class GaussianTrainer:
         ckpt_io.save(self.cfg.logdir_ckpt, iter_s, human=self.human,
                      scene=self.scene)
         if self.scene is not None and self.cfg.logdir:
-            gs = self.scene.gs
-            alive = gs.alive.cpu().numpy()
-
-            def host(f):
-                return getattr(gs, f).detach().cpu().numpy()[alive]
-            save_gaussian_ply(
-                f"{self.cfg.logdir}/meshes/scene_{iter_s}_splat.ply",
-                host("xyz"), host("features_dc"), host("features_rest"),
-                host("opacity"), host("scaling"), host("rotation"))
+            self._save_scene_ply(iter_s)
 
     def load_latest_ckpt(self) -> bool:
         """Restores the latest checkpoints into the states in place."""
@@ -626,24 +699,28 @@ class GaussianTrainer:
 
     def rehearse_budget(self, frames=None, probe_cap: int = 1 << 18) -> int:
         """Evaluation only: sets the instance budget to the largest slot
-        demand of `frames` (default the val split) x 1.15 in 8192-slot
-        pages, probing each frame at a roomy budget that doubles until the
-        probe itself fits (a clipped probe under-reports). Returns it."""
+        demand of `frames` (default the val and anim splits, what validate
+        and animate render) x 1.15 in 8192-slot pages. Each frame is
+        probed by a binning-only render (no blend launch) at a roomy
+        budget that grows until the probe itself fits (a clipped probe
+        under-reports). Returns the budget."""
         if not self.cfg.eval:
             raise RuntimeError("rehearse_budget shrinks the densify "
                                "headroom and must not run mid-training "
                                "(set cfg.eval)")
         if frames is None:
-            frames = [self.val_dataset[i]
-                      for i in range(len(self.val_dataset))] \
-                if self.val_dataset is not None else []
+            frames = [ds[i] for ds in (self.val_dataset, self.anim_dataset)
+                      if ds is not None for i in range(len(ds))]
         cap = max(self._ibudget, probe_cap)
         demand = 0
         for data in frames:
+            ext = self.ext_tfs_of(data)
             for _ in range(8):
-                out = self.render_frame(data, budget=cap)
-                n_slots = int(out["n_slots"])
-                if not bool(out["overflowed"]):
+                n_slots, over = self.render_frame(
+                    data, ext_tfs=ext, outputs=("n_slots", "overflowed"),
+                    budget=cap)
+                n_slots = int(n_slots)
+                if not bool(over):
                     break
                 cap = max(cap * 2, -(-(n_slots * 3 // 2) // 8192) * 8192)
             else:
@@ -655,3 +732,224 @@ class GaussianTrainer:
                 max(1 << 14, -(-(demand * 23 // 20) // 8192) * 8192), cap)
             self._budget_rehearsed = True
         return self._ibudget
+
+    # --------------------------------------------------------- animation
+
+    def _out_dir(self, kind: str, iter_s: str) -> str | None:
+        return f"{self.cfg.logdir}/{kind}/{iter_s}" if self.cfg.logdir \
+            else None
+
+    def animate(self, t_iter: int | None = None) -> list:
+        """Renders the anim split, one render_frame per frame with the
+        split's alignment, to logdir/anim/{iter}/{idx:05d}.png, and a
+        video of them when there is more than one. Returns the images
+        (3, H, W) on the device. train.anim_batch_size > 1 (frames
+        batched or sharded) comes with the scale-out slice."""
+        if self.anim_dataset is None:
+            return []
+        iter_s = "final" if t_iter is None else f"{t_iter:06d}"
+        anim_dir = self._out_dir("anim", iter_s)
+        frames = []
+        for idx in range(len(self.anim_dataset)):
+            data = self.anim_dataset[idx]
+            pkg = self.render_frame(data, ext_tfs=self.ext_tfs_of(data))
+            frames.append(pkg["render"])
+            if anim_dir:
+                save_png(frames[-1], f"{anim_dir}/{idx:05d}.png")
+        if anim_dir and len(frames) > 1:
+            # the reference writes a video per animate() call
+            # (gs_trainer.py:582-586, utils/general.py:86-92)
+            create_video(anim_dir,
+                         f"{self.cfg.logdir}/anim/anim_{iter_s}.mp4", fps=20)
+        return frames
+
+    def _canonical_frames(self, nframes: int, img_size: int = 128,
+                          pose_type: str | None = None) -> list:
+        """The canonical avatar alone (its betas, the static pose
+        pose_type, default human.canon_pose_type) from `nframes` cameras
+        on a circle of radius 5 about it."""
+        from hugs_tpu_torch.data.cameras import (
+            get_rotating_camera, get_smpl_static_params,
+        )
+        cams = get_rotating_camera(img_size=img_size, dist=5.0,
+                                   nframes=nframes, device=self.device)
+        sp = get_smpl_static_params(
+            self.human.params.betas.detach(),
+            pose_type or self.cfg.human.canon_pose_type, device=self.device)
+        return [self.render_frame(dict(sp, **cp), render_mode="human")
+                ["render"] for cp in cams]
+
+    def render_canonical(self, t_iter: int | None = None, nframes: int = 8,
+                         img_size: int = 128, pose_type: str | None = None
+                         ) -> list:
+        """The turntable of the canonical avatar (reference
+        render_canonical, gs_trainer.py:588-684) to logdir/canon/{iter}/
+        {n:05d}.png (n from 1) and a video. Returns the images."""
+        iter_s = "final" if t_iter is None else f"{t_iter:06d}"
+        frames = self._canonical_frames(nframes, img_size, pose_type)
+        out_dir = self._out_dir("canon", iter_s)
+        if out_dir:
+            for n, img in enumerate(frames, 1):
+                save_png(img, f"{out_dir}/{n:05d}.png")
+            if len(frames) > 1:
+                create_video(out_dir,
+                             f"{self.cfg.logdir}/canon/canon_{iter_s}.mp4",
+                             fps=10)
+        return frames
+
+    def _save_progress_frame(self, t_iter: int, nframes: int = 2,
+                             img_size: int = 128):
+        """One strip of the canonical avatar from `nframes` orbit cameras
+        into logdir/train_progress/ (reference render_canonical(...,
+        is_train_progress=True), gs_trainer.py:588-684)."""
+        save_image_grid(
+            self._canonical_frames(nframes, img_size),
+            f"{self.cfg.logdir}/train_progress/{t_iter:06d}.png")
+
+    def _finish_progress_video(self):
+        """The progress strips into one video, then the strips go
+        (reference gs_trainer.py:388-391)."""
+        cfg = self.cfg
+        if not (cfg.logdir and cfg.train.save_progress_images):
+            return
+        pdir = os.path.join(cfg.logdir, "train_progress")
+        if not os.path.isdir(pdir):
+            return
+        seq = cfg.dataset.get("seq", "")
+        seq = seq if isinstance(seq, str) else "-".join(map(str, seq))
+        create_video(pdir, os.path.join(
+            cfg.logdir, f"train_{cfg.dataset.name}_{seq}.mp4"), fps=10)
+        shutil.rmtree(pdir)
+
+    def _save_scene_ply(self, iter_s: str):
+        """The scene's live Gaussians as a 3DGS PLY under logdir/meshes."""
+        gs = self.scene.gs
+        alive = gs.alive.cpu().numpy()
+
+        def host(f):
+            return getattr(gs, f).detach().cpu().numpy()[alive]
+        save_gaussian_ply(
+            f"{self.cfg.logdir}/meshes/scene_{iter_s}_splat.ply",
+            host("xyz"), host("features_dc"), host("features_rest"),
+            host("opacity"), host("scaling"), host("rotation"))
+
+    def _iter0_dumps(self):
+        """Iteration 0's dumps (reference gs_trainer.py:362-369): the
+        scene's and the canonical human's PLYs and the turntable."""
+        cfg = self.cfg
+        if self.scene is not None:
+            self._save_scene_ply("000000")
+        self._save_human_ply(0)
+        if cfg.mode in ("human", "human_scene") and self.human is not None:
+            self.render_canonical(0, nframes=cfg.human.canon_nframes)
+
+    @torch.no_grad()
+    def _save_human_ply(self, t_iter: int | None):
+        """The canonical human Gaussians as a 3DGS PLY, meshes/human_
+        {iter}_splat.ply (reference gs_trainer.py:362-375): one
+        human_forward at the zero pose, whose canonical attributes do
+        not depend on the pose."""
+        if self.human is None or not self.cfg.logdir:
+            return
+        from hugs_tpu_torch.utils.vis import save_human_ply
+        iter_s = "final" if t_iter is None else f"{t_iter:06d}"
+        dev = self.device
+        o = hgs.human_forward(
+            self.human.params, self.human.state, self.fixed, self.human_cfg,
+            global_orient=torch.zeros(3, device=dev),
+            body_pose=torch.zeros(69, device=dev),
+            betas=self.human.params.betas.detach(),
+            transl=torch.zeros(3, device=dev),
+            smpl_scale=torch.tensor(1.0, device=dev), compute_gt_lbs=False)
+        save_human_ply(
+            {k: o[k].detach().cpu().numpy() for k in
+             ("xyz_canon", "shs", "opacity", "scales_canon", "rotq_canon",
+              "alive")},
+            f"{self.cfg.logdir}/meshes/human_{iter_s}_splat.ply")
+
+
+class PoseRenderer:
+    """The inference fast path's state (reference render_poses and
+    forward_test, gs_trainer.py:686-747): the avatar alone, its
+    canonical decode computed once and compacted to the live rows
+    (compact_for_inference; the trainer's states are untouched), rendered
+    under given cameras and poses at a budget a rehearsal sized.
+
+    A frame is a dict of the camera ({'camera', 'width', 'height'}) and
+    the body (global_orient, body_pose, betas, transl, smpl_scale), the
+    body's keys taken from `smpl_params` where the frame lacks them."""
+
+    def __init__(self, trainer: GaussianTrainer, smpl_params: dict,
+                 bg_color: str = "white"):
+        tr = self.trainer = trainer
+        dev = tr.device
+        self.smpl_params = smpl_params
+        self.bg = (torch.ones(3, device=dev) if bg_color == "white"
+                   else torch.zeros(3, device=dev))
+        with torch.no_grad():
+            canon = hgs.canon_forward(tr.human.params, tr.human.state,
+                                      tr.human_cfg)
+            self.params, self.state, self.canon = hgs.compact_for_inference(
+                tr.human.params, tr.human.state, canon)
+        self.budget = tr._ibudget
+
+    @torch.no_grad()
+    def human_forward(self, cp) -> dict:
+        """The posed avatar of frame cp, from the cached decode."""
+        tr = self.trainer
+        data = dict(self.smpl_params, **cp)
+        pose = tr._pose_kw(data)
+        pose["body_pose"] = pose["body_pose"].reshape(-1)[:69]
+        return hgs.human_forward(
+            self.params, self.state, tr.fixed, tr.human_cfg,
+            canon_out=self.canon, compute_gt_lbs=False,
+            smpl_scale=tr._scale(data), **pose)
+
+    @torch.no_grad()
+    def frame(self, cp, budget: int | None = None,
+              bin_only: bool = False) -> dict:
+        """render_human_scene's pkg of frame cp, human alone, at `budget`
+        (default the rehearsed one); bin_only stops after the binning."""
+        return render_human_scene(
+            {"camera": cp["camera"], "width": cp["width"],
+             "height": cp["height"]}, self.human_forward(cp), None,
+            bg_color=self.bg, render_mode="human",
+            instance_budget=budget or self.budget, bin_only=bin_only)
+
+    def rehearse(self, camera_params: list, probe_cap: int = 1 << 18) -> int:
+        """Sets the budget to the frames' largest slot demand x 1.15 in
+        8192-slot pages, each frame probed by a binning-only render at a
+        budget of at least probe_cap. Returns it."""
+        probe = max(self.trainer._ibudget, probe_cap)
+        demand = max(int(self.frame(cp, probe, bin_only=True)["n_slots"])
+                     for cp in camera_params)
+        self.budget = min(max(1 << 14, -(-(demand * 23 // 20) // 8192)
+                              * 8192), probe)
+        return self.budget
+
+    def render(self, cp, index: int = 0) -> torch.Tensor:
+        """Frame cp's image (3, H, W). A frame that overflows the budget
+        (a clipped probe under-reports) renders again at 1.5x its demand,
+        up to 8 times, then is kept with a warning naming `index`."""
+        b = self.budget
+        for _ in range(8):
+            pkg = self.frame(cp, b)
+            if not bool(pkg["overflowed"]):
+                return pkg["render"]
+            b = -(-(int(pkg["n_slots"]) * 3 // 2) // 8192) * 8192
+        print(f"WARNING: render_poses frame {index} still overflows the "
+              f"instance budget after retries (budget {b}, demand > "
+              f"{int(pkg['n_slots'])}): the image drops instances")
+        return pkg["render"]
+
+
+def render_poses(trainer: GaussianTrainer, camera_params: list,
+                 smpl_params: dict, bg_color: str = "white",
+                 probe_cap: int = 1 << 18) -> list:
+    """The avatar alone under the given frames (camera dicts, each with
+    its own body keys or smpl_params') with the canonical decode computed
+    once: a PoseRenderer rehearsed on every frame. Returns the images
+    (3, H, W)."""
+    pr = PoseRenderer(trainer, smpl_params, bg_color)
+    pr.rehearse(camera_params, probe_cap)
+    return [pr.render(cp, i) for i, cp in enumerate(camera_params)]

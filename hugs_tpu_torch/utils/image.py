@@ -1,7 +1,11 @@
-"""Image saving: side-by-side grids as PNGs, through utils/png.py
-(reference hugs/utils/image.py:48-95). The video helpers come with the
-animation slice."""
+"""Image saving: PNGs and side-by-side grids through utils/png.py
+(reference hugs/utils/image.py:48-95), and frames into a video with
+ffmpeg (reference hugs/utils/general.py:86-92)."""
 from __future__ import annotations
+
+import os
+import shutil
+import subprocess
 
 import numpy as np
 import torch
@@ -20,6 +24,11 @@ def _to_uint8_hwc(img) -> np.ndarray:
     return (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
 
 
+def save_png(img, path: str) -> None:
+    """One image, (3, H, W) or (H, W, 3) in [0, 1], as an RGB PNG."""
+    write_png(path, _to_uint8_hwc(img))
+
+
 def save_image_grid(images: list, path: str, pad: int = 2,
                     pad_value: int = 255) -> None:
     """A horizontal grid of images, each padded at the bottom to the
@@ -34,3 +43,30 @@ def save_image_grid(images: list, path: str, pad: int = 2,
         cols.append(a)
         cols.append(np.full((h, pad, 3), pad_value, np.uint8))
     write_png(path, np.concatenate(cols[:-1], axis=1))
+
+
+_NO_ENCODER_SAID = False
+
+
+def create_video(img_dir: str, out_path: str, fps: int = 20) -> bool:
+    """img_dir/*.png, in name order, into an H.264 video at out_path with
+    ffmpeg, where `shutil.which` finds one; returns whether a video was
+    written. Without ffmpeg it writes nothing and says so once per
+    process (the JAX package's cv2 writer has no counterpart: the GPU
+    machine has no cv2)."""
+    global _NO_ENCODER_SAID
+    if shutil.which("ffmpeg") is None:
+        if not _NO_ENCODER_SAID:
+            _NO_ENCODER_SAID = True
+            print(f"note: no ffmpeg on PATH, so no video is made of the "
+                  f"frames (first: {img_dir}); the PNGs stay")
+        return False
+    cmd = ["ffmpeg", "-y", "-framerate", str(fps), "-pattern_type", "glob",
+           "-i", os.path.join(img_dir, "*.png"), "-c:v", "libx264",
+           "-pix_fmt", "yuv420p", out_path]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, timeout=600)
+    except (subprocess.SubprocessError, OSError) as e:
+        print(f"note: ffmpeg made no video of {img_dir}: {e}")
+        return False
+    return True

@@ -71,7 +71,7 @@ def test_dotted_overrides_as_jax():
 
 @pytest.mark.parametrize("override,slice_name", [
     ("train.batch_size=2", "Slice G"), ("tpu.gauss_shard=2", "Slice G"),
-    ("train.save_progress_images=true", "Slice F")])
+    ("train.anim_batch_size=2", "Slice G")])
 def test_unported_settings_raise(override, slice_name):
     check_supported(default_config())
     with pytest.raises(NotImplementedError, match=slice_name):
@@ -283,5 +283,8 @@ def test_neuman_dataset_as_jax(fake_root, split, mode, bg_points):
 
 
 def test_anim_split_waits(fake_root):
-    with pytest.raises(NotImplementedError, match="anim"):
+    """The anim split waits for its AMASS clip: without the file under
+    amass_root (default {root}/..) it raises FileNotFoundError, which
+    main.build_datasets reads as no anim split."""
+    with pytest.raises(FileNotFoundError, match="ChaCha"):
         neuman.NeumanDataset(fake_root, "lab", "anim", device="cpu")

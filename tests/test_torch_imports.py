@@ -84,6 +84,19 @@ def test_training_shell_modules_are_among_the_checked():
             path, "__init__.py") in sources, name
 
 
+def test_serving_modules_are_among_the_checked():
+    """The modules of the serving slice (the evaluate command, the
+    visualization exports, the tracing hooks) stand alone like the rest:
+    the checks around this one walk them."""
+    modules = _port_modules()
+    sources = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for name in ("evaluate", "utils.vis", "utils.profiling", "utils.image",
+                 "data.neuman", "train.trainer", "convert"):
+        assert f"hugs_tpu_torch.{name}" in modules, name
+        assert os.path.join("hugs_tpu_torch", *name.split(".")) + ".py" \
+            in sources, name
+
+
 def _imported_names(path):
     tree = ast.parse(open(path).read(), path)
     for node in ast.walk(tree):

@@ -367,8 +367,8 @@ def test_cli_trains_checkpoints_resumes_and_validates(fake_root, tmp_path):
             f"output_path={out}", "exp_name=cli", "train.num_steps=4",
             "human.triplane_res=16", "human.n_subdivision=0",
             "human.init_steps=3", "human.loss.patch_size=16",
-            "tpu.scene_capacity=256", "tpu.human_capacity=512",
-            "tpu.smpl_vpb=8"]
+            "human.canon_nframes=4", "tpu.scene_capacity=256",
+            "tpu.human_capacity=512", "tpu.smpl_vpb=8"]
     env = dict(os.environ, PYTHONPATH=REPO)
     run = subprocess.run(args, capture_output=True, text=True, cwd=REPO,
                          env=env, timeout=300)
@@ -381,6 +381,8 @@ def test_cli_trains_checkpoints_resumes_and_validates(fake_root, tmp_path):
     assert set(first) == METRIC_KEYS
     assert {"human_final", "scene_final"} <= set(
         os.listdir(os.path.join(logdir, "ckpt")))
+    # the turntable main() renders after validating, 4 frames here
+    assert len(os.listdir(os.path.join(logdir, "canon", "final"))) == 4
     # an evaluation run resumes the final checkpoint and validates it
     run = subprocess.run(args + ["eval=true"], capture_output=True,
                          text=True, cwd=REPO, env=env, timeout=300)
