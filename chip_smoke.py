@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drives the hugs_tpu_torch serving render, scene training, the avatar
 serving frame, the three micro-benchmarks, human training, joint
-human + scene training through the port's CLI and the evaluation of its
-output (validate, animate, the turntable, the inference fast path) on
-one NVIDIA GPU.
+human + scene training through the port's CLI, the evaluation of its
+output (validate, animate, the turntable, the inference fast path) and
+its scale-out (image bands, batched animate, the batched joint step
+through torch.distributed) on one NVIDIA GPU (and on several, where the
+machine has them, for one data x tile step).
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It builds the CUDA kernels (K1, the forward blend; K2, its backward,
@@ -138,6 +140,26 @@ source, all together, then:
      events), its split human_forward / project / bin / blend, its
      device kernels per frame and idle share; then evaluate's stage
      times and K1's time and bound on anim frame 0;
+  3h. config[4]'s scale-out on phase 3f's run (after 3g): (a) anim
+     frame 0's merged frame (3g's compacted states, the rehearsed
+     budget) in 2 and 4 horizontal bands through
+     parallel/shard.py::blend_band, stitched: the image held to the
+     one-band frame (K1, image bar) and an L1 loss's gradient of the
+     blend's inputs (mean2d, conic, colour, opacity) to the one-band
+     gradient (K2's bars), n_bands K1 and K2 launches, each band's K1
+     and K2 times; (b) animate in batches of 4 (train.anim_batch_size)
+     against one frame at a time: every frame within the image bar, one
+     K1 a frame, ms a frame of both; (c) a trainer at train.batch_size 2
+     resuming 3f's final checkpoint inside a one-rank NCCL group (its
+     (1, 1) mesh runs every collective): the first batch's loss equals
+     the mean of its two frames' losses from joint_step's pieces on the
+     same draws, its gradients the mean of theirs at K2's bars; 3 steps
+     through train() (4 K1 and 4 K2 launches a step), a step's stages,
+     its device kernels and idle share; (d) with 2 or more cards, one
+     data x tile step of the same batch on min(4, cards) NCCL ranks
+     (mesh factored as __graft_entry__.py's dryrun_multichip): the loss
+     (c)'s and the states bit for bit equal across ranks; with one card
+     a line says it did not run;
   4. times on the card (CUDA events, median of 20 after warm-up): one
      request split into project / bin / blend, one training step split
      into forward / loss / backward / Adam + stats, one densify step,
@@ -154,6 +176,10 @@ source, all together, then:
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device, or without the repository beside it, it exits non-zero and
 prints no result.
+
+`python3 chip_smoke.py --scale-out` runs phase 3h's checks (c) and (d)
+alone, on phase 3f's sequence trained for 2 steps: the path a machine
+with several cards exists for (on one card (d) says it did not run).
 """
 import json
 import math
@@ -286,6 +312,21 @@ ANIM_FRAMES = ANIM_SOURCE_FRAMES // 4
 # phase 3g, evaluation: check (b) renders anim frame 0's camera at this
 # size on the card and on the CPU
 EVAL_CPU_WH = (160, 90)
+# phase 3h, config[4]'s scale-out on phase 3f's run: anim frame 0 in
+# image bands, animate in batches, the batched joint step (train.batch_size
+# DP_BATCH, DP_STEPS steps) through a one-rank NCCL group, and on a machine
+# with several cards one data x tile step on up to 4 of them
+BANDS = (2, 4)
+ANIM_BATCH = 4
+DP_BATCH = 2
+DP_STEPS = 3
+DP_RANKS_MAX = 4
+DP_TIMEOUT = 600.0
+# `--scale-out`: checks (c) and (d) alone, on phase 3f's sequence and
+# JOINT_CUTS trained for 2 steps after a 50-step distillation
+SCALE_OUT_CUTS = dict(JOINT_CUTS, **{
+    "train.num_steps": 2, "human.init_steps": 50,
+    "train.val_interval": 1000, "human.canon_nframes": 2})
 # phase 3d, the micro-benchmarks: S2 held to its plain version at a grid
 # of 16 steps (INNER 64, REPS 3), every element within S2_RTOL of the
 # block's largest value (the plain version's exp and log1p are torch's,
@@ -1286,6 +1327,17 @@ def write_anim_clip(root, smpl):
                            (ANIM_SOURCE_FRAMES, 1)))
 
 
+def joint_config(root, exp_name, cuts):
+    """config[3]'s recipe on write_neuman_sequence's sequence under root,
+    with the overrides `cuts`."""
+    from hugs_tpu_torch.cfg import load_config
+    return load_config(JOINT_RECIPE, [
+        f"dataset_path={root}/neuman", "dataset.seq=lab",
+        f"output_path={root}/out", f"exp_name={exp_name}",
+        f"tpu.smpl_vpb={AVATAR_VPB}"]
+        + [f"{k}={v}" for k, v in cuts.items()])
+
+
 def joint_step_card_vs_cpu(dev):
     """Check (b) of phase 3f: one joint step's loss, terms and gradients
     (the merged frame and the human alone) on the card against the CPU,
@@ -1392,11 +1444,7 @@ def joint_training(dev, smi, project, slot_budget, cull_counts,
     t0 = time.time()
     cover = write_neuman_sequence(root, dev, smi)
     seq_s = time.time() - t0
-    cfg = load_config(JOINT_RECIPE, [
-        f"dataset_path={root}/neuman", "dataset.seq=lab",
-        f"output_path={root}/out", "exp_name=phase3f",
-        f"tpu.smpl_vpb={AVATAR_VPB}"]
-        + [f"{k}={v}" for k, v in JOINT_CUTS.items()])
+    cfg = joint_config(root, "phase3f", JOINT_CUTS)
     print(f"# joint training: sequence of {JOINT_FRAMES} frames at "
           f"{W}x{H} written in {seq_s:.1f} s (host clock), human mask "
           f"cover {min(cover):.3f}-{max(cover):.3f}; recipe "
@@ -1688,7 +1736,8 @@ def joint_training(dev, smi, project, slot_budget, cull_counts,
         "device_idle_share": 1.0 - sum(profile[0].values()) / profile[2]
         if profile[2] else None,
         "card_vs_cpu_max_abs": worst_b, "phase_s": phase_s,
-        "logdir": cfg.logdir, "k1_after_train": k1_after,
+        "logdir": cfg.logdir, "k1_after_train": k1_after, "cfg": cfg,
+        "train_dataset": tr.train_dataset,
     }
 
 
@@ -1755,10 +1804,10 @@ def evaluation(dev, smi, project, cull_counts, tile_of_pixel, kernel_times,
                 self.anim_overflow.append(bool(out["overflowed"]))
             return out
 
-        def animate(self, t_iter=None):
+        def animate(self, t_iter=None, **kw):
             self.anim_overflow = []
             rec["frames"] = self._stage("animate", lambda: super(
-                Probed, self).animate(t_iter))
+                Probed, self).animate(t_iter, **kw))
             rec["anim_overflow"], self.anim_overflow = self.anim_overflow, None
             return rec["frames"]
 
@@ -2029,8 +2078,400 @@ def evaluation(dev, smi, project, cull_counts, tile_of_pixel, kernel_times,
         "fast_device_kernels_per_frame": profile[1],
         "fast_device_idle_share": 1.0 - sum(profile[0].values()) / profile[2]
         if profile[2] else None,
-        "phase_s": phase_s,
+        "phase_s": phase_s, "trainer": tr,
     }
+
+
+def held_tensors(name, got: list, want: list):
+    """K2's bars (held_grad's share and norm) on each pair of gradient
+    tensors, flattened; raises naming the first pair outside them.
+    Returns the largest |difference| and ||difference|| / ||want||."""
+    worst, worst_rel = 0.0, 0.0
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        a, b = a.reshape(-1), b.reshape(-1)
+        d = (a - b).abs()
+        share = float((d <= GRAD_ATOL + GRAD_RTOL * b.abs()).float().mean())
+        nb = float(b.norm())
+        rel = float(d.norm()) / nb if nb > 0 else float(d.norm())
+        if share < GRAD_SHARE or rel > GRAD_REL_NORM:
+            raise AssertionError(f"{name}: tensor {i} of {len(want)} "
+                                 f"disagrees: {share:.6f} within "
+                                 f"{GRAD_ATOL} + {GRAD_RTOL} |g|, ||d|| / "
+                                 f"||g|| {rel:.3e}")
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+        worst_rel = max(worst_rel, rel)
+    print(f"# {name}: {len(want)} tensors within K2's bars, max |d| "
+          f"{worst:.3e}, max ||d|| / ||g|| {worst_rel:.3e}")
+    return worst, worst_rel
+
+
+def dp_config(cfg):
+    """Phase 3h's configuration of a batched run resuming phase 3f's
+    final checkpoint: train.batch_size DP_BATCH, DP_STEPS steps, no
+    distillation, no logdir (nothing written, nothing validated)."""
+    import copy
+    cfg = copy.deepcopy(cfg)
+    cfg.train.batch_size = DP_BATCH
+    cfg.train.num_steps = DP_STEPS - 1
+    cfg.human.run_init = False
+    cfg.logdir = ""
+    return cfg
+
+
+def dp_rank_step(rank, world, cfg, device_type="cuda"):
+    """Check (d) of phase 3h on rank `rank` of `world` NCCL ranks (card
+    `rank`; the CPU, over gloo, for a rehearsal), the mesh factored as __graft_entry__.py's dryrun_multichip
+    does: the trainer of dp_config resumed from phase 3f's checkpoint,
+    its first batch through the data x tile step. Returns the step's
+    loss, the mesh and a digest of every tensor of both states after."""
+    import hashlib
+
+    from hugs_tpu_torch import main as cli
+    from hugs_tpu_torch.parallel.mesh import factor_devices, make_mesh
+    from hugs_tpu_torch.render import cuda_blend
+    from hugs_tpu_torch.train import checkpoint as ckpt_io
+    from hugs_tpu_torch.train.trainer import GaussianTrainer
+
+    dev = torch.device(device_type, rank if device_type == "cuda" else None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shape = factor_devices(world)
+    mesh = make_mesh(*shape)
+    train_ds, _, _ = cli.build_datasets(cfg, dev)
+    tr = GaussianTrainer(cfg, train_ds, device=dev, mesh=mesh)
+    tr._check_batch_layout(DP_BATCH)
+    tr._broadcast_states()
+    idxs = [int(i) for i in np.random.RandomState(cfg.seed).permutation(
+        len(train_ds))[:DP_BATCH]]
+    cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
+    _, vals = tr._batched_step(0, idxs, True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    digest = hashlib.sha256()
+    for st in (tr.human, tr.scene):
+        for k, v in sorted(ckpt_io.flatten(st).items()):
+            digest.update(k.encode())
+            digest.update(v.detach().cpu().numpy().tobytes())
+    return {"loss": vals[0], "overflowed": vals[2], "mesh": shape,
+            "retries": tr.retries, "k1": cuda_blend.LAUNCHES,
+            "k2": cuda_blend.K2_LAUNCHES, "digest": digest.hexdigest()}
+
+
+def bands_check(dev, smi, project, tr):
+    """Check (a) of phase 3h on trainer tr's anim frame 0: the merged
+    frame in 2 and 4 bands against one band, the stitched image (K1) and
+    an L1 loss's gradient of the blend's inputs (K2), n_bands launches of
+    each, each band's kernel times. Returns them by n_bands."""
+    from hugs_tpu_torch.parallel.shard import band_height, blend_band
+    from hugs_tpu_torch.render import cuda_blend
+    from hugs_tpu_torch.render.blend import gauss_features
+    from hugs_tpu_torch.render.project import update_mean2d
+    from hugs_tpu_torch.render.tiles import bin_gaussians
+
+    d0 = tr.anim_dataset[0]
+    with torch.no_grad():
+        h_out, s_out = tr.forward_models(d0, ext_tfs=tr.ext_tfs_of(d0))
+        a = {k: torch.cat([h_out[k], s_out[k]]) for k in
+             ("xyz", "scales", "rotq", "opacity", "shs")}
+        pg = project(d0["camera"], a,
+                     torch.cat([h_out["alive"], s_out["alive"]]),
+                     h_out["active_sh_degree"])
+    fields = ("mean2d", "conic", "rgb", "opacity")
+    leaf = {f: getattr(pg, f).detach().clone().requires_grad_() for f in
+            fields}
+    pg_l = pg._replace(**leaf)
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    target = torch.rand((3, H, W), generator=g, device=dev)
+    bg, budget = tr.bg_color, tr._ibudget
+
+    def stitched(n):
+        imgs = [blend_band(pg_l, W, H, b, n, budget, bg)[0]
+                for b in range(n)]
+        img = torch.cat(imgs, dim=1)[:, :H]
+        grads = torch.autograd.grad((img - target).abs().mean(),
+                                    [leaf[f] for f in fields])
+        return img.detach(), torch.cat(
+            [x.reshape(x.shape[0], -1) for x in grads], dim=1)
+
+    def band_times(n):
+        """Each band's K1 and K2 alone, back to back (ms), and its
+        instances."""
+        k1_ms, k2_ms, inst = [], [], []
+        band_h = band_height(H, n)
+        for b in range(n):
+            with torch.no_grad():
+                pg_b = update_mean2d(pg, pg.mean2d.new_tensor(
+                    [0.0, -float(b * band_h)]))
+                bins = bin_gaussians(pg_b, W, band_h, budget)
+                feat = gauss_features(pg_b)
+                args = (feat, bins.gauss_id, bins.starts, bins.ends, bg, W,
+                        band_h)
+                _, logt, nwalk, _ = cuda_blend.blend_fwd(*args)
+                gr = torch.rand((3, band_h, W), generator=g, device=dev)
+                k1_ms.append(device_ms(lambda: cuda_blend.blend_fwd(*args)))
+                k2_ms.append(device_ms(lambda: cuda_blend.blend_bwd(
+                    *args, gr, logt, nwalk)))
+            inst.append(int((bins.ends - bins.starts).sum()))
+        print(f"# (a) {n} band(s): instances {inst}; K1 ms per band "
+              f"{[round(x, 4) for x in k1_ms]} (sum {sum(k1_ms):.4f}), K2 "
+              f"{[round(x, 4) for x in k2_ms]} (sum {sum(k2_ms):.4f})  "
+              f"[{smi}]")
+        return {"band_rows": band_h, "instances": inst, "k1_ms": k1_ms,
+                "k2_ms": k2_ms}
+
+    one_img, one_grad = stitched(1)
+    bands = {1: band_times(1)}
+    for n in BANDS:
+        cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
+        img, grad = stitched(n)
+        torch.cuda.synchronize()
+        k1, k2 = cuda_blend.LAUNCHES, cuda_blend.K2_LAUNCHES
+        print(f"# (a) anim frame 0 in {n} bands of {band_height(H, n)} rows:"
+              f" {k1} K1 and {k2} K2 launches")
+        if k1 != n or k2 != n:
+            raise AssertionError(f"{n} bands launched K1 {k1} and K2 {k2} "
+                                 f"times")
+        err = held(f"K1 {n} bands stitched vs one band, anim frame 0", img,
+                   one_img)
+        gerr = held_grad(f"K2 {n} bands vs one band, anim frame 0 "
+                         f"(columns mx my ca cb cc r g b op)", grad,
+                         one_grad)
+        bands[n] = dict(band_times(n), k1_launches=k1, k2_launches=k2,
+                        image_max_abs=err, grad_max_abs=gerr)
+    return bands
+
+
+
+def batched_animate_check(smi, tr):
+    """Check (b) of phase 3h: trainer tr's animate in batches of
+    ANIM_BATCH against one frame at a time. Returns the launches, the
+    difference and ms a frame of both."""
+    from hugs_tpu_torch.render import cuda_blend
+
+    # the images only (no PNGs written), in turns: alone, batched,
+    # batched, alone; the launches counted over the first batched run
+    logdir, tr.cfg.logdir = tr.cfg.logdir, ""
+    anim_s = {1: [], ANIM_BATCH: []}
+    try:
+        for i, bsz in enumerate((1, ANIM_BATCH, ANIM_BATCH, 1)):
+            torch.cuda.synchronize()
+            cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
+            t0 = time.time()
+            frames_b = tr.animate(batch_size=bsz)
+            torch.cuda.synchronize()
+            anim_s[bsz].append(time.time() - t0)
+            if i == 0:
+                alone = frames_b
+            elif i == 1:
+                batched, k1_anim = frames_b, cuda_blend.LAUNCHES
+        del frames_b
+    finally:
+        tr.cfg.logdir = logdir
+    n_anim = len(alone)
+    batched_s, alone_s = (statistics.median(anim_s[b])
+                          for b in (ANIM_BATCH, 1))
+    print(f"# (b) animate of {n_anim} frames: batches of {ANIM_BATCH} "
+          f"{[round(x / n_anim * 1e3, 3) for x in anim_s[ANIM_BATCH]]} ms a "
+          f"frame, one at a time "
+          f"{[round(x / n_anim * 1e3, 3) for x in anim_s[1]]} (host clock, "
+          f"in turns 1, {ANIM_BATCH}, {ANIM_BATCH}, 1); {k1_anim} K1 "
+          f"launches in a batched run  [{smi}]")
+    if len(batched) != n_anim or k1_anim != n_anim or n_anim != ANIM_FRAMES:
+        raise AssertionError(f"animate in batches gave {len(batched)} "
+                             f"frames with {k1_anim} K1 launches for "
+                             f"{n_anim}")
+    anim_err = held(f"animate in batches of {ANIM_BATCH} vs one at a time, "
+                    f"{n_anim} frames", torch.stack(batched),
+                    torch.stack(alone))
+    return {"anim_k1": k1_anim, "anim_err": anim_err,
+            "anim_ms": {"batched": batched_s / n_anim * 1e3,
+                        "alone": alone_s / n_anim * 1e3}}
+
+
+
+def batched_step_check(dev, smi, cfg, train_dataset):
+    """Check (c) of phase 3h: a trainer of dp_config `cfg` over
+    train_dataset inside a one-rank NCCL group, its first batch's loss
+    and gradients against the mean of its frames' (joint_step's pieces,
+    the same draws); DP_STEPS steps through train(), a step's stages,
+    its profile. Returns its numbers, the batch's loss among them."""
+    import torch.distributed as dist
+
+    from hugs_tpu_torch.parallel.launch import free_port
+    from hugs_tpu_torch.render import cuda_blend
+    from hugs_tpu_torch.train import joint_step as jst
+    from hugs_tpu_torch.train.optim import leaves
+    from hugs_tpu_torch.train.trainer import GaussianTrainer
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        t0 = time.time()
+        dp = GaussianTrainer(cfg, train_dataset, device=dev)
+        build_s = time.time() - t0
+        if not dp.mesh.distributed or dp.mesh.size != 1:
+            raise AssertionError(f"the trainer's mesh is {dp.mesh}")
+        n = len(dp.train_dataset)
+        idxs = [int(i) for i in np.random.RandomState(cfg.seed).permutation(
+            n)[:DP_BATCH]]
+        gen_state = dp.gen.get_state()
+        frames = dp._batch_frames(0, idxs)
+        dp.gen.set_state(gen_state)     # train() draws them again
+        mode = dp._mode(0)
+        step = dp._get_dp_step(W, H, mode)
+        js = jst.JointTrainState(human=dp.human, scene=dp.scene)
+        got = step.grads(js, frames, dp._ibudget)
+        lpips = dp.lpips if dp.loss_fn.l_lpips_w > 0 else None
+        losses, refs = [], None
+        for fr in frames:
+            hook = torch.zeros((dp._h_cap + dp._s_cap, 2), device=dev,
+                               requires_grad=True)
+            pkg, o = jst.joint_render(
+                js, dp.fixed, fr["camera"], fr["bg"], fr["human_bg"], hook,
+                fr["smpl_scale"], fr["dataset_idx"], cfg=dp.human_cfg,
+                width=W, height=H, instance_budget=dp._ibudget,
+                render_human_separate=dp.loss_fn.l_humansep_w > 0)
+            loss, _ = jst.joint_loss(dp.loss_fn, fr["draws"], fr["rgb"],
+                                     fr["mask"], fr["bg"], fr["human_bg"],
+                                     pkg, o, lpips)
+            hg, sg, hk = jst.joint_grads(loss, js, hook, True)
+            flat = [x / DP_BATCH for x in
+                    leaves(hg) + list(sg.values()) + [hk]]
+            refs = flat if refs is None else [r + x for r, x in
+                                              zip(refs, flat)]
+            losses.append(float(loss.detach()))
+            del pkg, o, loss, hg, sg, hk, flat
+        mean_loss = sum(losses) / DP_BATCH
+        d_loss = abs(float(got.loss) - mean_loss)
+        print(f"# (c) batch of {DP_BATCH} (frames {idxs}) through the data x"
+              f" tile step on a one-rank NCCL group: loss "
+              f"{float(got.loss):.7f} against the mean {mean_loss:.7f} of "
+              f"its frames' {[round(x, 7) for x in losses]}: |d| "
+              f"{d_loss:.3e}")
+        if not d_loss <= 2e-5 + 2e-6 * abs(mean_loss):
+            raise AssertionError("the batch's loss is not the mean of its "
+                                 "frames'")
+        grad_err = held_tensors(
+            "(c) the batch's gradients vs the mean of its frames'",
+            leaves(got.h_grads) + list(got.s_grads.values())
+            + [got.hook_grad], refs)
+        del got, refs
+        # DP_STEPS steps through train(), the launches counted
+        cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        log = dp.train()
+        torch.cuda.synchronize()
+        train_s = time.time() - t0
+        k1_dp, k2_dp = cuda_blend.LAUNCHES, cuda_blend.K2_LAUNCHES
+        print(f"# (c) train() at train.batch_size {DP_BATCH}: {DP_STEPS} "
+              f"steps in {train_s:.2f} s (host clock), log {log}, "
+              f"{dp.retries} steps rendered again; K1 {k1_dp}, K2 {k2_dp} "
+              f"launches (trainer built in {build_s:.1f} s)")
+        if abs(log[0]["loss"] - float(mean_loss)) > 2e-5 + 2e-6 * abs(
+                mean_loss):
+            raise AssertionError(f"train()'s first step gave loss "
+                                 f"{log[0]['loss']}, not {mean_loss}")
+        per_step = 2 * DP_BATCH      # the merged frame and the human alone
+        if k1_dp != per_step * (DP_STEPS + dp.retries) \
+                or k2_dp != per_step * (DP_STEPS + dp.retries):
+            raise AssertionError(f"{DP_STEPS} batched steps launched K1 "
+                                 f"{k1_dp} and K2 {k2_dp} times")
+        # stages of a step, CUDA events; then the profile
+        stages = {k: [] for k in ("draws", "grads", "update", "step")}
+        for rep in range(REPS // 4 + 1):
+            t_iter = DP_STEPS + rep
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            frames = dp._batch_frames(t_iter, idxs)
+            ev[1].record()
+            got = step.grads(js, frames, dp._ibudget)
+            ev[2].record()
+            step.update(js, got, dp.h_xyz_sched(t_iter), dp.h_static_lrs,
+                        dp.s_xyz_sched(t_iter), dp.s_static_lrs)
+            ev[3].record()
+            ev[3].synchronize()
+            if rep:
+                for k, (e0, e1) in (("draws", (0, 1)), ("grads", (1, 2)),
+                                    ("update", (2, 3)), ("step", (0, 3))):
+                    stages[k].append(ev[e0].elapsed_time(ev[e1]))
+            del got
+        stage_ms = {k: statistics.median(v) for k, v in stages.items()}
+        cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
+        profile = device_kernels(lambda: dp._batched_step(
+            DP_STEPS, idxs, False), reps=PROFILED_STEPS)
+        launches = (cuda_blend.LAUNCHES / PROFILED_STEPS,
+                    cuda_blend.K2_LAUNCHES / PROFILED_STEPS)
+    finally:
+        dist.destroy_process_group()
+    print(f"# (c) a batched step of {DP_BATCH} frames {stage_ms['step']:.4f} "
+          f"ms = draws {stage_ms['draws']:.4f} + forward and backward of "
+          f"the frames with the all-reduces {stage_ms['grads']:.4f} + Adam "
+          f"and stats {stage_ms['update']:.4f} ms (median of "
+          f"{len(stages['step'])}, CUDA events)  [{smi}]")
+    print_profile("batched joint step", PROFILED_STEPS, *profile, smi)
+    print(f"# profiled batched steps: {launches[0]:.0f} K1 and "
+          f"{launches[1]:.0f} K2 launches per step")
+    return dict(dp_loss=mean_loss, dp_frame_losses=losses,
+                dp_loss_abs_err=d_loss, dp_grad_err=grad_err,
+                dp_k1=k1_dp, dp_k2=k2_dp, dp_stage_ms=stage_ms,
+                dp_launches_per_step=launches,
+                dp_device_kernels_per_step=profile[1],
+                dp_device_idle_share=1.0 - sum(profile[0].values())
+                / profile[2] if profile[2] else None, dp_train_s=train_s)
+
+
+
+def multi_card_check(smi, cfg, mean_loss):
+    """Check (d) of phase 3h: with 2 or more cards, the batch of check
+    (c) through one data x tile step on min(DP_RANKS_MAX, cards) NCCL
+    ranks: the loss (c)'s, the ranks' states bit for bit equal. Returns
+    its numbers, or None (and says so) with one card."""
+    from hugs_tpu_torch.parallel.launch import run_ranks
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"# (d) several cards: not run, torch.cuda.device_count() = "
+              f"{n_cards}")
+        return None
+    world = min(DP_RANKS_MAX, n_cards)
+    t0 = time.time()
+    ranks = run_ranks(dp_rank_step, world, (cfg,), backend="nccl",
+                      timeout=DP_TIMEOUT)
+    mr_s = time.time() - t0
+    r0 = ranks[0]
+    print(f"# (d) {world} NCCL ranks, mesh (data, tile) {r0['mesh']}: "
+          f"loss {[r['loss'] for r in ranks]} against (c)'s "
+          f"{mean_loss:.7f}; K1 {[r['k1'] for r in ranks]}, K2 "
+          f"{[r['k2'] for r in ranks]} launches; digests "
+          f"{sorted({r['digest'][:16] for r in ranks})}; {mr_s:.1f} s "
+          f"(host clock)")
+    if any(abs(r["loss"] - mean_loss) > 2e-5 + 2e-6 * abs(mean_loss)
+           for r in ranks):
+        raise AssertionError("the multi-card step's loss is not (c)'s")
+    if len({r["digest"] for r in ranks}) != 1:
+        raise AssertionError("the ranks' states differ after the step")
+    return {"ranks": world, "mesh": r0["mesh"],
+            "losses": [r["loss"] for r in ranks],
+            "k1": [r["k1"] for r in ranks],
+            "k2": [r["k2"] for r in ranks], "s": mr_s}
+
+
+def scale_out(dev, smi, project, joint, evaln):
+    """Phase 3h, config[4]'s scale-out on phase 3f's run (joint) and
+    phase 3g's evaluation trainer (evaln). Checks (a)-(d) of the module
+    docstring; raises if one fails; returns its numbers."""
+    t_phase = time.time()
+    tr = evaln["trainer"]
+    out = {"bands": bands_check(dev, smi, project, tr)}
+    out.update(batched_animate_check(smi, tr))
+    cfg = dp_config(joint["cfg"])
+    out.update(batched_step_check(dev, smi, cfg, joint["train_dataset"]))
+    torch.cuda.empty_cache()    # rank 0 of check (d) shares this card
+    out["multi_rank"] = multi_card_check(smi, cfg, out["dp_loss"])
+    out["phase_s"] = time.time() - t_phase
+    print(f"# phase 3h: {out['phase_s']:.1f} s (host clock)  [{smi}]")
+    return out
 
 
 def micro_benchmarks(dev, smi, cull_counts):
@@ -2887,6 +3328,11 @@ def main():
               f"clock)")
         evaln = evaluation(dev, smi, project, cull_counts, tile_of_pixel,
                            kernel_times, joint)
+        # ---- 3h. config[4]'s scale-out on 3f's run, after 3g
+        print(f"# phase 3h starts at {time.time() - t_start:.1f} s (host "
+              f"clock)")
+        scale = scale_out(dev, smi, project, joint, evaln)
+        del evaln["trainer"], joint["train_dataset"]
     jt, et = joint["times"], evaln["times"]
 
     # K1 and K2 against the rate S2 measured on the blend's mix
@@ -2920,7 +3366,8 @@ def main():
         "launches": launches + k1_train + avatar["launches"]
         + human["k1_launches"] + joint["k1_launches"]
         + joint["k1_after_train"] + evaln["k1_launches"]
-        + evaln["fast_launches"],
+        + evaln["fast_launches"] + sum(BANDS) + scale["anim_k1"]
+        + scale["dp_k1"],
         "launches_by_path": {"serving": launches, "training": k1_train,
                              "avatar": avatar["launches"],
                              "human_training": human["k1_launches"],
@@ -2929,9 +3376,15 @@ def main():
                                  joint["k1_after_train"],
                              "evaluation": evaln["k1_launches"],
                              "fast_path": evaln["fast_launches"],
+                             **{f"bands_{n}": scale["bands"][n]["k1_launches"]
+                                for n in BANDS},
+                             "batched_animate": scale["anim_k1"],
+                             "batched_joint_step": scale["dp_k1"],
                              "micro_bwd": s3_launches["K1"]},
         "max_abs_err": max(max_err, avatar["max_abs_err"], human["k1_err"],
-                           joint["k1_err"], evaln["k1_err"]),
+                           joint["k1_err"], evaln["k1_err"],
+                           *(scale["bands"][n]["image_max_abs"]
+                             for n in BANDS)),
         "frame": "serving (phase 2)",
         "ms": serve_t["k1"], "call_ms": serve_t["k1_call"],
         "plain_ms": serve_t["plain"], "bound_ms": serve_t["k1_bound"],
@@ -2968,6 +3421,10 @@ def main():
             "fast_device_kernels_per_frame":
                 evaln["fast_device_kernels_per_frame"],
             "fast_device_idle_share": evaln["fast_device_idle_share"]},
+        "bands_frame": {n: {k: b[k] for k in (
+            "band_rows", "instances", "k1_ms", "k1_launches",
+            "image_max_abs") if k in b} for n, b in scale["bands"].items()},
+        "batched_animate_ms_per_frame": scale["anim_ms"],
         "ms_at_s2_blendmix_rate": at_s2["K1"],
         "cull_dropped_share": {"serving": cull_serve["K1_dropped"],
                                "training": cull_train["K1_dropped"],
@@ -2981,13 +3438,19 @@ def main():
         "name": "K2 blend_bwd", "route": "cuda",
         "source": "hugs_tpu_torch/csrc/blend_bwd.cu",
         "replaces": "hugs_tpu/render/pallas_blend.py:486",
-        "launches": k2_train + human["k2_launches"] + joint["k2_launches"],
+        "launches": k2_train + human["k2_launches"] + joint["k2_launches"]
+        + sum(BANDS) + scale["dp_k2"],
         "launches_by_path": {"serving": k2_serve, "training": k2_train,
                              "avatar": avatar["k2_launches"],
                              "human_training": human["k2_launches"],
                              "joint_training": joint["k2_launches"],
+                             **{f"bands_{n}": scale["bands"][n]["k2_launches"]
+                                for n in BANDS},
+                             "batched_joint_step": scale["dp_k2"],
                              "micro_bwd": s3_launches["K2"]},
-        "max_abs_err": max(k2_err, human["k2_err"], joint["k2_err"]),
+        "max_abs_err": max(k2_err, human["k2_err"], joint["k2_err"],
+                           *(scale["bands"][n]["grad_max_abs"]
+                             for n in BANDS)),
         "frame": "training step 0 (view 0)",
         "ms": train_t["k2"], "call_ms": train_t["k2_call"],
         "plain_ms": train_t["plain_bwd"], "bound_ms": train_t["k2_bound"],
@@ -3018,6 +3481,17 @@ def main():
             "step_ms": joint["stage_ms"],
             "device_kernels_per_step": joint["device_kernels_per_step"],
             "device_idle_share": joint["device_idle_share"]},
+        "bands_frame": {n: {k: b[k] for k in (
+            "band_rows", "instances", "k2_ms", "k2_launches",
+            "grad_max_abs") if k in b} for n, b in scale["bands"].items()},
+        "batched_joint_step": {
+            "batch": DP_BATCH, "steps": DP_STEPS, "step_ms": scale[
+                "dp_stage_ms"], "launches_per_step":
+                scale["dp_launches_per_step"],
+            "device_kernels_per_step": scale["dp_device_kernels_per_step"],
+            "device_idle_share": scale["dp_device_idle_share"],
+            "loss_abs_err": scale["dp_loss_abs_err"],
+            "multi_rank": scale["multi_rank"]},
         "ms_at_s2_blendmix_rate": at_s2["K2"],
         "cull_dropped_share": {"serving": cull_serve["K2_dropped"],
                                "training": cull_train["K2_dropped"],
@@ -3032,5 +3506,46 @@ def main():
     return 0
 
 
+def scale_out_cards():
+    """`python3 chip_smoke.py --scale-out`: phase 3h's checks (c) and (d)
+    alone, for a machine with several cards (the data x tile step on up
+    to DP_RANKS_MAX of them against the batched step at world size 1),
+    on phase 3f's sequence trained with SCALE_OUT_CUTS. Prints one JSON
+    line of its numbers last; raises if a check fails."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from hugs_tpu_torch import build
+    from hugs_tpu_torch import main as cli
+    from hugs_tpu_torch.render import cuda_blend
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = card()
+    print(smi)
+    t0 = time.time()
+    build.build([cuda_blend.SOURCE, cuda_blend.BWD_SOURCE])
+    with tempfile.TemporaryDirectory() as root:
+        write_neuman_sequence(root, dev, smi)
+        cfg = joint_config(root, "scale_out", SCALE_OUT_CUTS)
+        if cli.main(cfg, device=dev) != 0:
+            raise AssertionError("hugs_tpu_torch.main.main failed")
+        train_ds, _, _ = cli.build_datasets(cfg, dev)
+        dcfg = dp_config(cfg)
+        step = batched_step_check(dev, smi, dcfg, train_ds)
+        del train_ds
+        torch.cuda.empty_cache()    # rank 0 of check (d) shares this card
+        multi = multi_card_check(smi, dcfg, step["dp_loss"])
+    print(f"# --scale-out: {time.time() - t0:.1f} s (host clock)  [{smi}]")
+    print(json.dumps({"scale_out": {
+        "device": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(), "card": smi,
+        "batched_step": step, "multi_rank": multi}}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(scale_out_cards() if sys.argv[1:] == ["--scale-out"]
+             else main())

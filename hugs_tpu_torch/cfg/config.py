@@ -14,8 +14,9 @@ What the port reads differently, by decision:
     their plain versions on the CPU; neither truncates a tile, so there is
     no backend to choose and no cap to set.
   - `check_supported` refuses what the port does not run yet:
-    `train.batch_size` > 1, `train.anim_batch_size` > 1 and
-    `tpu.gauss_shard` > 0 (the scale-out slice, ROADMAP Slice G).
+    `tpu.gauss_shard` > 0 (the Gaussian-sharded renderer, ROADMAP Slice
+    G item 3). `train.batch_size` > 1 and `train.anim_batch_size` > 1
+    run through hugs_tpu_torch/parallel.
 """
 from __future__ import annotations
 
@@ -191,7 +192,7 @@ def default_config() -> Config:
             "instance_budget": 0,           # 0 => auto, grown on demand
             "tile_cap": 1024,               # read and ignored
             "mesh_shape": [1],
-            "gauss_shard": 0,               # > 0 refused (Slice G)
+            "gauss_shard": 0,               # > 0 refused (Slice G item 3)
             "gauss_frag_cap": 0,
             "lpips_weights": "",            # path to converted LPIPS .npz
             "smpl_vpb": 32,                 # synthetic SMPL's verts per
@@ -203,18 +204,10 @@ def default_config() -> Config:
 def check_supported(cfg: Config) -> None:
     """Raises NotImplementedError for a setting the port does not run
     yet, naming the slice that brings it."""
-    if int(cfg.train.get("batch_size", 1) or 1) > 1:
-        raise NotImplementedError(
-            "train.batch_size > 1 (the data x tile sharded step) comes with "
-            "the scale-out slice (ROADMAP Slice G)")
     if int(cfg.tpu.get("gauss_shard", 0) or 0):
         raise NotImplementedError(
-            "tpu.gauss_shard (the Gaussian-sharded renderer) comes with the "
-            "scale-out slice (ROADMAP Slice G)")
-    if int(cfg.train.get("anim_batch_size", 1) or 1) > 1:
-        raise NotImplementedError(
-            "train.anim_batch_size > 1 (the batched and sharded animate) "
-            "comes with the scale-out slice (ROADMAP Slice G)")
+            "tpu.gauss_shard (the Gaussian-sharded renderer and scene step) "
+            "comes with ROADMAP Slice G item 3")
 
 
 def load_config(path: str | None = None,

@@ -12,6 +12,11 @@ run with a human, renders the canonical turntable into OUTDIR/canon (the
 JAX package's evaluate stops after animate; its main.py renders the
 turntable). Exits 1 without a config_train.yaml or a checkpoint, 2
 without a card unless --device cpu.
+
+On N cards: `python -m torch.distributed.run --nproc_per_node=N -m
+hugs_tpu_torch.evaluate -o OUTDIR`. Each rank restores the checkpoint;
+rank 0 validates and writes, and animate splits each batch of
+train.anim_batch_size frames over the ranks.
 """
 from __future__ import annotations
 
@@ -22,9 +27,11 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from hugs_tpu_torch.cfg import load_config
 from hugs_tpu_torch.main import build_datasets
+from hugs_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from hugs_tpu_torch.train.trainer import GaussianTrainer
 
 
@@ -48,7 +55,9 @@ def evaluate(output_dir: str, device: torch.device | str = "cuda",
     cfg.logdir = output_dir
     cfg.logdir_ckpt = os.path.join(output_dir, "ckpt")
     _, val_ds, anim_ds = build_datasets(cfg, device)
-    trainer = trainer_cls(cfg, None, val_ds, anim_ds, device=device)
+    mesh = make_mesh()
+    trainer = trainer_cls(cfg, None, val_ds, anim_ds, device=device,
+                          mesh=mesh)
     if not trainer.load_latest_ckpt():
         print(f"error: no checkpoint found under {cfg.logdir_ckpt}",
               file=sys.stderr)
@@ -66,15 +75,18 @@ def evaluate(output_dir: str, device: torch.device | str = "cuda",
     # the training capacity's padded rows cost every frame
     stage("compact", trainer.compact_for_eval)
     stage("rehearse", trainer.rehearse_budget)
-    metrics = stage("validate", trainer.validate)
-    with open(os.path.join(output_dir, "results_eval.json"), "w") as f:
-        json.dump(metrics, f, indent=2)
-    print(json.dumps(metrics, indent=2))
+    if mesh.is_writer:
+        metrics = stage("validate", trainer.validate)
+        with open(os.path.join(output_dir, "results_eval.json"), "w") as f:
+            json.dump(metrics, f, indent=2)
+        print(json.dumps(metrics, indent=2))
+    mesh.barrier()
     if anim_ds is not None:
         stage("animate", trainer.animate)
-    if cfg.mode in ("human", "human_scene"):
+    if cfg.mode in ("human", "human_scene") and mesh.is_writer:
         stage("canonical", lambda: trainer.render_canonical(
             nframes=cfg.human.canon_nframes))
+    mesh.barrier()
     return 0
 
 
@@ -87,7 +99,12 @@ def cli(argv=None) -> int:
         print("ERROR: no CUDA device; pass --device cpu to run on the CPU",
               file=sys.stderr)
         return 2
-    return evaluate(args.output_dir, args.device)
+    device = init_distributed(args.device)
+    try:
+        return evaluate(args.output_dir, device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

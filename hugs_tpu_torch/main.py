@@ -12,6 +12,18 @@ results_train.json and the final checkpoint, validates and writes
 results_eval.json, animates the anim split into logdir/anim and renders
 the canonical avatar's turntable into logdir/canon (reference main.py:
 24-108). The device defaults to cuda; a run on the CPU must ask for it.
+
+On N cards of one machine (config[4]'s scale-out; train.batch_size a
+multiple of N, so that no rank idles):
+
+  python -m torch.distributed.run --nproc_per_node=N -m hugs_tpu_torch.main \\
+      --cfg_file ... train.batch_size=B [train.anim_batch_size=B] ...
+
+Under torchrun's variables each rank joins one process group (NCCL on
+card LOCAL_RANK; gloo with --device cpu) and trains its share of each
+batch; rank 0 writes the logdir, the checkpoints, the metrics and the
+images while the others wait, and animate splits each batch of frames
+over the ranks. Without the variables nothing changes.
 """
 from __future__ import annotations
 
@@ -22,16 +34,22 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hugs_tpu_torch.cfg import get_cfg_items, load_config
 from hugs_tpu_torch.data.neuman import NeumanDataset
+from hugs_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from hugs_tpu_torch.train.trainer import GaussianTrainer
 
 
-def setup_logdir(cfg):
+def setup_logdir(cfg, write: bool = True):
+    """Sets the run's logdir and, where `write`, makes its tree and
+    writes config_train.yaml."""
     cfg.logdir = os.path.join(cfg.output_path, cfg.dataset.name,
                               str(cfg.dataset.seq), cfg.exp_name)
     cfg.logdir_ckpt = os.path.join(cfg.logdir, "ckpt")
+    if not write:
+        return
     for sub in ("", "ckpt", "train", "val", "anim", "meshes", "canon"):
         os.makedirs(os.path.join(cfg.logdir, sub), exist_ok=True)
     with open(os.path.join(cfg.logdir, "config_train.yaml"), "w") as f:
@@ -66,28 +84,35 @@ def build_datasets(cfg, device):
 
 def main(cfg, device: torch.device | str = "cuda") -> int:
     np.random.seed(cfg.seed)
-    setup_logdir(cfg)
+    mesh = make_mesh()
+    setup_logdir(cfg, write=mesh.is_writer)
+    mesh.barrier()
     train_ds, val_ds, anim_ds = build_datasets(cfg, device)
     if train_ds is None and not cfg.eval:
         print(f"ERROR: dataset not found under "
               f"{cfg.dataset_path or 'data/neuman/dataset'}: prepare the "
               f"NeuMan data first", file=sys.stderr)
         return 1
-    trainer = GaussianTrainer(cfg, train_ds, val_ds, anim_ds, device=device)
+    trainer = GaussianTrainer(cfg, train_ds, val_ds, anim_ds, device=device,
+                              mesh=mesh)
     if not cfg.eval:
         log = trainer.train()
-        with open(os.path.join(cfg.logdir, "results_train.json"), "w") as f:
-            json.dump(log, f)
+        if mesh.is_writer:
+            with open(os.path.join(cfg.logdir, "results_train.json"),
+                      "w") as f:
+                json.dump(log, f)
         trainer.save_ckpt()
-    if val_ds is not None:
+    if val_ds is not None and mesh.is_writer:
         metrics = trainer.validate()
         with open(os.path.join(cfg.logdir, "results_eval.json"), "w") as f:
             json.dump(metrics, f, indent=2)
         print(json.dumps(metrics, indent=2))
+    mesh.barrier()
     if anim_ds is not None:
         trainer.animate()
-    if cfg.mode in ("human", "human_scene"):
+    if cfg.mode in ("human", "human_scene") and mesh.is_writer:
         trainer.render_canonical(nframes=cfg.human.canon_nframes)
+    mesh.barrier()
     return 0
 
 
@@ -105,9 +130,14 @@ def cli(argv=None) -> int:
     items = get_cfg_items(load_config(args.cfg_file, args.overrides))
     if args.cfg_id >= 0:
         items = [items[args.cfg_id]]
+    device = init_distributed(args.device)
     rc = 0
-    for c in items:
-        rc |= main(c, args.device) or 0
+    try:
+        for c in items:
+            rc |= main(c, device) or 0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     return rc
 
 

@@ -58,7 +58,8 @@ def render(
     ported yet."""
     if gauss_mesh is not None or gauss_frag_cap is not None:
         raise NotImplementedError(
-            "the Gaussian-sharded renderer comes with the scale-out slice")
+            "the Gaussian-sharded renderer comes with ROADMAP Slice G "
+            "item 3")
     dev = means3d.device
     if bg is None:
         bg = torch.zeros(3, dtype=torch.float32, device=dev)

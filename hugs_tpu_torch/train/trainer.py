@@ -28,9 +28,20 @@ the JAX package does) is rendered again at the grown budget before
 anything is updated: the forward is a separate stage from the update,
 so no copy of the states is needed for the retry.
 
-Not here yet: train.batch_size > 1, train.anim_batch_size > 1 and the
-Gaussian-sharded renders (the scale-out slice; cfg.check_supported
-refuses them).
+Scale-out (config[4]): train.batch_size B > 1, or a mesh of several
+ranks, trains through the data x tile step of parallel/train_dp_tile.py
+on the trainer's mesh, (world, 1) by default as hugs_tpu lays it out
+(hugs_tpu/train/trainer.py:449-562; a mesh passed in with a tile axis
+also bands each frame): n_data is the largest divisor of B not above the
+mesh's data ranks, and a mesh the batch would leave partly idle is
+refused (an idle rank cannot sit out a collective). Every rank draws the whole batch's frames and draws from
+the same seeded streams and trains its share; the retry is decided from
+the all-reduced overflow flag, so every rank grows its budget alike.
+train.anim_batch_size B > 1 animates in batches of B frames split over
+the mesh's data ranks, frame by frame on each. Rank 0 writes the logs,
+checkpoints, validation and images; the other ranks wait at a barrier.
+The Gaussian-sharded renders (tpu.gauss_shard) are not here yet
+(cfg.check_supported refuses them).
 """
 from __future__ import annotations
 
@@ -52,6 +63,12 @@ from hugs_tpu_torch.models import human_gs as hgs
 from hugs_tpu_torch.models import scene_gs as sgs
 from hugs_tpu_torch.models.smpl import load_smpl, synthetic_smpl
 from hugs_tpu_torch.models.subdivide import subdivide_smpl_model
+from hugs_tpu_torch.parallel.collectives import broadcast_
+from hugs_tpu_torch.parallel.mesh import Mesh, make_mesh
+from hugs_tpu_torch.parallel.shard import batch_render_sharded
+from hugs_tpu_torch.parallel.train_dp_tile import (
+    dp_aux, make_dp_tile_train_step,
+)
 from hugs_tpu_torch.render.renderer import render_human_scene
 from hugs_tpu_torch.train import checkpoint as ckpt_io
 from hugs_tpu_torch.train import human_step as hst
@@ -75,12 +92,17 @@ def _budget_bucket(needed: int) -> int:
 
 
 class GaussianTrainer:
+    # the mesh: (world, 1) over the process group, (1, 1) without one
+    # (also for a trainer made without __init__)
+    mesh: Mesh = Mesh()
+
     def __init__(self, cfg: Config, train_dataset=None, val_dataset=None,
                  anim_dataset=None, smpl_model=None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", mesh: Mesh | None = None):
         check_supported(cfg)
         self.cfg = cfg
         self.device = dev = torch.device(device)
+        self.mesh = make_mesh() if mesh is None else mesh
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
         self.anim_dataset = anim_dataset
@@ -227,21 +249,31 @@ class GaussianTrainer:
     # ------------------------------------------------------------- train
 
     def train(self):
+        """The train loop: one frame a step, or with train.batch_size > 1
+        or several ranks, a batch a step through the data x tile step."""
         cfg = self.cfg
+        bsz = int(cfg.train.get("batch_size", 1) or 1)
+        batched = bsz > 1 or self.mesh.size > 1
+        if batched:
+            self._check_batch_layout(bsz)
+            self._broadcast_states()
         n = len(self.train_dataset)
         order = self.rng.permutation(n)
         pos = 0
         log = []
         t_start = time.time()
         for t_iter in range(cfg.train.num_steps + 1):
-            if pos >= n:
-                order = self.rng.permutation(n)
-                pos = 0
-            idx = int(order[pos])
-            pos += 1
-            data = self.train_dataset[idx]
-            aux, vals = self._train_step(t_iter, idx, data,
-                                         self._is_sync_step(t_iter))
+            idxs = []
+            for _ in range(bsz if batched else 1):
+                if pos >= n:
+                    order = self.rng.permutation(n)
+                    pos = 0
+                idxs.append(int(order[pos]))
+                pos += 1
+            data = self.train_dataset[idxs[0]]
+            sync = self._is_sync_step(t_iter)
+            aux, vals = (self._batched_step(t_iter, idxs, sync) if batched
+                         else self._train_step(t_iter, idxs[0], data, sync))
             if t_iter % 10 == 0 and vals is not None:
                 rec = {"iter": t_iter, "loss": vals[0],
                        "elapsed_s": time.time() - t_start}
@@ -372,6 +404,101 @@ class GaussianTrainer:
             self._maybe_densify_scene(t_iter)
         return aux, vals
 
+    # ---------------------------------------------------- batched training
+
+    def _check_batch_layout(self, bsz: int):
+        """Raises ValueError unless a batch of bsz frames can train here:
+        the joint mode with both models, and a mesh of exactly n_data
+        data ranks, n_data the largest divisor of bsz not above their
+        number (hugs_tpu/train/trainer.py:483-493)."""
+        cfg = self.cfg
+        if cfg.mode != "human_scene" or self.human is None \
+                or self.scene is None:
+            raise ValueError(
+                "train.batch_size > 1 (or several ranks) runs the joint data "
+                "x tile step and needs mode='human_scene' (got mode="
+                f"'{cfg.mode}')")
+        n = self.mesh.shape["data"]
+        n_data = max(d for d in range(1, min(bsz, n) + 1) if bsz % d == 0)
+        if n_data != n:
+            raise ValueError(
+                f"train.batch_size {bsz} splits over {n_data} data ranks, "
+                f"which would leave {n - n_data} of the mesh's {n} data "
+                f"ranks idle: launch {n_data} ranks or pick a batch size "
+                f"that {n} divides")
+
+    def _broadcast_states(self):
+        """Rank 0's states on every rank before the first step (the
+        distillation's atomics on the card need not agree bit for bit);
+        from then on every rank applies the same reduced gradients."""
+        if self.mesh.distributed:
+            broadcast_([t.data for st in (self.human, self.scene)
+                        for t in ckpt_io.flatten(st).values()], self.mesh)
+
+    def _get_dp_step(self, W: int, H: int, mode: str):
+        """The data x tile step for frames of W x H in `mode` (human
+        before scene.opt_start_iter, else human_scene), cached."""
+        key = (W, H, mode)
+        if getattr(self, "_dp_key", None) != key:
+            self._dp_step = make_dp_tile_train_step(
+                self.mesh, self.fixed, self.human_cfg, width=W, height=H,
+                loss_fn=self.loss_fn,
+                lpips=self.lpips if self.loss_fn.l_lpips_w > 0 else None,
+                instance_budget=self._ibudget,
+                optim_scene=self.cfg.train.optim_scene, mode=mode)
+            self._dp_key = key
+        return self._dp_step
+
+    def _batch_frames(self, t_iter: int, idxs: list) -> list:
+        """The batch's frames with their draws, the same on every rank:
+        each frame's background, human background and loss draws, in
+        the order the one-frame loop draws them."""
+        mode = self._mode(t_iter)
+        frames = []
+        for i in idxs:
+            d = self.train_dataset[i]
+            bg, human_bg, draws = self._step_draws(mode, d["height"],
+                                                   d["width"])
+            frames.append(dict(
+                camera=d["camera"], rgb=d["rgb"], mask=d["mask"], bg=bg,
+                human_bg=bg if human_bg is None else human_bg,
+                smpl_scale=self._scale(d), dataset_idx=i, draws=draws))
+        return frames
+
+    def _batched_step(self, t_iter: int, idxs: list, sync: bool):
+        """One batch in place: this rank's share of the frames through the
+        data x tile step's forward and backward (again at a grown budget
+        if a sync step overflowed on any rank), then Adam and the
+        statistics, then the densify where due. Returns _train_step's
+        (aux, vals)."""
+        mode = self._mode(t_iter)
+        frames = self._batch_frames(t_iter, idxs)
+        d0 = self.train_dataset[idxs[0]]
+        step = self._get_dp_step(d0["width"], d0["height"], mode)
+        jstate = jst.JointTrainState(human=self.human, scene=self.scene)
+        vals = None
+        for attempt in range(3):
+            self.retries += attempt > 0
+            g = step.grads(jstate, frames, self._ibudget)
+            if not sync:
+                break
+            v = torch.stack([g.loss.double()] + [
+                x.double() for x in (g.n_slots, g.overflowed,
+                                     g.n_instances)]).tolist()
+            vals = (v[0], int(v[1]), bool(v[2]), int(v[3]))
+            if not self._check_budget(vals[1], vals[2], vals[3]):
+                break
+        else:
+            print(f"WARNING: tile-instance budget overflow persists at iter "
+                  f"{t_iter} (budget={self._ibudget})")
+        step.update(jstate, g, self.h_xyz_sched(t_iter), self.h_static_lrs,
+                    self.s_xyz_sched(t_iter), self.s_static_lrs)
+        aux = dp_aux(g)
+        self._maybe_densify_human(t_iter, aux)
+        if mode == "human_scene":
+            self._maybe_densify_scene(t_iter)
+        return aux, vals
+
     def _split_noise(self, capacity: int) -> torch.Tensor:
         """A densify's split noise, (2, capacity, 3) standard normal."""
         return torch.randn((2, capacity, 3), generator=self.gen,
@@ -427,7 +554,9 @@ class GaussianTrainer:
         validation at their intervals, the iteration-0 dumps and, every
         anim_interval, the human PLY, animate and the turntable. The
         progress strip and the two dump hooks are observability: an
-        error there is printed as a warning and training goes on."""
+        error there is printed as a warning and training goes on. With
+        several ranks rank 0 does all but the SH step, alone (animate on
+        no mesh), while the others wait at a barrier."""
         cfg = self.cfg
         if t_iter % 1000 == 0 and t_iter > 0:
             if self.human is not None:
@@ -436,6 +565,12 @@ class GaussianTrainer:
                 sgs.one_up_sh_degree(self.scene.gs, cfg.scene.sh_degree)
         if not cfg.logdir:
             return
+        if self.mesh.is_writer:
+            self._write_periodic(t_iter, data)
+        self.mesh.barrier()
+
+    def _write_periodic(self, t_iter: int, data):
+        cfg = self.cfg
         has_human = cfg.mode in ("human", "human_scene") \
             and self.human is not None
         if t_iter > 0 and t_iter % 1000 == 0 and data is not None:
@@ -460,7 +595,7 @@ class GaussianTrainer:
                 # reference gs_trainer.py:371-378
                 self._save_human_ply(t_iter)
                 if self.anim_dataset is not None:
-                    self.animate(t_iter)
+                    self.animate(t_iter, mesh=Mesh())
                 if has_human:
                     self.render_canonical(t_iter,
                                           nframes=cfg.human.canon_nframes)
@@ -478,8 +613,8 @@ class GaussianTrainer:
                   f"{type(e).__name__}: {e}")
 
     def _log_jsonl(self, rec: dict):
-        """One record appended to logdir/metrics.jsonl."""
-        if not self.cfg.logdir:
+        """One record appended to logdir/metrics.jsonl (rank 0's)."""
+        if not self.cfg.logdir or not self.mesh.is_writer:
             return
         with open(os.path.join(self.cfg.logdir, "metrics.jsonl"), "a") as f:
             f.write(json.dumps(rec) + "\n")
@@ -660,8 +795,8 @@ class GaussianTrainer:
 
     def save_ckpt(self, t_iter: int | None = None):
         """Both train states under logdir_ckpt, and the scene's live
-        Gaussians as a 3DGS PLY under logdir/meshes."""
-        if not self.cfg.logdir_ckpt:
+        Gaussians as a 3DGS PLY under logdir/meshes; rank 0's only."""
+        if not self.cfg.logdir_ckpt or not self.mesh.is_writer:
             return
         iter_s = "final" if t_iter is None else f"{t_iter:06d}"
         ckpt_io.save(self.cfg.logdir_ckpt, iter_s, human=self.human,
@@ -739,23 +874,56 @@ class GaussianTrainer:
         return f"{self.cfg.logdir}/{kind}/{iter_s}" if self.cfg.logdir \
             else None
 
-    def animate(self, t_iter: int | None = None) -> list:
+    def _anim_frame(self, data) -> torch.Tensor:
+        """One anim frame: render_frame with the split's alignment."""
+        return self.render_frame(data, ext_tfs=self.ext_tfs_of(data))[
+            "render"]
+
+    def _animate_batched(self, batch_size: int, mesh: Mesh) -> list:
+        """The anim split in batches (hugs_tpu/train/trainer.py:998-1050):
+        padded by repeating the last frame to whole batches, each batch
+        split over the mesh's data ranks (batch_size rounded up to a
+        multiple of them) and rendered frame by frame on each, then
+        gathered. The binning's shapes depend on the data, so frames are
+        not vmapped."""
+        ds = self.anim_dataset
+        n = len(ds)
+        datas = [ds[i] for i in range(n)]
+        n_data = mesh.shape["data"]
+        chunk = -(-batch_size // n_data) * n_data
+        datas += datas[-1:] * ((-n) % chunk)
+        frames = []
+        for c0 in range(0, len(datas), chunk):
+            frames += list(batch_render_sharded(
+                self._anim_frame, datas[c0:c0 + chunk], mesh))
+        return frames[:n]
+
+    def animate(self, t_iter: int | None = None,
+                batch_size: int | None = None,
+                mesh: Mesh | None = None) -> list:
         """Renders the anim split, one render_frame per frame with the
-        split's alignment, to logdir/anim/{iter}/{idx:05d}.png, and a
-        video of them when there is more than one. Returns the images
-        (3, H, W) on the device. train.anim_batch_size > 1 (frames
-        batched or sharded) comes with the scale-out slice."""
+        split's alignment, to logdir/anim/{iter}/{idx:05d}.png (rank 0),
+        and a video of them when there is more than one. batch_size
+        (default train.anim_batch_size) > 1 renders in batches split over
+        the data ranks of `mesh` (default the trainer's; Mesh() renders
+        alone), which every one of its ranks must call. Returns the
+        images (3, H, W) on the device."""
         if self.anim_dataset is None:
             return []
+        mesh = self.mesh if mesh is None else mesh
         iter_s = "final" if t_iter is None else f"{t_iter:06d}"
-        anim_dir = self._out_dir("anim", iter_s)
-        frames = []
-        for idx in range(len(self.anim_dataset)):
-            data = self.anim_dataset[idx]
-            pkg = self.render_frame(data, ext_tfs=self.ext_tfs_of(data))
-            frames.append(pkg["render"])
-            if anim_dir:
-                save_png(frames[-1], f"{anim_dir}/{idx:05d}.png")
+        anim_dir = self._out_dir("anim", iter_s) if mesh.is_writer else None
+        bsz = int(batch_size or self.cfg.train.get("anim_batch_size", 1)
+                  or 1)
+        n = len(self.anim_dataset)
+        if bsz > 1 and self.human is not None and n > 1:
+            frames = self._animate_batched(bsz, mesh)
+        else:
+            frames = [self._anim_frame(self.anim_dataset[i])
+                      for i in range(n)]
+        if anim_dir:
+            for idx, img in enumerate(frames):
+                save_png(img, f"{anim_dir}/{idx:05d}.png")
         if anim_dir and len(frames) > 1:
             # the reference writes a video per animate() call
             # (gs_trainer.py:582-586, utils/general.py:86-92)
@@ -808,9 +976,10 @@ class GaussianTrainer:
 
     def _finish_progress_video(self):
         """The progress strips into one video, then the strips go
-        (reference gs_trainer.py:388-391)."""
+        (reference gs_trainer.py:388-391); rank 0's."""
         cfg = self.cfg
-        if not (cfg.logdir and cfg.train.save_progress_images):
+        if not (cfg.logdir and cfg.train.save_progress_images
+                and self.mesh.is_writer):
             return
         pdir = os.path.join(cfg.logdir, "train_progress")
         if not os.path.isdir(pdir):

@@ -296,10 +296,16 @@ def test_animate_as_jax(pair, tmp_path, restore_logdir):
     np.testing.assert_array_equal(png, timage._to_uint8_hwc(got[2]))
 
 
-def test_anim_batch_size_refused():
+def test_anim_batch_size_refused(pair):
+    """train.anim_batch_size > 1 is no longer refused: animate renders the
+    split in batches (hugs_tpu_torch/parallel), each frame as
+    hugs_tpu's animate(batch_size=1) renders it."""
+    jt, tt = pair
     check_supported(load_config(None, ["train.anim_batch_size=1"]))
-    with pytest.raises(NotImplementedError, match="Slice G"):
-        check_supported(load_config(None, ["train.anim_batch_size=2"]))
+    check_supported(load_config(None, ["train.anim_batch_size=2"]))
+    assert tt.cfg.logdir == ""
+    assert_images(tt.animate(batch_size=2), jt.animate(batch_size=1),
+                  "anim frame, batches of 2")
 
 
 def test_render_canonical_as_jax(pair, tmp_path, restore_logdir):

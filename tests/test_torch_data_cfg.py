@@ -73,9 +73,25 @@ def test_dotted_overrides_as_jax():
     ("train.batch_size=2", "Slice G"), ("tpu.gauss_shard=2", "Slice G"),
     ("train.anim_batch_size=2", "Slice G")])
 def test_unported_settings_raise(override, slice_name):
+    """tpu.gauss_shard is still refused, naming Slice G item 3. The
+    batched settings of Slice G items 1-2 pass (hugs_tpu_torch/parallel);
+    train.batch_size > 1 outside mode human_scene makes the trainer raise
+    ValueError, as hugs_tpu's does."""
+    from hugs_tpu_torch.train.trainer import GaussianTrainer
     check_supported(default_config())
-    with pytest.raises(NotImplementedError, match=slice_name):
-        check_supported(load_config(None, [override]))
+    cfg = load_config(None, [override])
+    if override.startswith("tpu.gauss_shard"):
+        with pytest.raises(NotImplementedError,
+                           match=f"{slice_name} item 3"):
+            check_supported(cfg)
+        return
+    check_supported(cfg)
+    if override.startswith("train.batch_size"):
+        tr = object.__new__(GaussianTrainer)
+        tr.cfg = load_config(None, [override, "mode=human"])
+        tr.human, tr.scene = object(), None
+        with pytest.raises(ValueError, match="human_scene"):
+            tr.train()
 
 
 # ---------------------------------------------------------------- PNG

@@ -97,6 +97,22 @@ def test_serving_modules_are_among_the_checked():
             in sources, name
 
 
+def test_parallel_modules_are_among_the_checked():
+    """The modules of the scale-out slice (the mesh, the collectives, the
+    band and frame renders, the data x tile step, the rank launcher and
+    its checks) stand alone like the rest: the checks around this one
+    walk them."""
+    modules = _port_modules()
+    sources = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for name in ("parallel", "parallel.mesh", "parallel.collectives",
+                 "parallel.shard", "parallel.train_dp_tile",
+                 "parallel.launch", "parallel.check"):
+        assert f"hugs_tpu_torch.{name}" in modules, name
+        path = os.path.join("hugs_tpu_torch", *name.split("."))
+        assert path + ".py" in sources or os.path.join(
+            path, "__init__.py") in sources, name
+
+
 def _imported_names(path):
     tree = ast.parse(open(path).read(), path)
     for node in ast.walk(tree):
