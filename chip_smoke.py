@@ -2,10 +2,11 @@
 """Drives the hugs_tpu_torch serving render, scene training, the avatar
 serving frame, the three micro-benchmarks, human training, joint
 human + scene training through the port's CLI, the evaluation of its
-output (validate, animate, the turntable, the inference fast path) and
-its scale-out (image bands, batched animate, the batched joint step
-through torch.distributed) on one NVIDIA GPU (and on several, where the
-machine has them, for one data x tile step).
+output (validate, animate, the turntable, the inference fast path), its
+scale-out (image bands, batched animate, the batched joint step
+through torch.distributed) and the Gaussian-sharded renderer and scene
+step on one NVIDIA GPU (and on several, where the machine has them, for
+one data x tile step).
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It builds the CUDA kernels (K1, the forward blend; K2, its backward,
@@ -160,6 +161,23 @@ source, all together, then:
      (mesh factored as __graft_entry__.py's dryrun_multichip): the loss
      (c)'s and the states bit for bit equal across ranks; with one card
      a line says it did not run;
+  3i. the Gaussian-sharded path (tpu.gauss_shard) on phase 3f's run
+     (after 3h): (a) anim frame 0's merged set at 3f's capacities
+     (2,621,440 rows) through render(gauss_mesh=<one rank>) against
+     render(): the image (K1 on the fragment band), an L1 loss's
+     gradient of xyz, scales, rotq, opacity and shs (K2, K2's bars), the
+     fragments equal to the kept instances, one K1 and one K2; K1 and K2
+     on the fragment band against the plain bins with their bounds, the
+     pack and sort times, the peak memory; (b) on 3f's scene (2,097,152
+     rows) GAUSS_STEPS[0] gauss steps, a densify fed the same noise and
+     GAUSS_STEPS[1] more against scene_train_step on copies of the same
+     state: the loss each step within GAUSS_LOSS_RTOL, n_alive equal, the
+     step by stage; (c) hugs_tpu_torch.main in scene mode with
+     tpu.gauss_shard 1 for GAUSS_MAIN_STEPS steps (K1 a step, a val and
+     an anim frame), render_frame with gauss_shard 1 against 0; (d)
+     graft_entry.entry()'s frame and dryrun_multichip(1); (e) the
+     per-Gaussian avatar on 3c's body through K1 at W x H, and at
+     EVAL_CPU_WH against the CPU;
   4. times on the card (CUDA events, median of 20 after warm-up): one
      request split into project / bin / blend, one training step split
      into forward / loss / backward / Adam + stats, one densify step,
@@ -178,8 +196,11 @@ device, or without the repository beside it, it exits non-zero and
 prints no result.
 
 `python3 chip_smoke.py --scale-out` runs phase 3h's checks (c) and (d)
-alone, on phase 3f's sequence trained for 2 steps: the path a machine
-with several cards exists for (on one card (d) says it did not run).
+alone, on phase 3f's sequence trained for 2 steps, then with
+GAUSS_SCALE_OUT cards tpu.gauss_shard=GAUSS_SCALE_OUT on as many NCCL
+ranks (val frame 0 and the gauss steps with a densify against world 1)
+and dryrun_multichip(GAUSS_SCALE_OUT): the paths a machine with several
+cards exists for (on one card each says it did not run).
 """
 import json
 import math
@@ -322,6 +343,14 @@ DP_BATCH = 2
 DP_STEPS = 3
 DP_RANKS_MAX = 4
 DP_TIMEOUT = 600.0
+# phase 3i, the Gaussian-sharded path (tpu.gauss_shard) on phase 3f's
+# run: (b) GAUSS_STEPS[0] steps, a densify, GAUSS_STEPS[1] more; (c)
+# hugs_tpu_torch.main in scene mode for GAUSS_MAIN_STEPS steps; (e) the
+# per-Gaussian avatar held to the CPU at EVAL_CPU_WH
+GAUSS_STEPS = (3, 2)
+GAUSS_MAIN_STEPS = 4
+GAUSS_LOSS_RTOL = 1e-3
+GAUSS_SCALE_OUT = 4
 # `--scale-out`: checks (c) and (d) alone, on phase 3f's sequence and
 # JOINT_CUTS trained for 2 steps after a 50-step distillation
 SCALE_OUT_CUTS = dict(JOINT_CUTS, **{
@@ -1737,7 +1766,7 @@ def joint_training(dev, smi, project, slot_budget, cull_counts,
         if profile[2] else None,
         "card_vs_cpu_max_abs": worst_b, "phase_s": phase_s,
         "logdir": cfg.logdir, "k1_after_train": k1_after, "cfg": cfg,
-        "train_dataset": tr.train_dataset,
+        "train_dataset": tr.train_dataset, "trainer": tr,
     }
 
 
@@ -2082,6 +2111,60 @@ def evaluation(dev, smi, project, cull_counts, tile_of_pixel, kernel_times,
     }
 
 
+def blend_work(feat, b, width, height, pairs, cull):
+    """What K1 and K2 must do for one frame (or band) of width x height
+    over bins b: {"k1" / "k2": (operations, operations at the first
+    kernels' count, bytes)} and the rows of feat the lists reference. The
+    operations: the pairs the cull keeps, the culls and the blended
+    pairs (K2's per-instance gradient, 11 per (tile, instance), left
+    out); the bytes: each input read once, each output written once."""
+    tested, blended = (int(x) for x in pairs.sum(dim=(1, 2)))
+    n_inst = int((b.ends - b.starts).sum())
+    n_tiles = b.starts.shape[0]
+    kept = cull["tested"]
+    # both kernels read a row of feat only through the lists
+    n_rows = feat_rows_read(b)
+    row_bytes = feat.shape[1] * 4
+    pix = width * height
+    return {
+        # the referenced rows of feat, the list, starts + ends, bg;
+        # image + log T + n_walked; walked
+        "k1": (OPS_TESTED * kept + OPS_CULL * cull["K1"]
+               + OPS_BLENDED * blended,
+               OPS_TESTED * tested + OPS_BLENDED * blended,
+               n_rows * row_bytes + n_inst * 4 + 2 * n_tiles * 4 + 3 * 4
+               + 5 * pix * 4 + n_tiles * 4),
+        # the referenced rows of feat, the list, starts, bg; g + log T +
+        # n_walked; K2's outputs, grad_feat (N, 10) written whole (zeroed,
+        # then summed into) and grad_bg
+        "k2": (OPS_TESTED * kept + OPS_CULL * cull["K2"]
+               + OPS_WARP_SUM * cull["K2_kept"]
+               + OPS_BWD_BLENDED * blended,
+               OPS_TESTED * tested + OPS_BWD_BLENDED_FIRST * blended,
+               n_rows * row_bytes + n_inst * 4 + n_tiles * 4 + 3 * 4
+               + 5 * pix * 4 + feat.numel() * 4 + 3 * 4)}, n_rows
+
+
+def blend_bounds(feat, b, width, height, bg, n_walked):
+    """K1's and K2's bounds (ms) on one frame or band, and what bounds
+    each: the larger of blend_work's operations over the card's float32
+    peak and its bytes over its memory rate; the pairs from the plain
+    blend, the culls from the kernels' own warp cull."""
+    from hugs_tpu_torch.render.blend import plain_blend
+    pairs = plain_blend(feat, b.gauss_id, b.starts, b.ends, bg, width,
+                        height)[2]
+    cull = warp_cull_counts(feat, b, n_walked, width, height)
+    work, n_rows = blend_work(feat, b, width, height, pairs, cull)
+    out = {"feat_rows_read": n_rows,
+           "instances": int((b.ends - b.starts).sum())}
+    for k, (ops, _, nbytes) in work.items():
+        ops_ms, bytes_ms = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+        out[k + "_bound"] = max(ops_ms, bytes_ms)
+        out[k + "_bound_by"] = "operations" if ops_ms >= bytes_ms \
+            else "bytes"
+    return out
+
+
 def held_tensors(name, got: list, want: list):
     """K2's bars (held_grad's share and norm) on each pair of gradient
     tensors, flattened; raises naming the first pair outside them.
@@ -2194,9 +2277,9 @@ def bands_check(dev, smi, project, tr):
             [x.reshape(x.shape[0], -1) for x in grads], dim=1)
 
     def band_times(n):
-        """Each band's K1 and K2 alone, back to back (ms), and its
-        instances."""
-        k1_ms, k2_ms, inst = [], [], []
+        """Each band's K1 and K2 alone (ms, single launches), its
+        instances, and each kernel's bound on the band."""
+        k1_ms, k2_ms, inst, bounds = [], [], [], []
         band_h = band_height(H, n)
         for b in range(n):
             with torch.no_grad():
@@ -2211,13 +2294,21 @@ def bands_check(dev, smi, project, tr):
                 k1_ms.append(device_ms(lambda: cuda_blend.blend_fwd(*args)))
                 k2_ms.append(device_ms(lambda: cuda_blend.blend_bwd(
                     *args, gr, logt, nwalk)))
+                bounds.append(blend_bounds(feat, bins, W, band_h, bg, nwalk))
             inst.append(int((bins.ends - bins.starts).sum()))
-        print(f"# (a) {n} band(s): instances {inst}; K1 ms per band "
-              f"{[round(x, 4) for x in k1_ms]} (sum {sum(k1_ms):.4f}), K2 "
-              f"{[round(x, 4) for x in k2_ms]} (sum {sum(k2_ms):.4f})  "
-              f"[{smi}]")
+        per = {k: [b[k] for b in bounds] for k in (
+            "k1_bound", "k2_bound", "k1_bound_by", "k2_bound_by",
+            "feat_rows_read")}
+        print(f"# (a) {n} band(s): instances {inst} over rows of feat "
+              f"{per['feat_rows_read']}; K1 ms per band "
+              f"{[round(x, 4) for x in k1_ms]} (sum {sum(k1_ms):.4f}), bound "
+              f"{[round(x, 5) for x in per['k1_bound']]} by "
+              f"{per['k1_bound_by']}; K2 {[round(x, 4) for x in k2_ms]} (sum "
+              f"{sum(k2_ms):.4f}), bound "
+              f"{[round(x, 5) for x in per['k2_bound']]} by "
+              f"{per['k2_bound_by']}  [{smi}]")
         return {"band_rows": band_h, "instances": inst, "k1_ms": k1_ms,
-                "k2_ms": k2_ms}
+                "k2_ms": k2_ms, **per}
 
     one_img, one_grad = stitched(1)
     bands = {1: band_times(1)}
@@ -2471,6 +2562,412 @@ def scale_out(dev, smi, project, joint, evaln):
     out["multi_rank"] = multi_card_check(smi, cfg, out["dp_loss"])
     out["phase_s"] = time.time() - t_phase
     print(f"# phase 3h: {out['phase_s']:.1f} s (host clock)  [{smi}]")
+    return out
+
+
+def gauss_frame_check(dev, smi, project, slot_budget, tr, d0):
+    """Check (a) of phase 3i: anim frame 0's merged set at phase 3f's
+    capacities through render(gauss_mesh=<one rank>) against render():
+    the image (K1), an L1 loss's gradient of the inputs (K2's bars), the
+    fragments against the kept instances, the launches; then K1 and K2
+    on the fragment band against the plain bins, the pack and sort, and
+    the peak memory. Returns its numbers."""
+    from hugs_tpu_torch.parallel.gauss_shard import (
+        pack_fragments, sort_fragments,
+    )
+    from hugs_tpu_torch.parallel.mesh import make_gauss_mesh
+    from hugs_tpu_torch.parallel.shard import band_height
+    from hugs_tpu_torch.render import cuda_blend
+    from hugs_tpu_torch.render.blend import gauss_features
+    from hugs_tpu_torch.render.renderer import render
+    from hugs_tpu_torch.render.tiles import TileBins, bin_gaussians, tile_grid
+
+    mesh = make_gauss_mesh(1)
+    with torch.no_grad():
+        h_out, s_out = tr.forward_models(d0, ext_tfs=tr.ext_tfs_of(d0))
+        a = {k: torch.cat([h_out[k], s_out[k]]) for k in
+             ("xyz", "scales", "rotq", "opacity", "shs", "alive")}
+        pg = project(d0["camera"], a, a["alive"], h_out["active_sh_degree"])
+        probe = bin_gaussians(pg, W, H, 4 * a["xyz"].shape[0])
+        budget = slot_budget(int(probe.n_slots))
+        bins = bin_gaussians(pg, W, H, budget)
+        kept = int((bins.ends - bins.starts).sum())
+        if bool(bins.overflowed):
+            raise AssertionError(f"anim frame 0 overflowed {budget} slots")
+    n_rows = a["xyz"].shape[0]
+    deg = h_out["active_sh_degree"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    target = torch.rand((3, H, W), generator=g, device=dev)
+    keys = ("xyz", "scales", "rotq", "opacity", "shs")
+
+    def run(**kw):
+        leaf = {k: a[k].detach().clone().requires_grad_() for k in keys}
+        out = render(*(leaf[k] for k in keys), d0["camera"], W, H,
+                     bg=tr.bg_color, active_sh_degree=deg, alive=a["alive"],
+                     instance_budget=budget, **kw)
+        grads = torch.autograd.grad((out["render"] - target).abs().mean(),
+                                    [leaf[k] for k in keys])
+        torch.cuda.synchronize()
+        alive = a["alive"]
+        return out, [x[alive] for x in grads]
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ref, ref_grads = run()
+    peak_ref = torch.cuda.max_memory_allocated() - base
+    cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got, got_grads = run(gauss_mesh=mesh)
+    peak = torch.cuda.max_memory_allocated() - base
+    k1, k2 = cuda_blend.LAUNCHES, cuda_blend.K2_LAUNCHES
+    frags = int(got["frag_counts"].sum())
+    print(f"# (a) anim frame 0 through render(gauss_mesh=<1 rank>): "
+          f"{n_rows} rows ({int(a['alive'].sum())} alive), {kept} kept "
+          f"instances, {frags} fragments, budget {budget}; {k1} K1 and {k2} "
+          f"K2 launches; peak memory above the inputs {peak / 2**30:.3f} GiB"
+          f" (render(): {peak_ref / 2**30:.3f} GiB)  [{smi}]")
+    if k1 != 1 or k2 != 1:
+        raise AssertionError(f"the fragment path launched K1 {k1} and K2 "
+                             f"{k2} times")
+    if frags != kept or bool(got["overflowed"]):
+        raise AssertionError(f"{frags} fragments for {kept} kept instances"
+                             f" (overflowed {bool(got['overflowed'])})")
+    img_err = held("(a) K1 on the fragment band vs render(), anim frame 0",
+                   got["render"].detach(), ref["render"].detach())
+    grad_err, grad_rel = held_tensors(
+        "(a) K2 through the fragments vs render(): the gradients of xyz, "
+        "scales, rotq, opacity, shs (alive rows)", got_grads, ref_grads)
+    del ref, got, ref_grads, got_grads
+
+    # the stages on one rank, and K1 / K2 on the band against the bins
+    band_h = band_height(H, 1)
+    nx, ny = tile_grid(W, band_h)
+    with torch.no_grad():
+        pb = bin_gaussians(pg, W, band_h, budget)
+        pack_ms = device_ms(lambda: pack_fragments(pg, pb, 1, nx * ny,
+                                                   budget, 0))
+        fr = pack_fragments(pg, pb, 1, nx * ny, budget, 0)
+        sort_ms = device_ms(lambda: sort_fragments(fr.feat, fr.meta,
+                                                   nx * ny))
+        f_feat, f_starts, f_ends = sort_fragments(fr.feat, fr.meta, nx * ny)
+        f_gid = torch.arange(f_feat.shape[0], dtype=torch.int32, device=dev)
+        fb = TileBins(gauss_id=f_gid, starts=f_starts, ends=f_ends,
+                      n_instances=None, aligned_total=None, overflowed=None,
+                      n_slots=None)
+        bg = tr.bg_color
+        feat = gauss_features(pg)
+        out = {"rows": n_rows, "kept": kept, "fragments": frags,
+               "budget": budget, "k1_launches": k1, "k2_launches": k2,
+               "image_max_abs": img_err, "grad_max_abs": grad_err,
+               "grad_rel_norm": grad_rel,
+               "peak_gib": peak / 2**30, "render_peak_gib": peak_ref / 2**30,
+               "pack_ms": pack_ms, "sort_ms": sort_ms}
+        for name, (f, b, h) in (("fragments", (f_feat, fb, band_h)),
+                                ("bins", (feat, bins, H))):
+            args = (f, b.gauss_id, b.starts, b.ends, bg, W, h)
+            _, logt, nwalk, _ = cuda_blend.blend_fwd(*args)
+            gr = torch.rand((3, h, W), generator=g, device=dev)
+            t = {"k1_ms": device_ms(lambda: cuda_blend.blend_fwd(*args),
+                                    inner=BACK_TO_BACK),
+                 "k2_ms": device_ms(lambda: cuda_blend.blend_bwd(
+                     *args, gr, logt, nwalk), inner=BACK_TO_BACK)}
+            t.update(blend_bounds(f, b, W, h, bg, nwalk))
+            out[name] = t
+            print(f"# (a) K1 / K2 on the {name} (W x {h}): {t['k1_ms']:.4f} /"
+                  f" {t['k2_ms']:.4f} ms ({BACK_TO_BACK} back-to-back), "
+                  f"bounds {t['k1_bound']:.5f} by {t['k1_bound_by']} / "
+                  f"{t['k2_bound']:.5f} by {t['k2_bound_by']} ms; "
+                  f"{t['instances']} instances over {t['feat_rows_read']} of"
+                  f" {f.shape[0]} rows of feat  [{smi}]")
+    print(f"# (a) one rank's fragment work: pack {pack_ms:.4f} ms, sort "
+          f"{sort_ms:.4f} ms (median of 20, CUDA events), no exchange on "
+          f"one rank; {budget} rows a packet  [{smi}]")
+    return out
+
+
+def gauss_step_check(dev, smi, tr):
+    """Check (b) of phase 3i on phase 3f's scene (its final state, at
+    its capacity): GAUSS_STEPS[0] Gaussian-sharded steps on one rank, a
+    densify fed the same noise, GAUSS_STEPS[1] more, against
+    scene_train_step on copies of the same state and frames: the loss
+    each step, n_alive after the densify; the gauss step by stage."""
+    from hugs_tpu_torch.parallel.gauss_train import (
+        gauss_densify_step, make_gauss_scene_train_step, shard_scene_state,
+    )
+    from hugs_tpu_torch.parallel.mesh import make_gauss_mesh
+    from hugs_tpu_torch.render import cuda_blend
+    from hugs_tpu_torch.train import scene_step as sst
+
+    mesh = make_gauss_mesh(1)
+    cfg = tr.cfg
+    budget = tr._ibudget
+    ref = shard_scene_state(tr.scene, mesh)      # a whole copy on one rank
+    mine = shard_scene_state(tr.scene, mesh)
+    cap = ref.gs.capacity
+    step = make_gauss_scene_train_step(
+        mesh, width=W, height=H, l1_w=cfg.scene.loss.l1_w,
+        ssim_w=cfg.scene.loss.ssim_w, local_budget=budget)
+    g = torch.Generator(device=dev).manual_seed(SEED + 43)
+    noise = torch.randn((2, cap, 3), generator=g, device=dev)
+    black = torch.zeros(3, device=dev)
+    n = len(tr.train_dataset)
+    losses, stages = [], {k: [] for k in ("render", "loss", "grads",
+                                          "update", "step")}
+    k1_gauss = k2_gauss = 0
+    for i in range(sum(GAUSS_STEPS)):
+        if i == GAUSS_STEPS[0]:
+            kw = dict(grad_threshold=cfg.scene.densify_grad_threshold,
+                      min_opacity=cfg.scene.prune_min_opacity,
+                      percent_dense=cfg.scene.percent_dense,
+                      max_n_gaussians=int(cfg.scene.max_n_gaussians))
+            extent = float(tr.scene_extent)
+            _, info_g = gauss_densify_step(mine, mesh, noise, extent, **kw)
+            _, info_r = sst.scene_densify_step(ref, noise, extent, **kw)
+            na = (int(info_g["n_alive"]), int(info_r["n_alive"]))
+            print(f"# (b) densify after {i} steps, the same noise: n_alive "
+                  f"{na[0]} (gauss) and {na[1]} (scene_train_step's), cloned"
+                  f" {int(info_g['n_cloned'])}, split "
+                  f"{int(info_g['n_split'])}")
+            if na[0] != na[1]:
+                raise AssertionError("the densify's n_alive differs")
+        d = tr.train_dataset[i % n]
+        lr = tr.s_xyz_sched(i)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        n0 = (cuda_blend.LAUNCHES, cuda_blend.K2_LAUNCHES)
+        ev[0].record()
+        pkg, hook = step.render(mine, d["camera"], black)
+        ev[1].record()
+        loss = step.loss(pkg["render"], d["rgb"])
+        ev[2].record()
+        grads, hook_grad = step.grads(loss, mine, hook)
+        ev[3].record()
+        step.update(mine, grads, hook_grad, pkg, lr, tr.s_static_lrs)
+        ev[4].record()
+        ev[4].synchronize()
+        k1_gauss += cuda_blend.LAUNCHES - n0[0]
+        k2_gauss += cuda_blend.K2_LAUNCHES - n0[1]
+        for k, (e0, e1) in (("render", (0, 1)), ("loss", (1, 2)),
+                            ("grads", (2, 3)), ("update", (3, 4)),
+                            ("step", (0, 4))):
+            stages[k].append(ev[e0].elapsed_time(ev[e1]))
+        if bool(pkg["overflowed"]):
+            raise AssertionError(f"gauss step {i} overflowed")
+        _, aux = sst.scene_train_step(
+            ref, d["camera"], d["rgb"], black, lr, tr.s_static_lrs, width=W,
+            height=H, l1_w=cfg.scene.loss.l1_w, ssim_w=cfg.scene.loss.ssim_w,
+            instance_budget=budget)
+        losses.append((float(loss.detach()), float(aux["loss"])))
+        del pkg, hook, grads, hook_grad, loss
+    torch.cuda.synchronize()
+    stage_ms = {k: statistics.median(v[1:]) for k, v in stages.items()}
+    print(f"# (b) {sum(GAUSS_STEPS)} steps on phase 3f's scene (capacity "
+          f"{cap}): losses (gauss, scene_train_step) {losses}; gauss step "
+          f"{stage_ms['step']:.4f} ms = render {stage_ms['render']:.4f} + "
+          f"loss {stage_ms['loss']:.4f} + backward {stage_ms['grads']:.4f} "
+          f"+ Adam and stats {stage_ms['update']:.4f} (median of "
+          f"{len(stages['step']) - 1}, CUDA events); {k1_gauss} K1 and "
+          f"{k2_gauss} K2 in the gauss steps  [{smi}]")
+    for i, (lg, lr_) in enumerate(losses):
+        if not abs(lg - lr_) <= GAUSS_LOSS_RTOL * abs(lr_):
+            raise AssertionError(f"step {i}: gauss loss {lg} against {lr_}")
+    if k1_gauss != sum(GAUSS_STEPS) or k2_gauss != sum(GAUSS_STEPS):
+        raise AssertionError(f"{k1_gauss} K1 and {k2_gauss} K2 launches in "
+                             f"the gauss steps")
+    return {"losses": losses, "n_alive": na, "stage_ms": stage_ms,
+            "k1_launches": k1_gauss, "k2_launches": k2_gauss}
+
+
+def gauss_main_check(dev, smi, root):
+    """Check (c) of phase 3i: hugs_tpu_torch.main in scene mode with
+    tpu.gauss_shard 1 on phase 3f's sequence for GAUSS_MAIN_STEPS steps
+    (validate and animate after), then render_frame of a val frame with
+    gauss_shard 1 against 0. Returns its numbers."""
+    from hugs_tpu_torch import main as cli
+    from hugs_tpu_torch.render import cuda_blend
+    from hugs_tpu_torch.train.trainer import GaussianTrainer
+
+    rec = {}
+
+    class Recorded(GaussianTrainer):
+        def train(self):
+            rec["trainer"] = self
+            return super().train()
+
+    cfg = joint_config(root, "phase3i", {
+        "mode": "scene", "tpu.gauss_shard": 1,
+        "train.num_steps": GAUSS_MAIN_STEPS,
+        "train.val_interval": 1000})
+    main_trainer = cli.GaussianTrainer
+    cli.GaussianTrainer = Recorded
+    cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
+    try:
+        t0 = time.time()
+        rc = cli.main(cfg, device=dev)
+        torch.cuda.synchronize()
+        main_s = time.time() - t0
+    finally:
+        cli.GaussianTrainer = main_trainer
+    if rc != 0:
+        raise AssertionError(f"hugs_tpu_torch.main.main returned {rc}")
+    k1, k2 = cuda_blend.LAUNCHES, cuda_blend.K2_LAUNCHES
+    tr = rec.pop("trainer")
+    with open(os.path.join(cfg.logdir, "results_train.json")) as f:
+        log = json.load(f)
+    n_val = len(tr.val_dataset)
+    n_anim = len(tr.anim_dataset) if tr.anim_dataset is not None else 0
+    steps = GAUSS_MAIN_STEPS + 1
+    print(f"# (c) main() in scene mode, tpu.gauss_shard 1: {main_s:.1f} s "
+          f"(host clock), {steps} steps, log {log}, {tr.retries} retried; "
+          f"K1 {k1} (steps {steps} + val {n_val} + anim {n_anim}), K2 {k2}")
+    if k2 != steps or k1 != steps + n_val + n_anim:
+        raise AssertionError(f"main() launched K1 {k1} and K2 {k2} times")
+    if not np.isfinite([e["loss"] for e in log]).all():
+        raise AssertionError("main()'s losses are not finite")
+    d = tr.val_dataset[0]
+    one = tr.render_frame(d)
+    tr.cfg.tpu.gauss_shard = 0
+    zero = tr.render_frame(d)
+    if "frag_counts" not in one or "frag_counts" in zero:
+        raise AssertionError("render_frame did not take the gauss path")
+    err = held("(c) render_frame with gauss_shard 1 vs 0, val frame 0",
+               one["render"], zero["render"])
+    return {"main_s": main_s, "log": log, "k1": k1, "k2": k2,
+            "render_frame_max_abs": err}
+
+
+def graft_entry_check(dev, smi):
+    """Check (d) of phase 3i: graft_entry.entry()'s frame on the card and
+    dryrun_multichip(1) (one NCCL rank on card 0). Returns its numbers."""
+    from hugs_tpu_torch import graft_entry
+    from hugs_tpu_torch.render import cuda_blend
+
+    t0 = time.time()
+    fn, args = graft_entry.entry(dev)
+    cuda_blend.LAUNCHES = 0
+    img = fn(*args)
+    torch.cuda.synchronize()
+    entry_s = time.time() - t0
+    k1 = cuda_blend.LAUNCHES
+    frame_ms = device_ms(lambda: fn(*args), reps=5)
+    if tuple(img.shape) != (3, 270, 480) or not bool(
+            torch.isfinite(img).all()) or k1 != 1:
+        raise AssertionError(f"entry() gave {tuple(img.shape)}, finite "
+                             f"{bool(torch.isfinite(img).all())}")
+    del fn, args, img
+    torch.cuda.empty_cache()    # the dryrun's rank shares this card
+    t0 = time.time()
+    r = graft_entry.dryrun_multichip(1, "cuda")[0]
+    dry_s = time.time() - t0
+    print(f"# (d) entry(): (3, 270, 480) finite in {entry_s:.1f} s (host "
+          f"clock, built and run), a frame {frame_ms:.3f} ms; "
+          f"dryrun_multichip(1) {dry_s:.1f} s: loss {r['loss']:.5f}, gauss "
+          f"loss {r['gauss_loss']:.5f}  [{smi}]")
+    return {"entry_s": entry_s, "entry_frame_ms": frame_ms, "k1_launches": k1,
+            "dryrun_s": dry_s,
+            "dryrun": {k: r[k] for k in ("mesh", "loss", "delta",
+                                         "gauss_loss", "gauss_delta")}}
+
+
+def pergs_check(dev, smi, project, slot_budget):
+    """Check (e) of phase 3i: the per-Gaussian avatar on phase 3c's body
+    (synthetic_smpl(288) subdivided twice), human_pergs_forward at a
+    pose, rendered through K1 at W x H; then the same avatar on the CPU
+    at EVAL_CPU_WH: the forward at human_forward's bar, the image (K1
+    against the plain blend) at the image bar. Returns its numbers."""
+    from hugs_tpu_torch.data.cameras import get_rotating_camera
+    from hugs_tpu_torch.models import human_gs as hgs
+    from hugs_tpu_torch.models import human_gs_pergs as pergs
+    from hugs_tpu_torch.models.smpl import synthetic_smpl
+    from hugs_tpu_torch.models.subdivide import subdivide_smpl_model
+    from hugs_tpu_torch.render import cuda_blend
+    from hugs_tpu_torch.render.renderer import render
+    from hugs_tpu_torch.render.tiles import bin_gaussians
+
+    smpl = synthetic_smpl(AVATAR_VPB, device=dev)
+    template = subdivide_smpl_model(smpl, smoothing=True,
+                                    n_iter=AVATAR_SUBDIV)
+    params, fixed = pergs.init_human_pergs(smpl, template,
+                                           torch.zeros(10, device=dev), 1)
+    n = int(params.gs.n_alive)
+    pose = 0.01 * torch.sin(torch.arange(69, dtype=torch.float32,
+                                         device=dev))
+
+    def forward(p, fx, device):
+        return pergs.human_pergs_forward(
+            p, fx, global_orient=torch.zeros(3, device=device),
+            body_pose=pose.to(device), betas=torch.zeros(10, device=device),
+            transl=torch.zeros(3, device=device))
+
+    data = get_rotating_camera(img_size=(H, W), fov=0.95, dist=3.0,
+                               nframes=2, device=dev)[0]
+    black = torch.zeros(3, device=dev)
+    with torch.no_grad():
+        out = forward(params, fixed, dev)
+        pg = project(data["camera"], out, out["alive"], 0)
+        budget = slot_budget(int(bin_gaussians(pg, W, H, 4 * n).n_slots))
+        cuda_blend.LAUNCHES = 0
+        img = render(out["xyz"], out["scales"], out["rotq"], out["opacity"],
+                     out["shs"], data["camera"], W, H, bg=black,
+                     alive=out["alive"], instance_budget=budget)["render"]
+        torch.cuda.synchronize()
+        k1 = cuda_blend.LAUNCHES
+        frame_ms = device_ms(lambda: render(
+            *(forward(params, fixed, dev)[k] for k in (
+                "xyz", "scales", "rotq", "opacity", "shs")),
+            data["camera"], W, H, bg=black, alive=out["alive"],
+            instance_budget=budget), reps=5)
+        if k1 != 1 or not bool(torch.isfinite(img).all()) \
+                or float(img.max()) <= 0:
+            raise AssertionError(f"the pergs frame: {k1} K1 launches, finite"
+                                 f" {bool(torch.isfinite(img).all())}")
+        # the same avatar on the CPU, at a small size
+        cpu = torch.device("cpu")
+        cw, ch = EVAL_CPU_WH
+        cp, cf = hgs.to_device(params, cpu), hgs.to_device(fixed, cpu)
+        out_c = forward(cp, cf, cpu)
+        worst = 0.0
+        for k in ("xyz", "scales", "rotq", "opacity", "shs"):
+            d = float((out[k].cpu() - out_c[k]).abs().max())
+            worst = max(worst, d)
+            if d > AVATAR_ATOL:
+                raise AssertionError(f"pergs forward {k}: card vs CPU {d}")
+        small = get_rotating_camera(img_size=(ch, cw), fov=0.95, dist=3.0,
+                                    nframes=2, device=dev)[0]["camera"]
+        small_c = get_rotating_camera(img_size=(ch, cw), fov=0.95, dist=3.0,
+                                      nframes=2, device=cpu)[0]["camera"]
+        args = ("xyz", "scales", "rotq", "opacity", "shs")
+        img_k = render(*(out[k] for k in args), small, cw, ch, bg=black,
+                       alive=out["alive"], instance_budget=4 * n)["render"]
+        img_c = render(*(out_c[k] for k in args), small_c, cw, ch,
+                       bg=black.cpu(), alive=out_c["alive"],
+                       instance_budget=4 * n)["render"]
+        err = held(f"(e) pergs frame at {cw}x{ch}: K1 on the card vs the "
+                   f"plain blend on the CPU", img_k.cpu(), img_c)
+    print(f"# (e) per-Gaussian avatar: {n} Gaussians (synthetic_smpl("
+          f"{AVATAR_VPB}), {AVATAR_SUBDIV} subdivisions) at {W}x{H}: {k1} "
+          f"K1 launch, a frame (forward and render) {frame_ms:.3f} ms; "
+          f"card vs CPU forward max |d| {worst:.3e}  [{smi}]")
+    return {"gaussians": n, "k1_launches": k1, "frame_ms": frame_ms,
+            "forward_max_abs": worst, "image_max_abs": err}
+
+
+def gauss_shard(dev, smi, project, slot_budget, joint, evaln, root):
+    """Phase 3i, the Gaussian-sharded path on phase 3f's run (joint) and
+    phase 3g's anim split (evaln): checks (a)-(e) of the module
+    docstring; raises if one fails; returns its numbers."""
+    t_phase = time.time()
+    tr = joint["trainer"]
+    out = {"frame": gauss_frame_check(dev, smi, project, slot_budget, tr,
+                                      evaln["trainer"].anim_dataset[0])}
+    out["steps"] = gauss_step_check(dev, smi, tr)
+    del joint["trainer"], tr
+    torch.cuda.empty_cache()
+    out["main"] = gauss_main_check(dev, smi, root)
+    out["graft_entry"] = graft_entry_check(dev, smi)
+    out["pergs"] = pergs_check(dev, smi, project, slot_budget)
+    out["phase_s"] = time.time() - t_phase
+    print(f"# phase 3i: {out['phase_s']:.1f} s (host clock)  [{smi}]")
     return out
 
 
@@ -3231,30 +3728,10 @@ def main():
                      k2_call=device_ms(lambda: cuda_blend.blend_bwd(*bwd)),
                      plain_bwd=device_ms(lambda: plain_blend_bwd(*args, g),
                                          **plain_kw))
+        work, n_rows = blend_work(feat, b, W, H, pairs, cull)
         tested, blended = (int(x) for x in pairs.sum(dim=(1, 2)))
         n_inst = int((b.ends - b.starts).sum())
-        n_tiles = b.starts.shape[0]
         kept = cull["tested"]
-        # both kernels read a row of feat only through the lists
-        n_rows = feat_rows_read(b)
-        row_bytes = feat.shape[1] * 4
-        work = {
-            # the referenced rows of feat, the list, starts + ends, bg;
-            # image + log T + n_walked; walked
-            "k1": (OPS_TESTED * kept + OPS_CULL * cull["K1"]
-                   + OPS_BLENDED * blended,
-                   OPS_TESTED * tested + OPS_BLENDED * blended,
-                   n_rows * row_bytes + n_inst * 4 + 2 * n_tiles * 4 + 3 * 4
-                   + 5 * W * H * 4 + n_tiles * 4),
-            # the referenced rows of feat, the list, starts, bg; g + log T
-            # + n_walked; K2's outputs, grad_feat (N, 10) written whole
-            # (zeroed, then summed into) and grad_bg
-            "k2": (OPS_TESTED * kept + OPS_CULL * cull["K2"]
-                   + OPS_WARP_SUM * cull["K2_kept"]
-                   + OPS_BWD_BLENDED * blended,
-                   OPS_TESTED * tested + OPS_BWD_BLENDED_FIRST * blended,
-                   n_rows * row_bytes + n_inst * 4 + n_tiles * 4 + 3 * 4
-                   + 5 * W * H * 4 + feat.numel() * 4 + 3 * 4)}
         print(f"# {frame}: {tested} pairs in the walk, {kept} of them kept "
               f"by the cull and tested, {blended} blended, {n_inst} "
               f"instances over {n_rows} of the {feat.shape[0]} rows of feat"
@@ -3332,6 +3809,11 @@ def main():
         print(f"# phase 3h starts at {time.time() - t_start:.1f} s (host "
               f"clock)")
         scale = scale_out(dev, smi, project, joint, evaln)
+        # ---- 3i. the Gaussian-sharded path on 3f's run, after 3h
+        print(f"# phase 3i starts at {time.time() - t_start:.1f} s (host "
+              f"clock)")
+        gauss = gauss_shard(dev, smi, project, slot_budget, joint, evaln,
+                            root)
         del evaln["trainer"], joint["train_dataset"]
     jt, et = joint["times"], evaln["times"]
 
@@ -3357,6 +3839,17 @@ def main():
                   f"({by_frame[frame] / times[k][frame] * 100:.1f}% of its "
                   f"{times[k][frame]:.4f} ms)  [{smi}]")
 
+    gauss_by_path = {
+        "K1": {"gauss_frame": gauss["frame"]["k1_launches"],
+               "gauss_steps": gauss["steps"]["k1_launches"],
+               "gauss_main": gauss["main"]["k1"],
+               "graft_entry": gauss["graft_entry"]["k1_launches"],
+               "pergs": gauss["pergs"]["k1_launches"]},
+        "K2": {"gauss_frame": gauss["frame"]["k2_launches"],
+               "gauss_steps": gauss["steps"]["k2_launches"],
+               "gauss_main": gauss["main"]["k2"]}}
+    gauss_k1 = sum(gauss_by_path["K1"].values())
+    gauss_k2 = sum(gauss_by_path["K2"].values())
     print(f"# all phases done at {time.time() - t_start:.1f} s (host clock)")
     # ---- 5. kernels line, 6. device line
     print(json.dumps({"kernels": [{
@@ -3367,7 +3860,7 @@ def main():
         + human["k1_launches"] + joint["k1_launches"]
         + joint["k1_after_train"] + evaln["k1_launches"]
         + evaln["fast_launches"] + sum(BANDS) + scale["anim_k1"]
-        + scale["dp_k1"],
+        + scale["dp_k1"] + gauss_k1,
         "launches_by_path": {"serving": launches, "training": k1_train,
                              "avatar": avatar["launches"],
                              "human_training": human["k1_launches"],
@@ -3380,11 +3873,13 @@ def main():
                                 for n in BANDS},
                              "batched_animate": scale["anim_k1"],
                              "batched_joint_step": scale["dp_k1"],
+                             **gauss_by_path["K1"],
                              "micro_bwd": s3_launches["K1"]},
         "max_abs_err": max(max_err, avatar["max_abs_err"], human["k1_err"],
                            joint["k1_err"], evaln["k1_err"],
                            *(scale["bands"][n]["image_max_abs"]
-                             for n in BANDS)),
+                             for n in BANDS),
+                           gauss["frame"]["image_max_abs"]),
         "frame": "serving (phase 2)",
         "ms": serve_t["k1"], "call_ms": serve_t["k1_call"],
         "plain_ms": serve_t["plain"], "bound_ms": serve_t["k1_bound"],
@@ -3422,8 +3917,21 @@ def main():
                 evaln["fast_device_kernels_per_frame"],
             "fast_device_idle_share": evaln["fast_device_idle_share"]},
         "bands_frame": {n: {k: b[k] for k in (
-            "band_rows", "instances", "k1_ms", "k1_launches",
+            "band_rows", "instances", "feat_rows_read", "k1_ms",
+            "k1_bound", "k1_bound_by", "k1_launches",
             "image_max_abs") if k in b} for n, b in scale["bands"].items()},
+        "gauss_frame": {
+            **{k: gauss["frame"][k] for k in (
+                "rows", "kept", "fragments", "budget", "k1_launches",
+                "image_max_abs", "peak_gib", "render_peak_gib", "pack_ms",
+                "sort_ms")},
+            **{where: {k: gauss["frame"][where][k] for k in (
+                "k1_ms", "k1_bound", "k1_bound_by", "instances",
+                "feat_rows_read")} for where in ("fragments", "bins")}},
+        "gauss_main": {k: gauss["main"][k] for k in (
+            "main_s", "k1", "render_frame_max_abs")},
+        "graft_entry": gauss["graft_entry"],
+        "pergs_frame": gauss["pergs"],
         "batched_animate_ms_per_frame": scale["anim_ms"],
         "ms_at_s2_blendmix_rate": at_s2["K1"],
         "cull_dropped_share": {"serving": cull_serve["K1_dropped"],
@@ -3439,7 +3947,7 @@ def main():
         "source": "hugs_tpu_torch/csrc/blend_bwd.cu",
         "replaces": "hugs_tpu/render/pallas_blend.py:486",
         "launches": k2_train + human["k2_launches"] + joint["k2_launches"]
-        + sum(BANDS) + scale["dp_k2"],
+        + sum(BANDS) + scale["dp_k2"] + gauss_k2,
         "launches_by_path": {"serving": k2_serve, "training": k2_train,
                              "avatar": avatar["k2_launches"],
                              "human_training": human["k2_launches"],
@@ -3447,10 +3955,12 @@ def main():
                              **{f"bands_{n}": scale["bands"][n]["k2_launches"]
                                 for n in BANDS},
                              "batched_joint_step": scale["dp_k2"],
+                             **gauss_by_path["K2"],
                              "micro_bwd": s3_launches["K2"]},
         "max_abs_err": max(k2_err, human["k2_err"], joint["k2_err"],
                            *(scale["bands"][n]["grad_max_abs"]
-                             for n in BANDS)),
+                             for n in BANDS),
+                           gauss["frame"]["grad_max_abs"]),
         "frame": "training step 0 (view 0)",
         "ms": train_t["k2"], "call_ms": train_t["k2_call"],
         "plain_ms": train_t["plain_bwd"], "bound_ms": train_t["k2_bound"],
@@ -3482,8 +3992,17 @@ def main():
             "device_kernels_per_step": joint["device_kernels_per_step"],
             "device_idle_share": joint["device_idle_share"]},
         "bands_frame": {n: {k: b[k] for k in (
-            "band_rows", "instances", "k2_ms", "k2_launches",
+            "band_rows", "instances", "feat_rows_read", "k2_ms",
+            "k2_bound", "k2_bound_by", "k2_launches",
             "grad_max_abs") if k in b} for n, b in scale["bands"].items()},
+        "gauss_frame": {
+            **{k: gauss["frame"][k] for k in (
+                "k2_launches", "grad_max_abs", "grad_rel_norm")},
+            **{where: {k: gauss["frame"][where][k] for k in (
+                "k2_ms", "k2_bound", "k2_bound_by")}
+               for where in ("fragments", "bins")}},
+        "gauss_step": {k: gauss["steps"][k] for k in (
+            "losses", "n_alive", "stage_ms", "k2_launches")},
         "batched_joint_step": {
             "batch": DP_BATCH, "steps": DP_STEPS, "step_ms": scale[
                 "dp_stage_ms"], "launches_per_step":
@@ -3504,6 +4023,146 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def gauss_rank_check(rank, world, cfg, device_type="cuda"):
+    """--scale-out's Gaussian-sharded check on rank `rank` of `world`
+    NCCL ranks (card `rank`; gloo on the CPU for a rehearsal): a
+    scene-mode trainer of cfg (tpu.gauss_shard = world) on phase 3f's
+    sequence, rank 0's scene on every rank; val frame 0 through
+    render_frame on the world's mesh and alone; then the Gaussian-
+    sharded step on the world's mesh for GAUSS_STEPS[0] steps, a densify
+    fed the same noise on every rank, GAUSS_STEPS[1] more, and on rank 0
+    the same on a mesh of one rank. Returns the images' difference, the
+    losses, n_alive and the launches."""
+    from hugs_tpu_torch import main as cli
+    from hugs_tpu_torch.parallel.collectives import broadcast_
+    from hugs_tpu_torch.parallel.gauss_train import (
+        gauss_densify_step, make_gauss_scene_train_step, shard_scene_state,
+    )
+    from hugs_tpu_torch.parallel.mesh import GAUSS, Mesh, make_gauss_mesh
+    from hugs_tpu_torch.render import cuda_blend
+    from hugs_tpu_torch.train import checkpoint as ckpt_io
+    from hugs_tpu_torch.train.trainer import GaussianTrainer
+
+    dev = torch.device(device_type, rank if device_type == "cuda" else None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    train_ds, val_ds, _ = cli.build_datasets(cfg, dev)
+    tr = GaussianTrainer(cfg, train_ds, val_ds, device=dev)
+    mesh = make_gauss_mesh(world)
+    broadcast_([t.data for t in ckpt_io.flatten(tr.scene).values()], mesh)
+    d = val_ds[0]
+    cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
+    shared = tr.render_frame(d)["render"]
+    k1_frame = cuda_blend.LAUNCHES
+    tr.cfg.tpu.gauss_shard = 0
+    alone = tr.render_frame(d)["render"]
+    tr.cfg.tpu.gauss_shard = world
+    diff = (shared - alone).abs()
+    black = torch.zeros(3, device=dev)
+    n = len(train_ds)
+
+    def steps(m):
+        n_ranks = m.axis_size(GAUSS)
+        st = shard_scene_state(tr.scene, m)
+        step = make_gauss_scene_train_step(
+            m, width=d["width"], height=d["height"], l1_w=cfg.scene.loss.l1_w,
+            ssim_w=cfg.scene.loss.ssim_w,
+            local_budget=max(tr._ibudget // n_ranks, 1 << 12))
+        g = torch.Generator(device=dev).manual_seed(SEED + 47)
+        noise = torch.randn((2, tr.scene.gs.capacity, 3), generator=g,
+                            device=dev)
+        losses, n_alive = [], None
+        for i in range(sum(GAUSS_STEPS)):
+            if i == GAUSS_STEPS[0]:
+                _, info = gauss_densify_step(
+                    st, m, noise, float(tr.scene_extent),
+                    grad_threshold=cfg.scene.densify_grad_threshold,
+                    min_opacity=cfg.scene.prune_min_opacity,
+                    percent_dense=cfg.scene.percent_dense)
+                n_alive = int(info["n_alive"])
+            fr = train_ds[i % n]
+            st, aux = step(st, fr["camera"], fr["rgb"], black,
+                           tr.s_xyz_sched(i), tr.s_static_lrs)
+            losses.append(float(aux["loss"]))
+            if bool(aux["overflowed"]):
+                raise AssertionError(f"gauss step {i} overflowed on "
+                                     f"{n_ranks} ranks")
+        return {"losses": losses, "n_alive": n_alive,
+                "frag_counts": aux["frag_counts"].cpu().numpy().tolist()}
+
+    cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
+    shard = steps(mesh)
+    k12 = (cuda_blend.LAUNCHES, cuda_blend.K2_LAUNCHES)
+    return {"image_share": float((diff <= PIXEL_ATOL).float().mean()),
+            "image_max_abs": float(diff.max()), "k1_frame": k1_frame,
+            "sharded": shard, "k1_k2_steps": k12,
+            "world1": steps(Mesh.line(GAUSS)) if rank == 0 else None}
+
+
+def gauss_cards_check(smi, root, device_type="cuda"):
+    """--scale-out's gauss_shard=GAUSS_SCALE_OUT check: gauss_rank_check
+    on that many NCCL ranks, held to the world-1 run (the image at the
+    image bar, the loss each step at GAUSS_LOSS_RTOL, n_alive equal);
+    then dryrun_multichip on as many. Returns its numbers, or None (and
+    says so) with fewer cards."""
+    from hugs_tpu_torch import graft_entry
+    from hugs_tpu_torch.parallel.launch import run_ranks
+
+    n_cards = (torch.cuda.device_count() if device_type == "cuda"
+               else GAUSS_SCALE_OUT)
+    if n_cards < GAUSS_SCALE_OUT:
+        print(f"# gauss_shard={GAUSS_SCALE_OUT}: not run, "
+              f"torch.cuda.device_count() = {n_cards}")
+        return None
+    cfg = joint_config(root, "scale_out_gauss", {
+        "mode": "scene", "tpu.gauss_shard": GAUSS_SCALE_OUT})
+    t0 = time.time()
+    ranks = run_ranks(gauss_rank_check, GAUSS_SCALE_OUT, (cfg, device_type),
+                      backend="nccl" if device_type == "cuda" else "gloo",
+                      timeout=DP_TIMEOUT)
+    gauss_s = time.time() - t0
+    ref = ranks[0]["world1"]
+    print(f"# gauss_shard={GAUSS_SCALE_OUT}: val frame 0 on the "
+          f"{GAUSS_SCALE_OUT} ranks vs alone: "
+          f"{[round(r['image_share'] * 100, 4) for r in ranks]}% within "
+          f"{PIXEL_ATOL}, max |d| {[r['image_max_abs'] for r in ranks]}; "
+          f"losses {[r['sharded']['losses'] for r in ranks]} against "
+          f"world 1's {ref['losses']}; n_alive "
+          f"{[r['sharded']['n_alive'] for r in ranks]} against "
+          f"{ref['n_alive']}; K1 / K2 in the steps "
+          f"{[r['k1_k2_steps'] for r in ranks]}; frag_counts "
+          f"{ranks[0]['sharded']['frag_counts']}; {gauss_s:.1f} s (host "
+          f"clock)  [{smi}]")
+    for r in ranks:
+        if r["image_share"] < MIN_SHARE or r["image_max_abs"] > MAX_ABS:
+            raise AssertionError("the sharded image differs from world 1's")
+        if r["sharded"]["n_alive"] != ref["n_alive"]:
+            raise AssertionError("the sharded densify's n_alive differs")
+        for a, b in zip(r["sharded"]["losses"], ref["losses"]):
+            if not abs(a - b) <= GAUSS_LOSS_RTOL * abs(b):
+                raise AssertionError(f"sharded loss {a} against {b}")
+        steps = sum(GAUSS_STEPS)
+        if r["k1_k2_steps"] != (steps, steps):
+            raise AssertionError(f"K1 / K2 {r['k1_k2_steps']} in {steps} "
+                                 f"steps")
+    t0 = time.time()
+    dry = graft_entry.dryrun_multichip(GAUSS_SCALE_OUT, device_type,
+                                       timeout=DP_TIMEOUT)
+    dry_s = time.time() - t0
+    print(f"# dryrun_multichip({GAUSS_SCALE_OUT}): mesh {dry[0]['mesh']}, "
+          f"losses {[r['loss'] for r in dry]}, gauss losses "
+          f"{[r['gauss_loss'] for r in dry]}; {dry_s:.1f} s (host clock)")
+    return {"ranks": GAUSS_SCALE_OUT, "s": gauss_s,
+            "image_max_abs": [r["image_max_abs"] for r in ranks],
+            "losses": [r["sharded"]["losses"] for r in ranks],
+            "world1_losses": ref["losses"], "n_alive": ref["n_alive"],
+            "frag_counts": ranks[0]["sharded"]["frag_counts"],
+            "dryrun": {"mesh": dry[0]["mesh"],
+                       "losses": [r["loss"] for r in dry],
+                       "gauss_losses": [r["gauss_loss"] for r in dry],
+                       "s": dry_s}}
 
 
 def scale_out_cards():
@@ -3538,11 +4197,13 @@ def scale_out_cards():
         del train_ds
         torch.cuda.empty_cache()    # rank 0 of check (d) shares this card
         multi = multi_card_check(smi, dcfg, step["dp_loss"])
+        torch.cuda.empty_cache()
+        gauss = gauss_cards_check(smi, root)
     print(f"# --scale-out: {time.time() - t0:.1f} s (host clock)  [{smi}]")
     print(json.dumps({"scale_out": {
         "device": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(), "card": smi,
-        "batched_step": step, "multi_rank": multi}}))
+        "batched_step": step, "multi_rank": multi, "gauss_shard": gauss}}))
     return 0
 
 

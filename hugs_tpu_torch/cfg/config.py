@@ -192,7 +192,7 @@ def default_config() -> Config:
             "instance_budget": 0,           # 0 => auto, grown on demand
             "tile_cap": 1024,               # read and ignored
             "mesh_shape": [1],
-            "gauss_shard": 0,               # > 0 refused (Slice G item 3)
+            "gauss_shard": 0,               # n > 0: Gaussian-sharded over n
             "gauss_frag_cap": 0,
             "lpips_weights": "",            # path to converted LPIPS .npz
             "smpl_vpb": 32,                 # synthetic SMPL's verts per
@@ -202,12 +202,12 @@ def default_config() -> Config:
 
 
 def check_supported(cfg: Config) -> None:
-    """Raises NotImplementedError for a setting the port does not run
-    yet, naming the slice that brings it."""
-    if int(cfg.tpu.get("gauss_shard", 0) or 0):
-        raise NotImplementedError(
-            "tpu.gauss_shard (the Gaussian-sharded renderer and scene step) "
-            "comes with ROADMAP Slice G item 3")
+    """Raises ValueError for a setting hugs_tpu cannot run either: a
+    negative tpu.gauss_shard or tpu.gauss_frag_cap."""
+    for key in ("gauss_shard", "gauss_frag_cap"):
+        if int(cfg.tpu.get(key, 0) or 0) < 0:
+            raise ValueError(f"tpu.{key} must be 0 or more, not "
+                             f"{cfg.tpu[key]}")
 
 
 def load_config(path: str | None = None,

@@ -6,11 +6,13 @@ Both sides meet at numpy: the caller passes a JAX SceneGS as
 model's parameter tree as nested dicts of arrays, and an LPIPS's weight
 lists as numpy arrays, so this module
 imports nothing of the JAX package. The port's render of a converted
-scene or avatar equals the JAX package's render of the original, and a
+scene or avatar equals the JAX package's render of the original, a
 converted joint training state (`joint_state_from_numpy`) trains on as
-the original does. `save_checkpoint_from_numpy` writes such a state in
-the port's checkpoint layout, so that a run trained by the JAX package
-resumes, evaluates and serves in the port.
+the original does, and a converted per-Gaussian avatar
+(`human_pergs_from_numpy`) poses as the original does.
+`save_checkpoint_from_numpy` writes a joint state in the port's
+checkpoint layout, so that a run trained by the JAX package resumes,
+evaluates and serves in the port.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from hugs_tpu_torch.losses.lpips import LPIPS, N_CONVS, VGG_BLOCKS
 from hugs_tpu_torch.models import nets
 from hugs_tpu_torch.models.human_gs import HumanGS, HumanGSState
 from hugs_tpu_torch.models.human_gs import params_of as human_params_of
+from hugs_tpu_torch.models.human_gs_pergs import HumanPerGS
 from hugs_tpu_torch.models.scene_gs import BUFFER_FIELDS, PARAM_FIELDS, SceneGS
 from hugs_tpu_torch.models.scene_gs import params_of as scene_params_of
 from hugs_tpu_torch.models.smpl import (
@@ -48,6 +51,16 @@ def scene_gs_from_numpy(arrays: dict[str, np.ndarray],
             a = a.astype(np.float32)
         fields[f] = torch.as_tensor(a, device=device)
     return SceneGS(**fields)
+
+
+def human_pergs_from_numpy(arrays: dict,
+                           device: torch.device | str = "cuda") -> HumanPerGS:
+    """HumanPerGS from the numpy arrays of a JAX HumanPerGS: 'gs' (every
+    SceneGS field) and the pose tables 'global_orient', 'body_pose',
+    'transl' and 'betas'."""
+    return HumanPerGS(
+        gs=scene_gs_from_numpy(arrays["gs"], device),
+        **{f: _f32(arrays[f], device) for f in HumanPerGS._fields[1:]})
 
 
 def camera_from_numpy(arrays: dict[str, np.ndarray],
@@ -181,7 +194,7 @@ def joint_state_from_numpy(human: dict, scene: dict,
 
 def save_checkpoint_from_numpy(ckpt_dir: str, iter_s: str, human: dict,
                                scene: dict,
-                               device: torch.device | str = "cpu"
+                               device: torch.device | str = "cuda"
                                ) -> JointTrainState:
     """Writes a JAX JointTrainState given as numpy (joint_state_from_numpy's
     `human` and `scene`: a restored hugs_tpu checkpoint's train states)

@@ -16,7 +16,10 @@ without a card unless --device cpu.
 On N cards: `python -m torch.distributed.run --nproc_per_node=N -m
 hugs_tpu_torch.evaluate -o OUTDIR`. Each rank restores the checkpoint;
 rank 0 validates and writes, and animate splits each batch of
-train.anim_batch_size frames over the ranks.
+train.anim_batch_size frames over the ranks. A run with tpu.gauss_shard
+= N renders through the Gaussian-sharded renderer on the N ranks:
+every rank validates, animates and renders the turntable, rank 0
+writes.
 """
 from __future__ import annotations
 
@@ -75,15 +78,20 @@ def evaluate(output_dir: str, device: torch.device | str = "cuda",
     # the training capacity's padded rows cost every frame
     stage("compact", trainer.compact_for_eval)
     stage("rehearse", trainer.rehearse_budget)
-    if mesh.is_writer:
+    # renders that exchange fragments (tpu.gauss_shard > 1) run on every
+    # rank
+    every = mesh.is_writer or trainer.gauss_collective
+    if every:
         metrics = stage("validate", trainer.validate)
-        with open(os.path.join(output_dir, "results_eval.json"), "w") as f:
-            json.dump(metrics, f, indent=2)
-        print(json.dumps(metrics, indent=2))
+        if mesh.is_writer:
+            with open(os.path.join(output_dir, "results_eval.json"),
+                      "w") as f:
+                json.dump(metrics, f, indent=2)
+            print(json.dumps(metrics, indent=2))
     mesh.barrier()
     if anim_ds is not None:
         stage("animate", trainer.animate)
-    if cfg.mode in ("human", "human_scene") and mesh.is_writer:
+    if cfg.mode in ("human", "human_scene") and every:
         stage("canonical", lambda: trainer.render_canonical(
             nframes=cfg.human.canon_nframes))
     mesh.barrier()

@@ -24,6 +24,16 @@ card LOCAL_RANK; gloo with --device cpu) and trains its share of each
 batch; rank 0 writes the logdir, the checkpoints, the metrics and the
 images while the others wait, and animate splits each batch of frames
 over the ranks. Without the variables nothing changes.
+
+The Gaussian-sharded scene (tpu.gauss_shard = N, the world's size; 1 on
+one card without torchrun):
+
+  python -m torch.distributed.run --nproc_per_node=N -m hugs_tpu_torch.main \\
+      --cfg_file ... mode=scene tpu.gauss_shard=N
+
+each rank owns 1/N of the scene's rows and the evaluation renders
+exchange fragments, so every rank validates, animates and renders the
+turntable, and rank 0 writes.
 """
 from __future__ import annotations
 
@@ -102,15 +112,19 @@ def main(cfg, device: torch.device | str = "cuda") -> int:
                       "w") as f:
                 json.dump(log, f)
         trainer.save_ckpt()
-    if val_ds is not None and mesh.is_writer:
+    # renders that exchange fragments run on every rank
+    every = mesh.is_writer or trainer.gauss_collective
+    if val_ds is not None and every:
         metrics = trainer.validate()
-        with open(os.path.join(cfg.logdir, "results_eval.json"), "w") as f:
-            json.dump(metrics, f, indent=2)
-        print(json.dumps(metrics, indent=2))
+        if mesh.is_writer:
+            with open(os.path.join(cfg.logdir, "results_eval.json"),
+                      "w") as f:
+                json.dump(metrics, f, indent=2)
+            print(json.dumps(metrics, indent=2))
     mesh.barrier()
     if anim_ds is not None:
         trainer.animate()
-    if cfg.mode in ("human", "human_scene") and mesh.is_writer:
+    if cfg.mode in ("human", "human_scene") and every:
         trainer.render_canonical(nframes=cfg.human.canon_nframes)
     mesh.barrier()
     return 0

@@ -1,7 +1,7 @@
-"""What the data x tile paths are held to on several ranks: the workers
-that run on each rank of a group (parallel/launch.py::run_ranks), from
-states and frames handed to them as numpy arrays, and the comparison of
-two runs' states at the one-step bars.
+"""What the data x tile and Gaussian-sharded paths are held to on several
+ranks: the workers that run on each rank of a group (parallel/launch.py::
+run_ranks), from states and frames handed to them as numpy arrays, and
+the comparison of two runs' states at the one-step bars.
 
 The one-step bars (the joint step's against the JAX package): the first
 moments atol 1e-7 + rtol 1e-4, the second atol 1e-12 + rtol 1e-4, the
@@ -17,7 +17,12 @@ import torch
 from hugs_tpu_torch import convert
 from hugs_tpu_torch.losses.loss import HumanSceneLoss, LossDraws
 from hugs_tpu_torch.models import human_gs as hgs
-from hugs_tpu_torch.parallel.mesh import Mesh, make_mesh
+from hugs_tpu_torch.parallel.gauss_shard import render_gauss_sharded
+from hugs_tpu_torch.parallel.gauss_train import (
+    gather_scene_state, gauss_densify_step, make_gauss_scene_train_step,
+    shard_scene_state,
+)
+from hugs_tpu_torch.parallel.mesh import Mesh, make_gauss_mesh, make_mesh
 from hugs_tpu_torch.parallel.shard import render_tile_sharded
 from hugs_tpu_torch.parallel.train_dp_tile import make_dp_tile_train_step
 from hugs_tpu_torch.train import checkpoint as ckpt_io
@@ -220,3 +225,148 @@ def trainer_worker(rank: int, world: int, root: str, overrides: list
             "demands": demands, "budget0": budget0, "retries": tr.retries,
             "budget": tr._ibudget, "loss": log[0]["loss"],
             "state": snapshot(JointTrainState(tr.human, tr.scene))}
+
+
+# ------------------------------------------------------- Gaussian shard
+
+GRAD_KEYS = ("means", "opacity", "shs")
+
+
+def gauss_render(mesh: Mesh, scene: dict, cam_np: dict, width: int,
+                 height: int, bg, g=None, **kw) -> dict:
+    """render_gauss_sharded of a numpy Gaussian set on `mesh` (SH degree
+    3): the frame, the overflow flag, frag_counts, radii and visibility;
+    with g (3, H, W), this rank's gradients of sum(g x frame) / D of
+    means, opacity and shs (zero outside its rows)."""
+    t = {k: torch.tensor(v, requires_grad=g is not None and k in GRAD_KEYS)
+         for k, v in scene.items()}
+    out = render_gauss_sharded(
+        t["means"], t["scales"], t["rotq"], t["opacity"], t["shs"],
+        convert.camera_from_numpy(cam_np, "cpu"), width, height, mesh,
+        bg=torch.as_tensor(bg), active_sh_degree=3, **kw)
+    res = {"render": out["render"].detach().numpy(),
+           "overflowed": bool(out["overflowed"]),
+           "frag_counts": out["frag_counts"].numpy(),
+           "radii": out["radii"].numpy(),
+           "visibility_filter": out["visibility_filter"].numpy()}
+    if g is not None:
+        loss = (out["render"] * torch.as_tensor(g)).sum()
+        (loss / mesh.axis_size("gauss")).backward()
+        res["grads"] = {k: t[k].grad.numpy() for k in GRAD_KEYS}
+    return res
+
+
+def scene_state_from_numpy(state_np: dict, device="cpu"):
+    """A SceneTrainState from {'gs': fields, 'mu': ..., 'nu': ...,
+    'step': ...} of numpy arrays."""
+    from hugs_tpu_torch.train.scene_step import SceneTrainState
+    return SceneTrainState(
+        gs=convert.scene_gs_from_numpy(state_np["gs"], device),
+        opt=convert.adam_state_from_numpy(state_np["mu"], state_np["nu"],
+                                          state_np["step"], device))
+
+
+def _gs_numpy(state) -> dict:
+    return {f: getattr(state.gs, f).detach().numpy() for f in STAT_KEYS
+            + ("alive", "xyz", "opacity")}
+
+
+def gauss_steps(mesh: Mesh, state_np: dict, cam_np: dict, target, bg,
+                xyz_lrs: list, static_lrs: dict, width: int, height: int,
+                budget: int, noise, extent: float, densify_kw: dict,
+                n_before: int) -> dict:
+    """The Gaussian-sharded scene step on `mesh` from a numpy state over
+    len(xyz_lrs) steps, gauss_densify_step (noise, the same on every
+    rank) after the first n_before: the losses, the densify's info, the
+    whole state's statistics before the densify and after the last
+    step."""
+    state = shard_scene_state(scene_state_from_numpy(state_np), mesh)
+    step = make_gauss_scene_train_step(mesh, width=width, height=height,
+                                       local_budget=budget)
+    cam = convert.camera_from_numpy(cam_np, "cpu")
+    target, bg = torch.as_tensor(target), torch.as_tensor(bg)
+    losses, over, out = [], [], {}
+    for i, lr in enumerate(xyz_lrs):
+        if i == n_before:
+            out["before"] = _gs_numpy(gather_scene_state(state, mesh))
+            _, info = gauss_densify_step(state, mesh, torch.tensor(noise),
+                                         extent, **densify_kw)
+            out["info"] = {k: int(v) for k, v in info.items()}
+        state, aux = step(state, cam, target, bg, lr, static_lrs)
+        losses.append(float(aux["loss"]))
+        over.append(bool(aux["overflowed"]))
+    out.update(losses=losses, overflowed=over,
+               frag_counts=aux["frag_counts"].numpy(),
+               n_visible=int(aux["n_visible"]),
+               after=_gs_numpy(gather_scene_state(state, mesh)))
+    return out
+
+
+def gauss_trainer_checks(root: str, render_overrides: list,
+                         train_overrides: list, world: int) -> dict:
+    """render_frame of a human_scene trainer with tpu.gauss_shard set to
+    the world and 0 (its largest difference), and a scene-mode run
+    through train() with tpu.gauss_shard the world: its logged losses,
+    the population before and after, and how far xyz moved."""
+    tr = small_trainer(root, render_overrides, Mesh())
+    d = tr.train_dataset[0]
+    tr.cfg.tpu.gauss_shard = world
+    pkg = tr.render_frame(d)
+    tr.cfg.tpu.gauss_shard = 0
+    ref = tr.render_frame(d)["render"]
+    out = {"render_err": float((pkg["render"] - ref).abs().max()),
+           "render_frag_counts": pkg["frag_counts"].numpy()}
+    tr = small_trainer(root, train_overrides
+                       + [f"tpu.gauss_shard={world}"], Mesh())
+    n0 = int(tr.scene.gs.alive.sum())
+    xyz0 = tr.scene.gs.xyz.detach().clone()
+    log = tr.train()
+    out.update(losses=[e["loss"] for e in log], n_alive=(
+        n0, int(tr.scene.gs.alive.sum())), xyz_moved=float(
+        (tr.scene.gs.xyz.detach() - xyz0).abs().max()),
+        retries=tr.retries)
+    return out
+
+
+def multihost_checks(rank: int) -> dict:
+    """make_hybrid_mesh's layouts, global_batch and sync_hosts."""
+    from hugs_tpu_torch.parallel import multihost
+    out = {"default": dict(multihost.make_hybrid_mesh().shape),
+           "tile1": dict(multihost.make_hybrid_mesh(1).shape)}
+    try:
+        multihost.make_hybrid_mesh(3)
+        out["bad"] = None
+    except ValueError as e:
+        out["bad"] = str(e)
+    frames = {"rgb": np.full((2, 3, 4, 4), rank, np.float32),
+              "idx": [np.arange(2) + 2 * rank]}
+    b = multihost.global_batch(frames, "cpu")
+    out["batch"] = {"rgb": b["rgb"].numpy(), "idx": b["idx"][0].numpy()}
+    multihost.sync_hosts()
+    return out
+
+
+def gauss_worker(rank: int, world: int, render_args: tuple, skew: dict,
+                 step_args: tuple, root: str, render_overrides: list,
+                 train_overrides: list) -> dict:
+    """On each of the group's ranks, over one ('gauss',) mesh of the world:
+    gauss_render of the parity scene (with gradients), at frag_cap 8 and
+    of the skewed scene; gauss_steps; gauss_trainer_checks; the
+    multi-host helpers; and graft_entry's dryrun steps."""
+    from hugs_tpu_torch import graft_entry
+    mesh = make_gauss_mesh(world)
+    scene, cam_np, width, height, bg, g, budget = render_args
+    return {
+        "render": gauss_render(mesh, scene, cam_np, width, height, bg, g,
+                               local_budget=budget),
+        "overflow": gauss_render(mesh, scene, cam_np, width, height, bg,
+                                 local_budget=budget, frag_cap=8),
+        "skew": gauss_render(mesh, skew, cam_np, width, height, bg,
+                             local_budget=budget),
+        "steps": gauss_steps(mesh, *step_args),
+        "trainer": gauss_trainer_checks(root, render_overrides,
+                                        train_overrides, world),
+        "multihost": multihost_checks(rank),
+        "dryrun": graft_entry.check_dryrun(
+            graft_entry.dryrun_rank(rank, world, "cpu")),
+    }

@@ -1,4 +1,5 @@
-"""The collectives of the data x tile paths, over a Mesh's axes.
+"""The collectives of the data x tile and Gaussian-sharded paths, over a
+Mesh's axes.
 
 Each is the identity on a mesh without a process group. `all_gather` is
 differentiable: its backward is the reduce-scatter sum of the gradient,
@@ -7,6 +8,12 @@ that differentiates a value computed identically on each of them (a
 loss on the gathered frame) hands the reduce-scatter the same cotangent,
 so each rank's slice receives n times its gradient; the data x tile
 step divides its pixel objective by n_tile for this (train_dp_tile.py).
+
+`all_to_all` exchanges a (D, cap, ...) packet with equal splits: row e
+goes to rank e of the axis, and row e of the result came from rank e.
+It is differentiable, and its backward is the same exchange of the
+gradient, the transpose that jax.grad inserts for lax.all_to_all
+(hugs_tpu/parallel/gauss_shard.py:27-30).
 
 The rest reduce without a gradient: `psum_` (one all-reduce of a list of
 tensors flattened into one buffer, in place), `pmax`, `pany`, and
@@ -52,6 +59,35 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str,
     if not mesh.distributed:
         return x
     return _AllGather.apply(x, mesh.group(axis), mesh.axis_size(axis), dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        out = torch.empty_like(grad)
+        dist.all_to_all_single(out, grad, group=ctx.group)
+        return out, None
+
+
+def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """Row e of x (D, ...) to rank e of `axis` (D ranks); returns the rows
+    the ranks sent here, in rank order. Differentiable."""
+    n = mesh.axis_size(axis)
+    if x.shape[0] != n:
+        raise ValueError(f"all_to_all over {n} ranks takes ({n}, ...) "
+                         f"packets, not {tuple(x.shape)}")
+    if not mesh.distributed:
+        return x
+    return _AllToAll.apply(x, mesh.group(axis))
 
 
 def _all_reduce_(buf: torch.Tensor, mesh: Mesh, axis, op) -> torch.Tensor:

@@ -69,13 +69,20 @@ def run_ranks(fn, world: int, args: tuple = (), backend: str = "gloo",
     try:
         # drain the queue before joining: a rank blocks on a full pipe
         while len(results) < world and failed is None:
+            left = deadline - time.monotonic()
             try:
-                rank, ok, value = out.get(
-                    timeout=max(deadline - time.monotonic(), 0.01))
+                rank, ok, value = out.get(timeout=max(min(left, 1.0), 0.01))
             except queue.Empty:
-                failed = (f"{world - len(results)} of {world} ranks did not "
-                          f"finish within {timeout} s")
-                break
+                dead = [r for r, p in enumerate(procs)
+                        if r not in results and p.exitcode not in (None, 0)]
+                if dead:
+                    # died before it could report (e.g. while starting)
+                    failed = (f"ranks {dead} exited with codes "
+                              f"{[procs[r].exitcode for r in dead]}")
+                elif left <= 0:
+                    failed = (f"{world - len(results)} of {world} ranks did "
+                              f"not finish within {timeout} s")
+                continue
             if ok:
                 results[rank] = value
             else:

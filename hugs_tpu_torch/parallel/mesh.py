@@ -1,6 +1,7 @@
-"""The ('data', 'tile') layout of the ranks and the process groups of its
-axes (the counterparts of hugs_tpu/parallel/shard.py::make_mesh and of
-the one-process part of multihost.py::make_hybrid_mesh).
+"""The layouts of the ranks and the process groups of their axes: the
+('data', 'tile') mesh (the counterpart of hugs_tpu/parallel/shard.py::
+make_mesh) and the 1-D ('gauss',) mesh of the Gaussian-sharded renderer
+(hugs_tpu/train/trainer.py::_get_gauss_mesh).
 
 Rank r sits at data coordinate r // n_tile and tile coordinate
 r % n_tile, the row-major order in which the JAX package reshapes its
@@ -10,8 +11,10 @@ every group, in the same order); both axes together are the default
 group. A mesh made without a process group is (1, 1) with no groups:
 every collective of parallel/collectives.py is then the identity.
 
-The DCN layout of several hosts, sync_hosts and the overlap flags wait
-for the multi-host part of the slice (ROADMAP Slice G item 4).
+A ('gauss',) mesh of n ranks is the whole default group (the world must
+be n), or one rank with no group: the one-card case, whose collectives
+are the identity but which runs the whole fragment path. The layout of
+several hosts is parallel/multihost.py's.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 import torch.distributed as dist
 
 AXES = ("data", "tile")
+GAUSS = "gauss"
 TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                  "MASTER_PORT")
 
@@ -39,8 +43,21 @@ class Mesh:
         self.groups = groups
 
     def __repr__(self):
-        return (f"Mesh(data={self.shape['data']}, tile={self.shape['tile']}, "
-                f"rank={self.rank}, distributed={self.distributed})")
+        shape = ", ".join(f"{a}={n}" for a, n in self.shape.items())
+        return (f"Mesh({shape}, rank={self.rank}, "
+                f"distributed={self.distributed})")
+
+    @classmethod
+    def line(cls, axis: str, n: int = 1, rank: int = 0,
+             distributed: bool = False) -> "Mesh":
+        """A 1-D mesh of n ranks over `axis`, its group the default one
+        where `distributed`."""
+        mesh = cls.__new__(cls)
+        mesh.shape = {axis: int(n)}
+        mesh.rank = int(rank)
+        mesh.coords = {axis: mesh.rank}
+        mesh.groups = {axis: None} if distributed else None
+        return mesh
 
     @property
     def distributed(self) -> bool:
@@ -48,14 +65,17 @@ class Mesh:
 
     @property
     def size(self) -> int:
-        return self.shape["data"] * self.shape["tile"]
+        n = 1
+        for v in self.shape.values():
+            n *= v
+        return n
 
     def axes(self, axis) -> tuple[str, ...]:
         axes = (axis,) if isinstance(axis, str) else tuple(axis)
         for a in axes:
-            if a not in AXES:
+            if a not in self.shape:
                 raise ValueError(f"unknown mesh axis {a!r}; expected one of "
-                                 f"{AXES}")
+                                 f"{tuple(self.shape)}")
         return axes
 
     def axis_size(self, axis) -> int:
@@ -117,6 +137,22 @@ def make_mesh(n_data: int | None = None, n_tile: int = 1) -> Mesh:
         if rank // n_tile == d:
             groups["tile"] = g
     return Mesh(n_data, n_tile, rank, groups)
+
+
+def make_gauss_mesh(n: int) -> Mesh:
+    """The 1-D ('gauss',) mesh of n ranks: the default process group,
+    whose world must be n, or with no group n = 1 (one card, no
+    collectives)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        if n != 1:
+            raise ValueError(f"a ('gauss',) mesh of {n} ranks needs a process "
+                             f"group of {n} ranks; none is initialised")
+        return Mesh.line(GAUSS)
+    world = dist.get_world_size()
+    if world != n:
+        raise ValueError(f"a ('gauss',) mesh of {n} ranks needs a world of "
+                         f"{n} ranks; the world has {world}")
+    return Mesh.line(GAUSS, n, dist.get_rank(), distributed=True)
 
 
 def factor_devices(n: int) -> tuple[int, int]:

@@ -31,29 +31,40 @@ def gauss_features(pg: ProjectedGaussians) -> torch.Tensor:
 
 def _tile_batches(gauss_id, starts, ends, width, height, tile_cap, tile):
     """The batches of tiles the plain blend walks, each at most
-    _PAIRS_PER_BATCH (instance, pixel) pairs. Yields (t, g, live, px, py):
-    tile ids (B,), Gaussian ids (B, K), valid-instance mask (B, K) and
-    pixel centres (B, P)."""
+    _PAIRS_PER_BATCH (instance, pixel) pairs. Without tile_cap, tiles go
+    densest first and a batch pads its tiles to its own largest count,
+    so that sparse tiles do not pay for the densest one; with tile_cap,
+    in order, each padded to tile_cap. Yields (t, g, live, px, py): tile
+    ids (B,), Gaussian ids (B, K), valid-instance mask (B, K) and pixel
+    centres (B, P)."""
     dev = gauss_id.device
     nx, ny = tile_grid(width, height, tile)
     tw, th = tile_wh(tile)
     T, P = nx * ny, tw * th
     counts = (ends - starts).to(torch.int64)
-    K = int(counts.max()) if tile_cap is None else int(tile_cap)
-    K = max(K, 1)
+    if tile_cap is None:
+        order = torch.argsort(counts, descending=True, stable=True)
+        ks = counts[order].clamp(min=1).tolist()
+    else:
+        order = torch.arange(T, device=dev)
+        ks = [max(int(tile_cap), 1)] * T
     # pad so that start + k never leaves the array
     gid_pad = torch.cat([gauss_id.to(torch.int64),
-                         torch.zeros(K, dtype=torch.int64, device=dev)])
-    k = torch.arange(K, device=dev)
+                         torch.zeros(ks[0] if T else 1, dtype=torch.int64,
+                                     device=dev)])
     lin = torch.arange(P, device=dev)
-    batch = max(1, min(T, _PAIRS_PER_BATCH // (K * P)))
-    for t0 in range(0, T, batch):
-        t = torch.arange(t0, min(t0 + batch, T), device=dev)
+    t0 = 0
+    while t0 < T:
+        K = ks[t0]
+        batch = max(1, min(T - t0, _PAIRS_PER_BATCH // (K * P)))
+        t = order[t0:t0 + batch]
+        k = torch.arange(K, device=dev)
         live = k[None, :] < counts[t, None]                       # (B, K)
         g = torch.where(live, gid_pad[starts[t].long()[:, None] + k], 0)
         px = ((t % nx) * tw)[:, None] + lin % tw                  # (B, P)
         py = ((t // nx) * th)[:, None] + lin // tw
         yield t, g, live, px.float(), py.float()
+        t0 += batch
 
 
 def _blend_batch(feat, bg, g, live, px, py):
@@ -112,16 +123,22 @@ def plain_blend(feat: torch.Tensor, gauss_id: torch.Tensor,
             its transmittance falls below T_EPS (row 0), and those of
             them that blend, with nonzero alpha (row 1).
     """
-    imgs, logts, pairs = [], [], []
-    for _, g, live, px, py in _tile_batches(gauss_id, starts, ends, width,
+    ts, imgs, logts, pairs = [], [], [], []
+    for t, g, live, px, py in _tile_batches(gauss_id, starts, ends, width,
                                             height, tile_cap, tile):
         img, final, pr = _blend_batch(feat, bg, g, live, px, py)
+        ts.append(t)
         imgs.append(img)
         logts.append(final)
         pairs.append(pr)
-    return (_assemble(torch.cat(imgs), width, height, tile),
-            _assemble(torch.cat(logts)[:, None], width, height, tile)[0],
-            _assemble(torch.cat(pairs), width, height, tile))
+    # the batches' tiles back in tile order
+    t = torch.cat(ts)
+    back = torch.empty_like(t)
+    back[t] = torch.arange(t.numel(), device=t.device)
+    return (_assemble(torch.cat(imgs)[back], width, height, tile),
+            _assemble(torch.cat(logts)[back][:, None], width, height,
+                      tile)[0],
+            _assemble(torch.cat(pairs)[back], width, height, tile))
 
 
 def plain_blend_bwd(feat: torch.Tensor, gauss_id: torch.Tensor,

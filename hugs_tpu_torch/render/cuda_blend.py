@@ -2,8 +2,10 @@
 and K2, its backward (csrc/blend_bwd.cu).
 
 The counterparts of hugs_tpu/render/pallas_blend.py's forward and
-backward kernels. `blend_tiles` launches K1 for CUDA tensors through a
-torch.autograd.Function whose backward launches K2, and runs the plain
+backward kernels. `blend_feat` (on a feature table: the Gaussians' own,
+or the received fragments of parallel/gauss_shard.py) and `blend_tiles`
+(on projected Gaussians) launch K1 for CUDA tensors through a
+torch.autograd.Function whose backward launches K2, and run the plain
 PyTorch blend (render/blend.py) under autograd for CPU tensors; there is
 no other path and no fallback when a build or a launch fails.
 
@@ -35,9 +37,7 @@ import ctypes
 import torch
 
 from hugs_tpu_torch import build
-from hugs_tpu_torch.render.blend import (
-    N_FEAT, blend_tiles_plain, gauss_features,
-)
+from hugs_tpu_torch.render.blend import N_FEAT, gauss_features, plain_blend
 from hugs_tpu_torch.render.oracle import clip01
 from hugs_tpu_torch.render.project import ProjectedGaussians
 from hugs_tpu_torch.render.tiles import (
@@ -281,15 +281,25 @@ class _BlendFwd(torch.autograd.Function):
         return grad_feat, None, None, None, grad_bg, None, None
 
 
-def blend_tiles(pg: ProjectedGaussians, bins: TileBins, width: int,
-                height: int, bg: torch.Tensor) -> torch.Tensor:
-    """Composite all tiles. Returns (3, H, W) in [0, 1].
+def blend_feat(feat: torch.Tensor, gauss_id: torch.Tensor,
+               starts: torch.Tensor, ends: torch.Tensor, bg: torch.Tensor,
+               width: int, height: int) -> torch.Tensor:
+    """Composite all tiles of a feature table (N, 10) in gauss_features'
+    layout. Returns (3, H, W) in [0, 1], differentiable in feat and bg.
 
     CUDA tensors go through K1 (and K2 for the gradient), on 16x16 tiles;
-    CPU tensors through blend_tiles_plain, with no tile cap."""
-    if pg.mean2d.device.type == "cpu":
-        return blend_tiles_plain(pg, bins, width, height, bg)
-    raw = _BlendFwd.apply(gauss_features(pg), bins.gauss_id, bins.starts,
-                          bins.ends, bg.to(torch.float32).contiguous(),
-                          width, height)
+    CPU tensors through the plain blend, with no tile cap."""
+    if feat.device.type == "cpu":
+        return clip01(plain_blend(feat, gauss_id, starts, ends, bg, width,
+                                  height)[0])
+    raw = _BlendFwd.apply(feat.contiguous(), gauss_id, starts, ends,
+                          bg.to(torch.float32).contiguous(), width, height)
     return clip01(raw)
+
+
+def blend_tiles(pg: ProjectedGaussians, bins: TileBins, width: int,
+                height: int, bg: torch.Tensor) -> torch.Tensor:
+    """Composite all tiles of the projected set pg over its bins. Returns
+    (3, H, W) in [0, 1] (blend_feat)."""
+    return blend_feat(gauss_features(pg), bins.gauss_id, bins.starts,
+                      bins.ends, bg, width, height)

@@ -5,6 +5,9 @@
 `render_human_scene` merges the human and scene Gaussian sets, human
 first, into one depth-sorted blend (the ml-hugs gs_renderer contract).
 
+A ('gauss',) mesh routes the render through the Gaussian-sharded
+renderer (parallel/gauss_shard.py), which every rank of the mesh calls.
+
 Backends: 'tiled' (default) bins into 16x16 tiles and blends through
 cuda_blend.blend_tiles, which launches the CUDA kernels for CUDA tensors
 (K1 forward, K2 backward) and runs the plain PyTorch blend under autograd
@@ -54,15 +57,31 @@ def render(
     instance_budget: the binning's slot budget (default max(4N, 65536)).
     bin_only: stop after the binning (the 'tiled' backend): the dict has
     no 'render' and no blend kernel is launched; a slot-demand probe.
-    gauss_mesh / gauss_frag_cap: the Gaussian-sharded renderer, not
-    ported yet."""
-    if gauss_mesh is not None or gauss_frag_cap is not None:
-        raise NotImplementedError(
-            "the Gaussian-sharded renderer comes with ROADMAP Slice G "
-            "item 3")
+    gauss_mesh: a ('gauss',) mesh (parallel/mesh.py::make_gauss_mesh)
+    renders through the Gaussian-sharded renderer on every rank of it,
+    N divisible by its D ranks: instance_budget is then the global
+    budget, max(budget // D, 4096) a rank; gauss_frag_cap bounds one
+    (sender, band) packet; the dict adds 'frag_counts' (D, D), and
+    'n_instances' and 'n_slots' are 0 (hugs_tpu/render/renderer.py:
+    67-89). Not with bin_only."""
     dev = means3d.device
     if bg is None:
         bg = torch.zeros(3, dtype=torch.float32, device=dev)
+    if gauss_mesh is not None:
+        if bin_only or backend != "tiled":
+            raise ValueError("the Gaussian-sharded renderer blends with the "
+                             "'tiled' backend and has no bin_only probe")
+        from hugs_tpu_torch.parallel.gauss_shard import render_gauss_sharded
+        n_dev = gauss_mesh.axis_size("gauss")
+        out = render_gauss_sharded(
+            means3d, scales, rotq, opacity, shs, camera, width, height,
+            gauss_mesh, bg=bg, active_sh_degree=active_sh_degree,
+            scaling_modifier=scaling_modifier, alive=alive,
+            local_budget=(max(instance_budget // n_dev, 1 << 12)
+                          if instance_budget else None),
+            frag_cap=gauss_frag_cap, mean2d_grad_hook=mean2d_grad_hook)
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        return dict(out, n_instances=zero, n_slots=zero)
     pg = project_gaussians(means3d, scales, rotq, opacity, shs, camera,
                            width, height, active_sh_degree, scaling_modifier,
                            alive=alive)

@@ -40,8 +40,24 @@ the all-reduced overflow flag, so every rank grows its budget alike.
 train.anim_batch_size B > 1 animates in batches of B frames split over
 the mesh's data ranks, frame by frame on each. Rank 0 writes the logs,
 checkpoints, validation and images; the other ranks wait at a barrier.
-The Gaussian-sharded renders (tpu.gauss_shard) are not here yet
-(cfg.check_supported refuses them).
+
+The Gaussian-sharded path (tpu.gauss_shard = n; hugs_tpu/train/
+trainer.py:186-233): a ('gauss',) mesh of n ranks, the world under
+torchrun or one rank with no group (parallel/mesh.py::make_gauss_mesh).
+Scene-mode training runs through parallel/gauss_train.py's step: each
+rank owns its rows of the scene (a copy, `_gscene`, made at the first
+step from the whole state, rank 0's), its local budget is
+max(budget // n, 4096), and an overflow is warned on sync steps, not
+retried (no regrowth, as in hugs_tpu); the densify gathers the rows and
+runs on the whole set. The trainer's `scene` stays the whole state and
+is brought up to date from the ranks' rows (`_sync_scene`, a
+collective) before anything reads it: the periodic writes that are due,
+and the end of train(). The evaluation renders (render_frame, validate,
+animate, the turntable) go through render(gauss_mesh=...) with the
+global budget; the rehearsal's binning-only probe bins the whole set on
+one device. With n > 1 every rank runs those renders (they exchange
+fragments) and rank 0 alone writes. Human and joint training do not
+change.
 """
 from __future__ import annotations
 
@@ -64,7 +80,11 @@ from hugs_tpu_torch.models import scene_gs as sgs
 from hugs_tpu_torch.models.smpl import load_smpl, synthetic_smpl
 from hugs_tpu_torch.models.subdivide import subdivide_smpl_model
 from hugs_tpu_torch.parallel.collectives import broadcast_
-from hugs_tpu_torch.parallel.mesh import Mesh, make_mesh
+from hugs_tpu_torch.parallel.gauss_train import (
+    ROW_FIELDS, gather_scene_state, gauss_densify_step,
+    make_gauss_scene_train_step, shard_scene_state,
+)
+from hugs_tpu_torch.parallel.mesh import Mesh, make_gauss_mesh, make_mesh
 from hugs_tpu_torch.parallel.shard import batch_render_sharded
 from hugs_tpu_torch.parallel.train_dp_tile import (
     dp_aux, make_dp_tile_train_step,
@@ -95,6 +115,12 @@ class GaussianTrainer:
     # the mesh: (world, 1) over the process group, (1, 1) without one
     # (also for a trainer made without __init__)
     mesh: Mesh = Mesh()
+    # this rank's rows of the scene while it trains Gaussian-sharded, and
+    # whether `scene` lags behind them
+    _gscene = None
+    _scene_stale = False
+    _gauss_mesh = None
+    _gauss_key = None
 
     def __init__(self, cfg: Config, train_dataset=None, val_dataset=None,
                  anim_dataset=None, smpl_model=None,
@@ -204,6 +230,115 @@ class GaussianTrainer:
         if cfg.logdir_ckpt and os.path.isdir(cfg.logdir_ckpt):
             self.load_latest_ckpt()
 
+    # ---------------------------------------------------- gauss shard
+
+    def _gauss_n(self) -> int:
+        return int(self.cfg.tpu.get("gauss_shard", 0) or 0)
+
+    @property
+    def gauss_collective(self) -> bool:
+        """Whether the evaluation renders exchange fragments between
+        ranks, so that every rank must run them."""
+        return self._gauss_n() > 1
+
+    def _get_gauss_mesh(self) -> Mesh:
+        """The ('gauss',) mesh of tpu.gauss_shard ranks, built once."""
+        n = self._gauss_n()
+        if self._gauss_mesh is None or self._gauss_mesh.shape["gauss"] != n:
+            self._gauss_mesh = make_gauss_mesh(n)
+        return self._gauss_mesh
+
+    def _eval_render_kw(self, budget: int | None = None) -> dict:
+        """The evaluation renders' arguments: the budget, and with
+        tpu.gauss_shard the ('gauss',) mesh and the packet cap
+        (hugs_tpu/train/trainer.py:219-233)."""
+        kw = {"instance_budget": int(budget or self._ibudget)}
+        if self._gauss_n():
+            kw.update(gauss_mesh=self._get_gauss_mesh(),
+                      gauss_frag_cap=int(self.cfg.tpu.get(
+                          "gauss_frag_cap", 0) or 0) or None)
+        return kw
+
+    def _get_gauss_step(self, W: int, H: int):
+        """The Gaussian-sharded scene step for frames of W x H, cached;
+        the first one takes this rank's rows of the scene (rank 0's)."""
+        n = self._gauss_n()
+        key = (W, H, n, self._ibudget)
+        if self._gauss_key != key:
+            mesh = self._get_gauss_mesh()
+            if self._gscene is None:
+                if mesh.distributed:
+                    broadcast_([t.data for t in ckpt_io.flatten(
+                        self.scene).values()], mesh)
+                self._gscene = shard_scene_state(self.scene, mesh)
+            loss = self.cfg.scene.loss
+            self._gstep = make_gauss_scene_train_step(
+                mesh, width=W, height=H, l1_w=loss.l1_w, ssim_w=loss.ssim_w,
+                local_budget=max(self._ibudget // n, 1 << 12),
+                frag_cap=int(self.cfg.tpu.get("gauss_frag_cap", 0) or 0)
+                or None)
+            self._gauss_key = key
+        return self._gstep
+
+    @torch.no_grad()
+    def _sync_scene(self):
+        """`scene` from the ranks' rows where it lags behind them (a
+        collective: every rank calls it at the same points)."""
+        if self._gscene is None or not self._scene_stale:
+            return
+        full = gather_scene_state(self._gscene, self._get_gauss_mesh())
+        for f in ROW_FIELDS + ("active_sh_degree",):
+            getattr(self.scene.gs, f).copy_(getattr(full.gs, f))
+        for mine, whole in ((self.scene.opt.mu, full.opt.mu),
+                            (self.scene.opt.nu, full.opt.nu)):
+            for k, v in mine.items():
+                v.copy_(whole[k])
+        self.scene.opt.step.copy_(full.opt.step)
+        self._scene_stale = False
+
+    def _end_gauss_training(self):
+        """`scene` up to date, and the ranks' rows dropped: a later
+        train() takes them again."""
+        self._sync_scene()
+        self._gscene = self._gauss_key = None
+
+    def _writes_due(self, t_iter: int) -> bool:
+        """Whether _write_periodic reads the models at t_iter."""
+        cfg = self.cfg
+        if t_iter == 0:
+            return True
+        anim_every = int(cfg.train.get("anim_interval", 0) or 0)
+        return (t_iter % 1000 == 0
+                or t_iter % cfg.train.save_ckpt_interval == 0
+                or (t_iter % cfg.train.val_interval == 0
+                    and self.val_dataset is not None)
+                or (anim_every > 0 and t_iter % anim_every == 0)
+                or (cfg.train.save_progress_images
+                    and t_iter % cfg.train.progress_save_interval == 0))
+
+    def _gauss_train_step(self, t_iter, data, sync: bool):
+        """One scene step through the Gaussian-sharded step, then the
+        densify where due. Returns _train_step's (aux, vals)."""
+        W, H = data["width"], data["height"]
+        bg, _, _ = self._step_draws("scene", H, W)
+        step = self._get_gauss_step(W, H)
+        self._gscene, aux = step(self._gscene, data["camera"], data["rgb"],
+                                 bg, self.s_xyz_sched(t_iter),
+                                 self.s_static_lrs)
+        self._scene_stale = True
+        vals = None
+        if sync:
+            loss, over = torch.stack([aux["loss"].double(),
+                                      aux["overflowed"].double()]).tolist()
+            vals = (loss, 0, bool(over), 0)
+            if vals[2]:
+                print(f"WARNING: Gaussian-sharded instance budget overflow "
+                      f"at iter {t_iter} (local budget "
+                      f"{step.local_budget}, frag_cap {step.frag_cap}): "
+                      f"raise tpu.instance_budget or tpu.gauss_frag_cap")
+        self._maybe_densify_scene(t_iter)
+        return aux, vals
+
     # ------------------------------------------------------------ budget
 
     def _check_budget(self, ni: int, overflowed: bool, ninst: int) -> bool:
@@ -253,7 +388,8 @@ class GaussianTrainer:
         or several ranks, a batch a step through the data x tile step."""
         cfg = self.cfg
         bsz = int(cfg.train.get("batch_size", 1) or 1)
-        batched = bsz > 1 or self.mesh.size > 1
+        gauss = cfg.mode == "scene" and self._gauss_n() > 0
+        batched = bsz > 1 or (self.mesh.size > 1 and not gauss)
         if batched:
             self._check_batch_layout(bsz)
             self._broadcast_states()
@@ -284,6 +420,7 @@ class GaussianTrainer:
                           f"{t_iter}: raise tpu.instance_budget (dropped "
                           f"Gaussian instances degrade quality)")
             self._periodic(t_iter, aux, data)
+        self._end_gauss_training()
         self._finish_progress_video()
         # the final checkpoint: the interval ones miss the last steps
         if cfg.logdir and cfg.train.num_steps % \
@@ -354,6 +491,8 @@ class GaussianTrainer:
         overflowed, instances) or None)."""
         cfg = self.cfg
         mode = self._mode(t_iter)
+        if mode == "scene" and self._gauss_n():
+            return self._gauss_train_step(t_iter, data, sync)
         W, H = data["width"], data["height"]
         bg, human_bg, draws = self._step_draws(mode, H, W)
         vals = None
@@ -504,6 +643,17 @@ class GaussianTrainer:
         return torch.randn((2, capacity, 3), generator=self.gen,
                            device=self.gen.device).to(self.device)
 
+    def _scene_densify(self, noise: torch.Tensor, **kw):
+        """scene_densify_step on the scene, or on the ranks' rows while it
+        trains Gaussian-sharded (gauss_densify_step)."""
+        extent = float(self.scene_extent)
+        if self._gscene is None:
+            sst.scene_densify_step(self.scene, noise, extent, **kw)
+            return
+        gauss_densify_step(self._gscene, self._get_gauss_mesh(), noise,
+                           extent, **kw)
+        self._scene_stale = True
+
     def _maybe_densify_scene(self, t_iter: int):
         cfg = self.cfg
         it = (t_iter - max(cfg.scene.opt_start_iter, 0)) + 1
@@ -513,9 +663,8 @@ class GaussianTrainer:
                 and it % cfg.scene.densification_interval == 0:
             size_thresh = 20.0 if it > cfg.scene.opacity_reset_interval \
                 else None
-            sst.scene_densify_step(
-                self.scene, self._split_noise(self._s_cap),
-                float(self.scene_extent),
+            self._scene_densify(
+                self._split_noise(self._s_cap),
                 grad_threshold=cfg.scene.densify_grad_threshold,
                 min_opacity=cfg.scene.prune_min_opacity,
                 max_screen_size=size_thresh,
@@ -524,11 +673,10 @@ class GaussianTrainer:
         if it % cfg.scene.opacity_reset_interval == 0 or (
                 cfg.bg_color == "white" and it == cfg.scene.densify_from_iter):
             # nothing is split at an infinite threshold: no noise is drawn
-            sst.scene_densify_step(
-                self.scene, torch.zeros((2, self._s_cap, 3),
-                                        device=self.device),
-                float(self.scene_extent), grad_threshold=np.inf,
-                min_opacity=0.0, do_reset_opacity=True)
+            self._scene_densify(
+                torch.zeros((2, self._s_cap, 3), device=self.device),
+                grad_threshold=np.inf, min_opacity=0.0,
+                do_reset_opacity=True)
 
     def _maybe_densify_human(self, t_iter: int, aux: dict):
         cfg = self.cfg
@@ -556,16 +704,22 @@ class GaussianTrainer:
         progress strip and the two dump hooks are observability: an
         error there is printed as a warning and training goes on. With
         several ranks rank 0 does all but the SH step, alone (animate on
-        no mesh), while the others wait at a barrier."""
+        no mesh), while the others wait at a barrier; where the
+        evaluation renders exchange fragments (gauss_collective) every
+        rank renders and rank 0 alone writes."""
         cfg = self.cfg
         if t_iter % 1000 == 0 and t_iter > 0:
             if self.human is not None:
                 hgs.one_up_sh_degree(self.human.state, cfg.human.sh_degree)
             if self.scene is not None:
                 sgs.one_up_sh_degree(self.scene.gs, cfg.scene.sh_degree)
+            if self._gscene is not None:
+                sgs.one_up_sh_degree(self._gscene.gs, cfg.scene.sh_degree)
         if not cfg.logdir:
             return
-        if self.mesh.is_writer:
+        if self._writes_due(t_iter):
+            self._sync_scene()
+        if self.mesh.is_writer or self.gauss_collective:
             self._write_periodic(t_iter, data)
         self.mesh.barrier()
 
@@ -576,8 +730,9 @@ class GaussianTrainer:
         if t_iter > 0 and t_iter % 1000 == 0 and data is not None:
             # the train view, target beside render (gs_trainer.py:307-314)
             pkg = self.render_frame(data)
-            save_image_grid([data["rgb"], pkg["render"]],
-                            f"{cfg.logdir}/train/{t_iter:06d}.png")
+            if self.mesh.is_writer:
+                save_image_grid([data["rgb"], pkg["render"]],
+                                f"{cfg.logdir}/train/{t_iter:06d}.png")
         if cfg.train.save_progress_images and t_iter > 0 and has_human \
                 and t_iter % cfg.train.progress_save_interval == 0:
             self._observe(f"progress image({t_iter})",
@@ -697,14 +852,16 @@ class GaussianTrainer:
                                            use_dataset_pose=use_dataset_pose)
         W, H = data["width"], data["height"]
         bin_only = outputs is not None and set(outputs) <= BIN_OUTPUTS
+        # the probe bins the whole set on one device
+        kw = ({"instance_budget": budget, "bin_only": True} if bin_only
+              else self._eval_render_kw(budget))
         out = render_human_scene(
             {"camera": data["camera"], "width": W, "height": H}, h_out,
             s_out, bg_color=self.bg_color if bg is None else bg,
-            render_mode=render_mode, instance_budget=budget,
-            bin_only=bin_only)
+            render_mode=render_mode, **kw)
         if outputs is not None:
             return tuple(out[k] for k in outputs)
-        key = (render_mode, W, H, budget)
+        key = (render_mode, W, H, budget, self._gauss_n())
         if self._budget_rehearsed and key not in self._overflow_checked:
             self._overflow_checked.add(key)
             if bool(out["overflowed"]):
@@ -746,7 +903,7 @@ class GaussianTrainer:
         pkg = render_human_scene(
             {"camera": data["camera"], "width": data["width"],
              "height": data["height"]}, h_out, s_out, bg_color=bg,
-            render_mode=mode, instance_budget=self._ibudget)
+            render_mode=mode, **self._eval_render_kw())
         img, gt = pkg["render"], data["rgb"]
         lp = self.lpips(torch.minimum(img, img.new_ones(()))[None],
                         gt[None])[0]
@@ -779,13 +936,13 @@ class GaussianTrainer:
                         float(s))
                     metrics.setdefault(lp_key.replace(
                         "hugs_", "hugs_human_"), []).append(float(lp))
-            if cfg.logdir:
+            if cfg.logdir and self.mesh.is_writer:
                 save_image_grid([data["rgb"], img],
                                 f"{cfg.logdir}/val/full_{iter_s}_{idx:03d}.png")
         out = {k: float(np.mean(v)) for k, v in metrics.items() if v}
         self.eval_metrics[iter_s] = out
         self._log_jsonl({"eval": iter_s, **out})
-        if cfg.logdir:
+        if cfg.logdir and self.mesh.is_writer:
             os.makedirs(f"{cfg.logdir}/val", exist_ok=True)
             with open(f"{cfg.logdir}/val/eval_{iter_s}.json", "w") as f:
                 json.dump(out, f, indent=2)
@@ -796,6 +953,7 @@ class GaussianTrainer:
     def save_ckpt(self, t_iter: int | None = None):
         """Both train states under logdir_ckpt, and the scene's live
         Gaussians as a 3DGS PLY under logdir/meshes; rank 0's only."""
+        self._sync_scene()
         if not self.cfg.logdir_ckpt or not self.mesh.is_writer:
             return
         iter_s = "final" if t_iter is None else f"{t_iter:06d}"
@@ -912,11 +1070,14 @@ class GaussianTrainer:
             return []
         mesh = self.mesh if mesh is None else mesh
         iter_s = "final" if t_iter is None else f"{t_iter:06d}"
-        anim_dir = self._out_dir("anim", iter_s) if mesh.is_writer else None
+        anim_dir = (self._out_dir("anim", iter_s)
+                    if mesh.is_writer and self.mesh.is_writer else None)
         bsz = int(batch_size or self.cfg.train.get("anim_batch_size", 1)
                   or 1)
         n = len(self.anim_dataset)
-        if bsz > 1 and self.human is not None and n > 1:
+        # frames that exchange fragments render on every rank, in turn
+        if bsz > 1 and self.human is not None and n > 1 \
+                and not self.gauss_collective:
             frames = self._animate_batched(bsz, mesh)
         else:
             frames = [self._anim_frame(self.anim_dataset[i])
@@ -955,7 +1116,8 @@ class GaussianTrainer:
         {n:05d}.png (n from 1) and a video. Returns the images."""
         iter_s = "final" if t_iter is None else f"{t_iter:06d}"
         frames = self._canonical_frames(nframes, img_size, pose_type)
-        out_dir = self._out_dir("canon", iter_s)
+        out_dir = self._out_dir("canon", iter_s) if self.mesh.is_writer \
+            else None
         if out_dir:
             for n, img in enumerate(frames, 1):
                 save_png(img, f"{out_dir}/{n:05d}.png")
@@ -970,9 +1132,10 @@ class GaussianTrainer:
         """One strip of the canonical avatar from `nframes` orbit cameras
         into logdir/train_progress/ (reference render_canonical(...,
         is_train_progress=True), gs_trainer.py:588-684)."""
-        save_image_grid(
-            self._canonical_frames(nframes, img_size),
-            f"{self.cfg.logdir}/train_progress/{t_iter:06d}.png")
+        frames = self._canonical_frames(nframes, img_size)
+        if self.mesh.is_writer:
+            save_image_grid(
+                frames, f"{self.cfg.logdir}/train_progress/{t_iter:06d}.png")
 
     def _finish_progress_video(self):
         """The progress strips into one video, then the strips go
@@ -991,7 +1154,10 @@ class GaussianTrainer:
         shutil.rmtree(pdir)
 
     def _save_scene_ply(self, iter_s: str):
-        """The scene's live Gaussians as a 3DGS PLY under logdir/meshes."""
+        """The scene's live Gaussians as a 3DGS PLY under logdir/meshes
+        (rank 0's)."""
+        if not self.mesh.is_writer:
+            return
         gs = self.scene.gs
         alive = gs.alive.cpu().numpy()
 
@@ -1018,7 +1184,8 @@ class GaussianTrainer:
         {iter}_splat.ply (reference gs_trainer.py:362-375): one
         human_forward at the zero pose, whose canonical attributes do
         not depend on the pose."""
-        if self.human is None or not self.cfg.logdir:
+        if self.human is None or not self.cfg.logdir \
+                or not self.mesh.is_writer:
             return
         from hugs_tpu_torch.utils.vis import save_human_ply
         iter_s = "final" if t_iter is None else f"{t_iter:06d}"

@@ -73,19 +73,19 @@ def test_dotted_overrides_as_jax():
     ("train.batch_size=2", "Slice G"), ("tpu.gauss_shard=2", "Slice G"),
     ("train.anim_batch_size=2", "Slice G")])
 def test_unported_settings_raise(override, slice_name):
-    """tpu.gauss_shard is still refused, naming Slice G item 3. The
-    batched settings of Slice G items 1-2 pass (hugs_tpu_torch/parallel);
-    train.batch_size > 1 outside mode human_scene makes the trainer raise
-    ValueError, as hugs_tpu's does."""
+    """Every setting of Slice G passes now (hugs_tpu_torch/parallel):
+    tpu.gauss_shard = n too (item 3), while a negative one, which hugs_tpu
+    cannot run either, raises ValueError; train.batch_size > 1 outside
+    mode human_scene makes the trainer raise ValueError, as hugs_tpu's
+    does."""
     from hugs_tpu_torch.train.trainer import GaussianTrainer
     check_supported(default_config())
     cfg = load_config(None, [override])
-    if override.startswith("tpu.gauss_shard"):
-        with pytest.raises(NotImplementedError,
-                           match=f"{slice_name} item 3"):
-            check_supported(cfg)
-        return
     check_supported(cfg)
+    if override.startswith("tpu.gauss_shard"):
+        with pytest.raises(ValueError, match="gauss_shard"):
+            check_supported(load_config(None, ["tpu.gauss_shard=-1"]))
+        return
     if override.startswith("train.batch_size"):
         tr = object.__new__(GaussianTrainer)
         tr.cfg = load_config(None, [override, "mode=human"])

@@ -263,7 +263,8 @@ def flagship(tmp_path_factory):
         convert.save_checkpoint_from_numpy(
             os.path.join(out, "ckpt"), "014998",
             *jax_joint_to_numpy(JointTrainState(human=jt.human,
-                                                scene=jt.scene)))
+                                                scene=jt.scene)),
+            device="cpu")
         tcfg = _flagship_cfg(load_config)
         tcfg.logdir, tcfg.logdir_ckpt = out, os.path.join(out, "ckpt")
         tt = GaussianTrainer(tcfg, None, None, None, device="cpu")

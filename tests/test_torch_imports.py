@@ -113,6 +113,21 @@ def test_parallel_modules_are_among_the_checked():
             path, "__init__.py") in sources, name
 
 
+def test_gauss_shard_modules_are_among_the_checked():
+    """The modules of the Gaussian-sharded slice (the fragment renderer,
+    the sharded scene step, the multi-host layout), the per-Gaussian
+    avatar and the driver hooks stand alone like the rest: the checks
+    around this one walk them."""
+    modules = _port_modules()
+    sources = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for name in ("parallel.gauss_shard", "parallel.gauss_train",
+                 "parallel.multihost", "models.human_gs_pergs",
+                 "graft_entry"):
+        assert f"hugs_tpu_torch.{name}" in modules, name
+        assert os.path.join("hugs_tpu_torch", *name.split(".")) + ".py" \
+            in sources, name
+
+
 def _imported_names(path):
     tree = ast.parse(open(path).read(), path)
     for node in ast.walk(tree):
