@@ -4,9 +4,10 @@ serving frame, the three micro-benchmarks, human training, joint
 human + scene training through the port's CLI, the evaluation of its
 output (validate, animate, the turntable, the inference fast path), its
 scale-out (image bands, batched animate, the batched joint step
-through torch.distributed) and the Gaussian-sharded renderer and scene
-step on one NVIDIA GPU (and on several, where the machine has them, for
-one data x tile step).
+through torch.distributed), the Gaussian-sharded renderer and scene
+step, and the convergence recipes (cut) with the blend kernels' edge
+scenes on one NVIDIA GPU (and on several, where the machine has them,
+for one data x tile step).
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It builds the CUDA kernels (K1, the forward blend; K2, its backward,
@@ -178,6 +179,22 @@ source, all together, then:
      graft_entry.entry()'s frame and dryrun_multichip(1); (e) the
      per-Gaussian avatar on 3c's body through K1 at W x H, and at
      EVAL_CPU_WH against the CPU;
+  3j. the convergence recipes of hugs_tpu_torch/convergence, cut (after
+     3i): (a) micro/kernel_parity.py's four scenes (multichunk_empty,
+     saturating, tile16, tight_budget) through K1 and K2 against their
+     plain versions, end to end at the script's bars (image 5e-5,
+     gradients 5e-4 relative) and kernel by kernel at K1's and K2's bars;
+     (b) human_avatar and joint_scene at full width (512x512, 24 frames)
+     through their own functions, the distillation cut to
+     RECIPE_DISTILL steps, RECIPE_STEPS training steps: the held-out PSNR
+     finite and RECIPE_GAIN_DB above step 0's, one K2 launch per render
+     of a step (the joint step renders the merged frame and the human
+     alone), frame 0's ground truth (K1's render) against plain_blend;
+     (c) surface_scene at 960x540 for SURFACE_STEPS steps through
+     GaussianTrainer with the automatic budget: no overflow left after a
+     retry, the losses and the PSNR finite, one K2 a step, view 0's
+     ground truth against plain_blend; the phase's time and each recipe's
+     steps/s;
   4. times on the card (CUDA events, median of 20 after warm-up): one
      request split into project / bin / blend, one training step split
      into forward / loss / backward / Adam + stats, one densify step,
@@ -191,9 +208,11 @@ source, all together, then:
      compares designs);
   5. one JSON line of the kernels; 6. the device line, last.
 
-Any failed phase raises and the script exits non-zero. Without a CUDA
-device, or without the repository beside it, it exits non-zero and
-prints no result.
+Any failed phase raises and the script exits non-zero (1, the
+exception's traceback on stderr). Without a CUDA device it exits 2;
+copied alone into a directory without the repository's hugs_tpu_torch
+beside it, its first import fails and it exits 1; neither prints a
+result.
 
 `python3 chip_smoke.py --scale-out` runs phase 3h's checks (c) and (d)
 alone, on phase 3f's sequence trained for 2 steps, then with
@@ -351,6 +370,16 @@ GAUSS_STEPS = (3, 2)
 GAUSS_MAIN_STEPS = 4
 GAUSS_LOSS_RTOL = 1e-3
 GAUSS_SCALE_OUT = 4
+# phase 3j: the convergence recipes (hugs_tpu_torch/convergence), cut: the
+# human and joint recipes at full width (512x512, 24 frames) with their
+# distillation cut to RECIPE_DISTILL steps and RECIPE_STEPS training
+# steps; the surface recipe (960x540, 44 views, the automatic budget) for
+# SURFACE_STEPS steps. The held-out PSNR must gain RECIPE_GAIN_DB over
+# step 0's (the TPU gained 14.6 and 11.2 dB by step 250)
+RECIPE_DISTILL = 300
+RECIPE_STEPS = 250
+RECIPE_GAIN_DB = 10.0
+SURFACE_STEPS = 250
 # `--scale-out`: checks (c) and (d) alone, on phase 3f's sequence and
 # JOINT_CUTS trained for 2 steps after a 50-step distillation
 SCALE_OUT_CUTS = dict(JOINT_CUTS, **{
@@ -2971,6 +3000,188 @@ def gauss_shard(dev, smi, project, slot_budget, joint, evaln, root):
     return out
 
 
+def gt_frame_check(name, attrs, camera, width, height, bg):
+    """One ground-truth frame of a recipe through K1 against plain_blend
+    on the same bins, at the frame's own slot demand: the recipes' ground
+    truth is K1's render, so a fault in K1 fails here instead of becoming
+    a target the model trains to. Returns the max |d|."""
+    from hugs_tpu_torch.convergence import common
+    from hugs_tpu_torch.render import cuda_blend
+    from hugs_tpu_torch.render.blend import gauss_features, plain_blend
+    from hugs_tpu_torch.render.project import project_gaussians
+    from hugs_tpu_torch.render.tiles import bin_gaussians
+    with torch.no_grad():
+        demand = common.probe_demand(*attrs, camera, width, height,
+                                     active_sh_degree=0)
+        pg = project_gaussians(*attrs, camera, width, height, 0)
+        bins = bin_gaussians(pg, width, height, common.pages(demand))
+        args = (gauss_features(pg), bins.gauss_id, bins.starts, bins.ends,
+                bg, width, height)
+        img = cuda_blend.blend_fwd(*args)[0]
+        ref = plain_blend(*args)[0]
+        torch.cuda.synchronize()
+    return held(f"phase 3j {name}: ground-truth frame 0, K1 vs plain "
+                f"({int(bins.n_instances):,} instances)", img, ref)
+
+
+def recipe_cut(dev, smi, mod):
+    """The human or joint recipe (mod: convergence.human_avatar or
+    joint_scene) at full width through its own functions, its
+    distillation cut to RECIPE_DISTILL steps, RECIPE_STEPS steps, the
+    held-out PSNR before and after. Checks: the PSNR finite and gaining
+    RECIPE_GAIN_DB, K2 launched once per render of a step (1 human, 2
+    joint: the merged frame and the human alone), K1 once per render of
+    a step plus the renders again at a grown budget, frame 0's ground
+    truth K1 = plain. Raises if one fails; returns its numbers."""
+    from hugs_tpu_torch.render import cuda_blend
+    name = mod.NAME
+    t0 = time.time()
+    cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
+    run, demands = mod.setup(mod.SIZES, dev, distill=RECIPE_DISTILL)
+    gt_k1 = cuda_blend.LAUNCHES
+    p0 = mod.eval_held(run)
+    gen = torch.Generator(device=dev).manual_seed(mod.SEED + 1)
+    grown = run.budget_grown
+    torch.cuda.synchronize()
+    cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
+    t1 = time.time()
+    for step in range(1, RECIPE_STEPS + 1):
+        aux = mod.train_iteration(run, step,
+                                  torch.rand(3, generator=gen, device=dev))
+    torch.cuda.synchronize()
+    train_s = time.time() - t1
+    k1, k2 = cuda_blend.LAUNCHES, cuda_blend.K2_LAUNCHES
+    retried = run.budget_grown - grown
+    p1 = mod.eval_held(run)
+    renders = 2 if name == "joint_scene" else 1
+    print(f"# phase 3j {name}: {run.W}x{run.H}, {len(run.frames)} frames, "
+          f"distillation {RECIPE_DISTILL}, {RECIPE_STEPS} steps in "
+          f"{train_s:.2f} s = {RECIPE_STEPS / train_s:.2f} steps/s; held-out "
+          f"PSNR {p0:.2f} -> {p1:.2f} dB; loss {float(aux['loss']):.4f}; "
+          f"K1 {k1}, K2 {k2} launches; ground-truth demand "
+          f"{min(demands):,}-{max(demands):,}, budget {run.budget:,} "
+          f"(grown {run.budget_grown} times)  [{smi}]")
+    if not (math.isfinite(p0) and math.isfinite(p1)
+            and p1 - p0 >= RECIPE_GAIN_DB):
+        raise AssertionError(f"phase 3j {name}: held-out PSNR {p0:.2f} -> "
+                             f"{p1:.2f} dB, not a gain of {RECIPE_GAIN_DB}")
+    if k2 != renders * RECIPE_STEPS or \
+            k1 != renders * (RECIPE_STEPS + retried):
+        raise AssertionError(f"phase 3j {name}: K1 {k1}, K2 {k2} launches "
+                             f"in {RECIPE_STEPS} steps of {renders} "
+                             f"render(s), {retried} rendered again")
+    # frame 0's ground truth again, K1 against plain
+    from hugs_tpu_torch.convergence.human_avatar import gt_splats
+    from hugs_tpu_torch.models.smpl import synthetic_smpl
+    smpl = synthetic_smpl(verts_per_bone=mod.VPB, device=dev)
+    pose, orient = mod.gt_poses(0, len(run.frames))
+    if name == "joint_scene":
+        room = mod.room_splats(*mod.scene_points(
+            np.random.RandomState(0), mod.SIZES["N_SPHERE"],
+            mod.SIZES["N_FLOOR"]), dev)
+        attrs = mod.gt_attrs(smpl, gt_splats(smpl), room, pose, orient)[0]
+    else:
+        attrs = mod.gt_attrs(smpl, gt_splats(smpl), pose, orient)
+    fr = run.frames[0]
+    bg = torch.full((3,), mod.BG if name == "joint_scene" else 0.0,
+                    device=dev)
+    err = gt_frame_check(name, attrs, fr["camera"], run.W, run.H, bg)
+    return {"steps_per_s": RECIPE_STEPS / train_s, "train_s": train_s,
+            "psnr": [p0, p1], "k1_launches": gt_k1 + k1, "k2_launches": k2,
+            "gt_k1_launches": gt_k1, "k1_err": err,
+            "phase_s": time.time() - t0}
+
+
+def surface_cut(dev, smi):
+    """The surface recipe (convergence.surface_scene) at full width for
+    SURFACE_STEPS steps through GaussianTrainer, the budget automatic,
+    validated at the end. Checks: no overflow persisted past a retry,
+    every logged loss and the held-out PSNR finite, K2 once per step
+    (steps 0 .. SURFACE_STEPS), view 0's ground truth K1 = plain. Raises
+    if one fails; returns its numbers."""
+    from hugs_tpu_torch.convergence import surface_scene as ss
+    from hugs_tpu_torch.render import cuda_blend
+    t0 = time.time()
+    sz = dict(ss.SIZES, VAL_EVERY=SURFACE_STEPS)
+    gt = ss.gt_surface_scene()
+    cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
+    frames, demands = ss.build_gt(gt, sz["W"], sz["H"], sz["VIEWS"], dev)
+    gt_k1 = cuda_blend.LAUNCHES
+    with tempfile.TemporaryDirectory(prefix="surface_") as logdir:
+        tr = ss.build_trainer(frames, gt[0], sz, SURFACE_STEPS, logdir, dev)
+        budget0 = tr._ibudget
+        torch.cuda.synchronize()
+        cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
+        t1 = time.time()
+        log = tr.train()
+        torch.cuda.synchronize()
+        train_s = time.time() - t1
+        k1, k2 = cuda_blend.LAUNCHES, cuda_blend.K2_LAUNCHES
+    curve = ss.curve_of(tr, tr.eval_metrics[f"{SURFACE_STEPS:06d}"],
+                        SURFACE_STEPS)
+    psnr = curve[-1]["psnr_held"]
+    losses = [r["loss"] for r in log]
+    print(f"# phase 3j surface_scene: {sz['W']}x{sz['H']}, "
+          f"{len(frames)} views, {SURFACE_STEPS} steps (with a validation) "
+          f"in {train_s:.2f} s = {SURFACE_STEPS / train_s:.2f} steps/s; "
+          f"held-out PSNR {psnr} dB; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; budget {budget0:,} -> {tr._ibudget:,}, "
+          f"{tr.retries} steps rendered again, {tr.overflow_persisted} "
+          f"overflowed at every attempt; {int(tr.scene.gs.n_alive):,} "
+          f"alive; K1 {k1}, K2 {k2} launches; ground-truth demand "
+          f"{min(demands):,}-{max(demands):,}  [{smi}]")
+    if tr.overflow_persisted or not all(map(math.isfinite, losses)) \
+            or not math.isfinite(psnr):
+        raise AssertionError(f"phase 3j surface_scene: overflow persisted "
+                             f"{tr.overflow_persisted} times, losses "
+                             f"{losses}, PSNR {psnr}")
+    if k2 != SURFACE_STEPS + 1:
+        raise AssertionError(f"phase 3j surface_scene: {k2} K2 launches in "
+                             f"{SURFACE_STEPS + 1} steps")
+    g = tuple(torch.as_tensor(a, device=dev) for a in gt)
+    err = gt_frame_check("surface_scene", g, frames[0]["camera"], sz["W"],
+                         sz["H"], torch.zeros(3, device=dev))
+    return {"steps_per_s": SURFACE_STEPS / train_s, "train_s": train_s,
+            "psnr": psnr, "losses": [losses[0], losses[-1]],
+            "budget": [budget0, tr._ibudget], "retries": tr.retries,
+            "overflow_persisted": tr.overflow_persisted,
+            "alive": int(tr.scene.gs.n_alive), "k1_launches": gt_k1 + k1,
+            "k2_launches": k2, "gt_k1_launches": gt_k1, "k1_err": err,
+            "phase_s": time.time() - t0}
+
+
+def convergence_recipes(dev, smi):
+    """Phase 3j: (a) micro/kernel_parity.py's four scenes through K1 and
+    K2 against plain (comparison launches, not counted for a path); (b)
+    the human and joint recipes cut (recipe_cut); (c) the surface recipe
+    cut (surface_cut). Raises if a check fails; returns the numbers."""
+    from hugs_tpu_torch.convergence import human_avatar, joint_scene
+    from hugs_tpu_torch.micro import kernel_parity
+    t0 = time.time()
+    cases, ok = kernel_parity.run_all(dev)
+    for c in cases:
+        print(f"# phase 3j kernel parity {c['case']}: {c['W']}x{c['H']}, "
+              f"{c['n']} Gaussians, {c['n_instances']:,} instances (budget "
+              f"{c['budget']:,}, demand {c['n_slots']:,}), densest tile "
+              f"{c['max_instances_per_tile']} = {c['max_chunks_per_tile']} "
+              f"batches, {c['empty_tiles']} empty tiles; image max |d| "
+              f"{c['max_abs_dimg']:.3e}, gradients max rel "
+              f"{max(c['rel_dgrad'].values()):.3e}; K1 {c.get('k1')}; K2 "
+              f"{c.get('k2')}")
+    if not ok:
+        raise AssertionError("phase 3j: the kernel-parity scenes disagree")
+    out = {"kernel_parity": cases,
+           human_avatar.NAME: recipe_cut(dev, smi, human_avatar),
+           joint_scene.NAME: recipe_cut(dev, smi, joint_scene),
+           "surface_scene": surface_cut(dev, smi)}
+    out["phase_s"] = time.time() - t0
+    print(f"# phase 3j: {out['phase_s']:.1f} s (host clock); steps/s: "
+          + ", ".join(f"{k} {out[k]['steps_per_s']:.2f}" for k in (
+              "human_avatar", "joint_scene", "surface_scene"))
+          + f"  [{smi}]")
+    return out
+
+
 def micro_benchmarks(dev, smi, cull_counts):
     """Phase 3d, the three micro-benchmarks through their entry points'
     functions at the scripts' full sizes (see the module docstring), each
@@ -3816,6 +4027,14 @@ def main():
                             root)
         del evaln["trainer"], joint["train_dataset"]
     jt, et = joint["times"], evaln["times"]
+    torch.cuda.empty_cache()
+    # ---- 3j. the convergence recipes, cut, after 3i
+    print(f"# phase 3j starts at {time.time() - t_start:.1f} s (host "
+          f"clock)")
+    recipes = convergence_recipes(dev, smi)
+    recipe_by_path = {k: {f"{n}_recipe": recipes[n][f"{k.lower()}_launches"]
+                          for n in ("human_avatar", "joint_scene",
+                                    "surface_scene")} for k in ("K1", "K2")}
 
     # K1 and K2 against the rate S2 measured on the blend's mix
     at_s2 = {
@@ -3860,7 +4079,7 @@ def main():
         + human["k1_launches"] + joint["k1_launches"]
         + joint["k1_after_train"] + evaln["k1_launches"]
         + evaln["fast_launches"] + sum(BANDS) + scale["anim_k1"]
-        + scale["dp_k1"] + gauss_k1,
+        + scale["dp_k1"] + gauss_k1 + sum(recipe_by_path["K1"].values()),
         "launches_by_path": {"serving": launches, "training": k1_train,
                              "avatar": avatar["launches"],
                              "human_training": human["k1_launches"],
@@ -3874,12 +4093,18 @@ def main():
                              "batched_animate": scale["anim_k1"],
                              "batched_joint_step": scale["dp_k1"],
                              **gauss_by_path["K1"],
+                             **recipe_by_path["K1"],
                              "micro_bwd": s3_launches["K1"]},
         "max_abs_err": max(max_err, avatar["max_abs_err"], human["k1_err"],
                            joint["k1_err"], evaln["k1_err"],
                            *(scale["bands"][n]["image_max_abs"]
                              for n in BANDS),
-                           gauss["frame"]["image_max_abs"]),
+                           gauss["frame"]["image_max_abs"],
+                           *(recipes[n]["k1_err"] for n in (
+                               "human_avatar", "joint_scene",
+                               "surface_scene")),
+                           *(c["k1"]["max_abs"]
+                             for c in recipes["kernel_parity"])),
         "frame": "serving (phase 2)",
         "ms": serve_t["k1"], "call_ms": serve_t["k1_call"],
         "plain_ms": serve_t["plain"], "bound_ms": serve_t["k1_bound"],
@@ -3940,6 +4165,21 @@ def main():
                                "human_training": human["cull"]["K1_dropped"],
                                "joint_training": joint["cull"]["K1_dropped"],
                                "evaluation": evaln["cull"]["K1_dropped"]},
+        "convergence_recipes": {
+            "phase_s": recipes["phase_s"],
+            **{n: {k: recipes[n][k] for k in (
+                "steps_per_s", "psnr", "k1_launches", "k2_launches",
+                "gt_k1_launches", "k1_err")} for n in (
+                "human_avatar", "joint_scene", "surface_scene")},
+            "kernel_parity": {c["case"]: {
+                "n_instances": c["n_instances"], "budget": c["budget"],
+                "max_chunks_per_tile": c["max_chunks_per_tile"],
+                "max_abs_dimg": c["max_abs_dimg"],
+                "rel_dgrad": max(c["rel_dgrad"].values()),
+                "k1_max_abs": c["k1"]["max_abs"],
+                "k2_max_abs": c["k2"]["max_abs"],
+                "k2_rel_norm": c["k2"]["worst_column_rel_norm"]}
+                for c in recipes["kernel_parity"]}},
         **resources["K1"],
         "held_to": "plain_blend", "ok": True,
     }, {
@@ -3947,7 +4187,8 @@ def main():
         "source": "hugs_tpu_torch/csrc/blend_bwd.cu",
         "replaces": "hugs_tpu/render/pallas_blend.py:486",
         "launches": k2_train + human["k2_launches"] + joint["k2_launches"]
-        + sum(BANDS) + scale["dp_k2"] + gauss_k2,
+        + sum(BANDS) + scale["dp_k2"] + gauss_k2
+        + sum(recipe_by_path["K2"].values()),
         "launches_by_path": {"serving": k2_serve, "training": k2_train,
                              "avatar": avatar["k2_launches"],
                              "human_training": human["k2_launches"],
@@ -3956,11 +4197,14 @@ def main():
                                 for n in BANDS},
                              "batched_joint_step": scale["dp_k2"],
                              **gauss_by_path["K2"],
+                             **recipe_by_path["K2"],
                              "micro_bwd": s3_launches["K2"]},
         "max_abs_err": max(k2_err, human["k2_err"], joint["k2_err"],
                            *(scale["bands"][n]["grad_max_abs"]
                              for n in BANDS),
-                           gauss["frame"]["grad_max_abs"]),
+                           gauss["frame"]["grad_max_abs"],
+                           *(c["k2"]["max_abs"]
+                             for c in recipes["kernel_parity"])),
         "frame": "training step 0 (view 0)",
         "ms": train_t["k2"], "call_ms": train_t["k2_call"],
         "plain_ms": train_t["plain_bwd"], "bound_ms": train_t["k2_bound"],

@@ -10,12 +10,16 @@ version and an entry point.
   micro_bwd   S3, scripts/micro_bwd.py: K2's skeleton variants, which
               split K2's fixed cost from its gradient arithmetic
               (csrc/blend_bwd.cu, render/cuda_blend.blend_bwd_skeleton).
+  kernel_parity  scripts/kernel_parity_tpu.py: K1 and K2 on four scenes
+              that drive their edge paths, against their plain versions
+              (no kernel of its own).
 
 Run one with `python -m hugs_tpu_torch.micro.<name>`: on the card at the
 scripts' full sizes by default, or `--device cpu` for the plain versions
 at a small size (tests only; no times).
 Each prints one JSON object, and writes it to a file only if `--out`
-names one.
+names one; kernel_parity prints a line per scene and PASS or FAIL, and
+writes its record to --out (by default runs/kernel_parity.json).
 """
 from __future__ import annotations
 

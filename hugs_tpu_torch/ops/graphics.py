@@ -52,6 +52,25 @@ def projection_matrix(znear: float, zfar: float, fovx: float, fovy: float,
     return P.T
 
 
+def projection_matrix_center(znear: float, zfar: float, fx: float,
+                             fy: float, cx: float, cy: float, width: float,
+                             height: float,
+                             device: torch.device | str = "cuda"
+                             ) -> torch.Tensor:
+    """Principal-point-aware projection (reference graphics.py:61-73),
+    ROW-VECTOR convention (transposed)."""
+    cx_flip = width - cx
+    P = torch.zeros((4, 4), dtype=torch.float32, device=device)
+    P[0, 0] = 2.0 * fx / width
+    P[1, 1] = 2.0 * fy / height
+    P[0, 2] = 1.0 - 2.0 * cx_flip / width
+    P[1, 2] = 2.0 * cy / height - 1.0
+    P[2, 2] = zfar / (zfar - znear)
+    P[2, 3] = -(zfar * znear) / (zfar - znear)
+    P[3, 2] = 1.0
+    return P.T
+
+
 def full_projection(world_view: torch.Tensor,
                     proj: torch.Tensor) -> torch.Tensor:
     """Composed world->NDC transform in row-vector convention:
@@ -62,3 +81,10 @@ def full_projection(world_view: torch.Tensor,
 def camera_center(world_view: torch.Tensor) -> torch.Tensor:
     """Camera position in world coords from a row-vector world_view."""
     return torch.linalg.inv(world_view)[3, :3]
+
+
+def transform_points(points: torch.Tensor, mat4: torch.Tensor) -> torch.Tensor:
+    """Apply a row-vector 4x4 to (N, 3) points, perspective divide."""
+    ones = torch.ones_like(points[..., :1])
+    hom = torch.cat([points, ones], dim=-1) @ mat4
+    return hom[..., :3] / (hom[..., 3:4] + 1e-7)

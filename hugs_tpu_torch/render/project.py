@@ -153,11 +153,13 @@ def project_gaussians(
         dz = m2 - camera.center[2]
         inv_n = 1.0 / torch.clamp(torch.sqrt(dx * dx + dy * dy + dz * dz),
                                   min=1e-8)
-        rgbT = torch.clamp(
-            eval_sh_rows(max_deg, active_sh_degree,
-                         shs.reshape(n, K * 3).T,
-                         dx * inv_n, dy * inv_n, dz * inv_n) + 0.5,
-            min=0.0)
+        # torch.maximum, not torch.clamp: at a colour of exactly 0 (an SH
+        # fitted to a colour clipped to 0) its gradient is 0.5, as
+        # jnp.maximum's is; torch.clamp's is 1
+        rgb_raw = eval_sh_rows(max_deg, active_sh_degree,
+                               shs.reshape(n, K * 3).T,
+                               dx * inv_n, dy * inv_n, dz * inv_n) + 0.5
+        rgbT = torch.maximum(rgb_raw, rgb_raw.new_zeros(()))
 
     mask = (depth > near) & (det > 0) & (radius > 0)
     if alive is not None:

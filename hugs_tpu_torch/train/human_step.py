@@ -28,6 +28,7 @@ from hugs_tpu_torch.losses.loss import HumanSceneLoss, LossDraws
 from hugs_tpu_torch.models import human_gs as hgs
 from hugs_tpu_torch.render.camera import Camera
 from hugs_tpu_torch.render.renderer import render
+from hugs_tpu_torch.train.budget import fit_budget
 from hugs_tpu_torch.train.optim import (
     GroupAdamState, expon_lr, group_adam_init, group_adam_update, leaves,
     pack,
@@ -270,17 +271,29 @@ def human_train_step(
     width: int,
     height: int,
     instance_budget: int = 0,
+    grow_budget: bool = False,
 ):
-    """One training step, in place on tstate. Returns (tstate, aux): the
-    loss and its terms, the binning diagnostics, the visible count, and
-    the decoded opacity, canonical scales and rotations that
-    human_densify_step reads."""
+    """One training step, in place on tstate. With grow_budget, a forward
+    that overflows the budget runs again at a grown one (train/budget.py;
+    a second overflow raises). Returns (tstate, aux): the loss and its
+    terms, the binning diagnostics, the budget the forward used, the
+    visible count, and the decoded opacity, canonical scales and
+    rotations that human_densify_step reads."""
     cap = tstate.params.xyz.shape[0]
     hook = torch.zeros((cap, 2), device=tstate.params.xyz.device,
                        requires_grad=True)
-    pkg, out = human_render(tstate, fixed, camera, bg, hook, smpl_scale,
+
+    def forward(budget):
+        return human_render(tstate, fixed, camera, bg, hook, smpl_scale,
                             dataset_idx, cfg=cfg, width=width, height=height,
-                            instance_budget=instance_budget)
+                            instance_budget=budget)
+
+    instance_budget = instance_budget or 4 * cap
+    if grow_budget:
+        (pkg, out), instance_budget = fit_budget(forward, instance_budget,
+                                                 "human step")
+    else:
+        pkg, out = forward(instance_budget)
     loss, loss_dict = human_loss(loss_fn, draws, gt_image, gt_mask, bg, pkg,
                                  out, lpips)
     grads, hook_grad = human_grads(loss, tstate.params, hook)
@@ -291,6 +304,7 @@ def human_train_step(
            "overflowed": pkg["overflowed"],
            "n_instances": pkg["n_instances"],
            "n_slots": pkg["n_slots"],
+           "instance_budget": instance_budget,
            "n_visible": torch.sum(pkg["visibility_filter"]),
            "opacity": out["opacity"].detach(),
            "scales_canon": out["scales_canon"].detach(),

@@ -26,6 +26,7 @@ from hugs_tpu_torch.models import human_gs as hgs
 from hugs_tpu_torch.models import scene_gs as sgs
 from hugs_tpu_torch.render.camera import Camera
 from hugs_tpu_torch.render.renderer import render_human_scene
+from hugs_tpu_torch.train.budget import fit_budget
 from hugs_tpu_torch.train.human_step import HumanTrainState
 from hugs_tpu_torch.train.optim import group_adam_update, leaves, pack
 from hugs_tpu_torch.train.scene_step import SceneTrainState
@@ -160,22 +161,36 @@ def joint_train_step(
     instance_budget: int = 0,
     render_human_separate: bool = False,
     optim_scene: bool = True,
+    grow_budget: bool = False,
 ):
     """One joint step, in place on jstate; with optim_scene False the
     scene's parameters and moments stay (its statistics still gather).
-    Returns (jstate, aux) with step_aux's keys."""
+    With grow_budget, a forward that overflows the budget runs again at
+    a grown one (train/budget.py; a second overflow raises). Returns
+    (jstate, aux): step_aux's keys and the budget the forward used."""
     h_cap = jstate.human.params.xyz.shape[0]
     hook = torch.zeros((h_cap + jstate.scene.gs.capacity, 2),
                        device=jstate.human.params.xyz.device,
                        requires_grad=True)
-    pkg, h_out = joint_render(
-        jstate, fixed, camera, bg, human_bg, hook, smpl_scale, dataset_idx,
-        cfg=cfg, width=width, height=height, instance_budget=instance_budget,
-        render_human_separate=render_human_separate)
+
+    def forward(budget):
+        return joint_render(
+            jstate, fixed, camera, bg, human_bg, hook, smpl_scale,
+            dataset_idx, cfg=cfg, width=width, height=height,
+            instance_budget=budget,
+            render_human_separate=render_human_separate)
+
+    instance_budget = instance_budget or 4 * hook.shape[0]
+    if grow_budget:
+        (pkg, h_out), instance_budget = fit_budget(forward, instance_budget,
+                                                   "joint step")
+    else:
+        pkg, h_out = forward(instance_budget)
     loss, loss_dict = joint_loss(loss_fn, draws, gt_image, gt_mask, bg,
                                  human_bg, pkg, h_out, lpips)
     h_grads, s_grads, hook_grad = joint_grads(loss, jstate, hook, optim_scene)
     joint_update(jstate, h_grads, s_grads, hook_grad, pkg, human_xyz_lr,
                  human_static_lrs, scene_xyz_lr, scene_static_lrs,
                  width=width, height=height)
-    return jstate, step_aux(loss, loss_dict, pkg, h_out)
+    return jstate, {**step_aux(loss, loss_dict, pkg, h_out),
+                    "instance_budget": instance_budget}

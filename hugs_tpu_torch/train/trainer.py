@@ -94,21 +94,15 @@ from hugs_tpu_torch.train import checkpoint as ckpt_io
 from hugs_tpu_torch.train import human_step as hst
 from hugs_tpu_torch.train import joint_step as jst
 from hugs_tpu_torch.train import scene_step as sst
+from hugs_tpu_torch.train.budget import (
+    budget_bucket, fit_budget, grown_budget,
+)
 from hugs_tpu_torch.utils.image import create_video, save_image_grid, save_png
 from hugs_tpu_torch.utils.ply import save_gaussian_ply
 
 # the pkg keys a binning-only render gives: render_frame stops after the
 # binning when `outputs` asks for these alone
 BIN_OUTPUTS = frozenset({"n_slots", "overflowed", "n_instances"})
-
-
-def _budget_bucket(needed: int) -> int:
-    """A required instance count rounded up to the next budget bucket:
-    multiples of 32768 with 1.25x headroom, at least 65536, so that a
-    growing population grows the budget O(log) times while wasting far
-    less than power-of-two sizes (binning pays for the whole budget)."""
-    step = 32768
-    return max(1 << 16, -(-(needed * 5 // 4) // step) * step)
 
 
 class GaussianTrainer:
@@ -138,6 +132,10 @@ class GaussianTrainer:
         self._overflow_checked: set = set()
         self._budget_rehearsed = False
         self.retries = 0      # steps rendered again at a grown budget
+        # steps that overflowed at every attempt (trained on a truncated
+        # render), and evaluation frames rendered again at a grown budget
+        self.overflow_persisted = 0
+        self.eval_retries = 0
         self.bg_color = (torch.ones(3, device=dev) if cfg.bg_color == "white"
                          else torch.zeros(3, device=dev))
         self.lpips = LPIPS.create(cfg.tpu.lpips_weights or None, device=dev)
@@ -213,7 +211,7 @@ class GaussianTrainer:
 
         # the instance budget: fixed by the configuration, or sized from
         # the capacities and grown on demand (_check_budget)
-        self._ibudget = int(cfg.tpu.instance_budget) or _budget_bucket(
+        self._ibudget = int(cfg.tpu.instance_budget) or budget_bucket(
             4 * (self._h_cap + self._s_cap))
         self._ibudget_fixed = bool(int(cfg.tpu.instance_budget))
 
@@ -347,12 +345,11 @@ class GaussianTrainer:
         filled three quarters of it; returns whether it overflowed, in
         which case the caller renders the step again at the new budget.
         The headroom scales the instances, not the padding, which depends
-        on the tile grid only."""
+        on the tile grid only (train/budget.py)."""
         if self._ibudget_fixed:
             return False
         if overflowed or ni * 4 >= self._ibudget * 3:
-            waste = max(ni - ninst, 0)
-            new = _budget_bucket(max(ninst * 3 // 2 + waste, self._ibudget))
+            new = grown_budget(self._ibudget, ni, ninst)
             if new > self._ibudget:
                 print(f"instance budget: {self._ibudget} -> {new} "
                       f"(n_slots={ni}"
@@ -451,8 +448,8 @@ class GaussianTrainer:
         what the update reads)."""
         W, H = data["width"], data["height"]
         cam, gt, mask = data["camera"], data["rgb"], data["mask"]
-        scale = torch.as_tensor(data["smpl_scale"], dtype=torch.float32,
-                                device=self.device).reshape(())
+        # a scene-only frame need not carry the SMPL scale
+        scale = self._scale(data)
         budget = self._ibudget
         lpips = self.lpips if self.loss_fn.l_lpips_w > 0 else None
         if mode == "scene":
@@ -510,6 +507,7 @@ class GaussianTrainer:
             if not self._check_budget(vals[1], vals[2], vals[3]):
                 break
         else:
+            self.overflow_persisted += 1
             print(f"WARNING: tile-instance budget overflow persists at iter "
                   f"{t_iter} (budget={self._ibudget})")
         pkg, hook = fw["pkg"], fw["hook"]
@@ -900,10 +898,25 @@ class GaussianTrainer:
                                  or self.cfg.mode != "human_scene") \
             else "human"
         h_out, s_out = self.forward_models(data)
-        pkg = render_human_scene(
-            {"camera": data["camera"], "width": data["width"],
-             "height": data["height"]}, h_out, s_out, bg_color=bg,
-            render_mode=mode, **self._eval_render_kw())
+
+        def frame(budget):
+            return render_human_scene(
+                {"camera": data["camera"], "width": data["width"],
+                 "height": data["height"]}, h_out, s_out, bg_color=bg,
+                render_mode=mode, **self._eval_render_kw(budget))
+
+        # an evaluation frame drops no instance unsaid: an automatic
+        # budget grows for this frame alone (the training steps keep
+        # theirs) and the frame renders again; a fixed one warns
+        if self._ibudget_fixed or self._gauss_n():
+            pkg = frame(self._ibudget)
+            if bool(pkg["overflowed"]) and not self._gauss_n():
+                print(f"WARNING: an evaluation frame overflowed the fixed "
+                      f"instance budget {self._ibudget}: its image drops "
+                      f"instances")
+        else:
+            pkg, budget = fit_budget(frame, self._ibudget, "evaluation frame")
+            self.eval_retries += budget != self._ibudget
         img, gt = pkg["render"], data["rgb"]
         lp = self.lpips(torch.minimum(img, img.new_ones(()))[None],
                         gt[None])[0]

@@ -167,3 +167,30 @@ def test_k1_matches_plain_on_card(cuda_device, name):
     if name == "saturating":        # the early exit cut the walk short
         assert not live.any() and np_of(walked).sum() < listed.sum()
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["multichunk_empty", "tight_budget"])
+def test_k1_matches_plain_on_edge_scenes_on_card(cuda_device, name):
+    """K1 against the plain blend on two of scripts/kernel_parity_tpu.py's
+    scenes (micro/kernel_parity.py): several of K1's 256-instance batches
+    a tile with empty tiles beside them, and the budget equal to the exact
+    slot demand. Raw images atol 2e-5, final log T atol 1e-4 where a pixel
+    did not saturate, as above."""
+    from hugs_tpu_torch.micro import kernel_parity as kp
+    inp, _, _, pg, bins, _ = kp.case_bins(name, cuda_device)
+    w, h = inp["W"], inp["H"]
+    feat = gauss_features(pg).detach()
+    bg = torch.as_tensor(inp["bg"], device=cuda_device)
+    args = (feat, bins.gauss_id, bins.starts, bins.ends, bg, w, h)
+    img, log_t, n_walked, walked = cuda_blend.blend_fwd(*args)
+    ref, ref_log_t, _ = plain_blend(*args)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(np_of(img), np_of(ref), atol=ATOL)
+    live = np_of(ref_log_t) >= LOG_TEPS
+    np.testing.assert_allclose(np_of(log_t)[live], np_of(ref_log_t)[live],
+                               atol=1e-4)
+    listed = np_of(bins.ends - bins.starts)
+    assert (np_of(walked) <= listed).all()
+    if name == "multichunk_empty":
+        assert listed.max() > 2 * kp.K1_BATCH and (listed == 0).any()

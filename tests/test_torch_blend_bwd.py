@@ -236,3 +236,26 @@ def test_k2_two_calls_agree(cuda_device):
     f2, b2 = cuda_blend.blend_bwd(*args, log_t, n_walked)
     torch.cuda.synchronize()
     _assert_k2_bars(f2, b2, f1, b1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["multichunk_empty", "tight_budget"])
+def test_k2_matches_plain_on_edge_scenes_on_card(cuda_device, name):
+    """K2 against plain_blend_bwd within _assert_k2_bars on two of
+    scripts/kernel_parity_tpu.py's scenes (micro/kernel_parity.py): several
+    of K1's batches a tile beside empty tiles, and the budget equal to the
+    exact slot demand."""
+    from hugs_tpu_torch.micro import kernel_parity as kp
+    inp, _, _, pg, bins, _ = kp.case_bins(name, cuda_device)
+    w, h = inp["W"], inp["H"]
+    feat = gauss_features(pg).detach().contiguous()
+    bg = torch.as_tensor(inp["bg"], device=cuda_device)
+    rng = np.random.default_rng(11)
+    g = torch.as_tensor(rng.normal(size=(3, h, w)).astype(np.float32)
+                        * (2.0 / (3 * h * w)), device=cuda_device)
+    args = (feat, bins.gauss_id, bins.starts, bins.ends, bg, w, h)
+    _, log_t, n_walked, _ = cuda_blend.blend_fwd(*args)
+    got = cuda_blend.blend_bwd(*args, g, log_t, n_walked)
+    want = plain_blend_bwd(*args, g)
+    torch.cuda.synchronize()
+    _assert_k2_bars(*got, *want)

@@ -51,6 +51,68 @@ def test_graphics_helpers_match():
     assert tg.focal2fov(500.0, 640) == jg.focal2fov(500.0, 640)
 
 
+@pytest.mark.parametrize("case", [
+    (500.0, 480.0, 320.0, 240.0, 640.0, 480.0),
+    (812.5, 790.0, 301.7, 255.2, 640.0, 512.0),
+])
+def test_projection_matrix_center_matches(case):
+    np.testing.assert_allclose(
+        np_of(tg.projection_matrix_center(0.01, 100.0, *case, device="cpu")),
+        np_of(jg.projection_matrix_center(0.01, 100.0, *case)), atol=1e-6)
+
+
+def _transform_cases():
+    """tests/test_math_ops.py:129-142's points and matrices (a frustum
+    edge and the centre through projection_matrix, the origin through
+    world_to_view), and random points in view through a
+    projection_matrix_center composed with a world_to_view."""
+    import math
+    fovx, fovy, z = 0.8, 0.6, 5.0
+    edge = np.array([[math.tan(fovx / 2) * z, 0.0, z], [0.0, 0.0, z]],
+                    np.float32)
+    rng = np.random.default_rng(4)
+    pts = rng.uniform(-1.0, 1.0, (64, 3)).astype(np.float32)
+    pts[:, 2] += 4.0
+    # a camera that sees every point, so the NDC values are of order 1
+    R, t = np.eye(3, dtype=np.float32), np.array([0.2, -0.3, 0.5],
+                                                  np.float32)
+    return [
+        (edge, lambda g: g.projection_matrix(0.1, 100.0, fovx, fovy,
+                                             **_cpu(g))),
+        (np.zeros((1, 3), np.float32),
+         lambda g: g.world_to_view(*_pair_of(g, np.eye(3, dtype=np.float32),
+                                             np.array([0.0, 0.0, 4.0],
+                                                      np.float32)))),
+        (pts, lambda g: g.full_projection(
+            g.world_to_view(*_pair_of(g, R, t)),
+            g.projection_matrix_center(0.01, 100.0, 500.0, 480.0, 330.0,
+                                       250.0, 640.0, 480.0, **_cpu(g)))),
+    ]
+
+
+def _cpu(g):
+    return {"device": "cpu"} if g is tg else {}
+
+
+def _pair_of(g, R, t):
+    conv = torch.as_tensor if g is tg else jnp.asarray
+    return conv(R), conv(t)
+
+
+@pytest.mark.parametrize("case", [0, 1, 2],
+                         ids=["frustum_edge", "world_to_view", "random"])
+def test_transform_points_matches(case):
+    pts, mat = _transform_cases()[case]
+    got = np_of(tg.transform_points(torch.as_tensor(pts), mat(tg)))
+    want = np_of(jg.transform_points(jnp.asarray(pts), mat(jg)))
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    if case == 0:       # the edge maps to x_ndc 1, the centre to 0
+        np.testing.assert_allclose(got[0, 0], 1.0, atol=1e-4)
+        np.testing.assert_allclose(got[1, :2], 0.0, atol=1e-6)
+    if case == 1:
+        np.testing.assert_allclose(got[0], [0, 0, 4], atol=1e-5)
+
+
 def _sh_inputs(n=257, seed=0):
     rng = np.random.default_rng(seed)
     d = rng.normal(size=(n, 3)).astype(np.float32)

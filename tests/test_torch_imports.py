@@ -128,6 +128,70 @@ def test_gauss_shard_modules_are_among_the_checked():
             in sources, name
 
 
+def test_convergence_modules_are_among_the_checked():
+    """The convergence recipes and the kernel-parity entry point stand
+    alone like the rest: the checks around this one walk them."""
+    modules = _port_modules()
+    sources = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for name in ("convergence", "convergence.common",
+                 "convergence.human_avatar", "convergence.joint_scene",
+                 "convergence.surface_scene", "convergence.flagship_release",
+                 "micro.kernel_parity"):
+        assert f"hugs_tpu_torch.{name}" in modules, name
+        path = os.path.join("hugs_tpu_torch", *name.split("."))
+        assert path + ".py" in sources or os.path.join(
+            path, "__init__.py") in sources, name
+
+
+def _chip_smoke(cwd, code=None):
+    """chip_smoke.py run in a fresh interpreter from `cwd` (or `code`, a
+    program that runs it), the repository off the path unless cwd is it."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    argv = ([sys.executable, "-c", code] if code else
+            [sys.executable, "chip_smoke.py"])
+    return subprocess.run(argv, capture_output=True, text=True, timeout=120,
+                          cwd=cwd, env=env)
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
+def test_chip_smoke_exits_2_without_a_card():
+    out = _chip_smoke(REPO)
+    assert out.returncode == 2, out.stderr
+    assert out.stdout == "" and "no CUDA device" in out.stderr
+
+
+def test_chip_smoke_alone_exits_nonzero(tmp_path):
+    """Copied alone into a directory, without the repository's package
+    beside it, the script fails at its first import of hugs_tpu_torch:
+    exit 1 and no result (the contract's check; not a fault)."""
+    (tmp_path / "chip_smoke.py").write_bytes(
+        open(os.path.join(REPO, "chip_smoke.py"), "rb").read())
+    out = _chip_smoke(str(tmp_path))
+    assert out.returncode == 1
+    assert "No module named 'hugs_tpu_torch'" in out.stderr
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_failing_phase_exits_nonzero():
+    """A phase that raises ends the run with exit 1 and no result: here
+    the card's line (setup) fails, with the card faked present."""
+    code = """
+import runpy, sys, torch
+import hugs_tpu_torch.micro as micro
+torch.cuda.is_available = lambda: True
+torch.cuda.set_device = lambda *a, **k: None
+def card():
+    raise AssertionError("phase failed on purpose")
+micro.card = card
+sys.argv = ["chip_smoke.py"]
+runpy.run_path("chip_smoke.py", run_name="__main__")
+"""
+    out = _chip_smoke(REPO, code)
+    assert out.returncode == 1, out.stderr
+    assert "phase failed on purpose" in out.stderr
+    assert '"ok": true' not in out.stdout
+
+
 def _imported_names(path):
     tree = ast.parse(open(path).read(), path)
     for node in ast.walk(tree):

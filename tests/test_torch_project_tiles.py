@@ -91,3 +91,37 @@ def test_bin_matches(scene_name, budget, align):
     depth = np_of(pt.depth)
     for lst in _tile_lists(bt):
         assert (np.diff(depth[lst]) >= 0).all()
+
+
+def test_colour_clamp_gradient_at_zero_matches_jax():
+    """SH DC terms fitted to colours clipped to 0 (rgb_to_sh(0), as the
+    joint recipe's initial cloud has them) put the colour at exactly 0 or
+    within an ulp of it; the gradient of the colours through the clamp
+    there equals hugs_tpu's (jnp.maximum: 0.5 at a tie), atol 1e-6."""
+    import jax
+    from hugs_tpu.ops.sh import rgb_to_sh as jax_rgb_to_sh
+    from hugs_tpu_torch.ops.sh import rgb_to_sh
+    scene = make_scene(n=64, seed=4)
+    col = np.random.default_rng(5).uniform(size=(64, 3)).astype(np.float32)
+    col[::3] = 0.0
+    shs = np.zeros((64, 16, 3), np.float32)
+    shs[:, 0] = np_of(rgb_to_sh(torch.as_tensor(col)))
+    np.testing.assert_array_equal(shs[:, 0],
+                                  np.asarray(jax_rgb_to_sh(jnp.asarray(col))))
+    jc, tc = cameras()
+    w = np.random.default_rng(6).normal(size=(64, 3)).astype(np.float32)
+    args = ("means", "scales", "rotq", "opacity")
+
+    def jax_loss(s):
+        pg = jax_project(*(jnp.asarray(scene[a]) for a in args), s, jc, W,
+                         H, 0)
+        return jnp.sum(pg.rgb * w)
+
+    want = np.asarray(jax.grad(jax_loss)(jnp.asarray(shs)))
+    ts = torch.tensor(shs, requires_grad=True)
+    pg = project_gaussians(*(torch.as_tensor(scene[a]) for a in args), ts,
+                           tc, W, H, 0)
+    (got,) = torch.autograd.grad((pg.rgb * torch.as_tensor(w)).sum(), ts)
+    ties = np_of(pg.rgb) == 0.0
+    assert ties.any()
+    np.testing.assert_allclose(np_of(got), want, atol=1e-6)

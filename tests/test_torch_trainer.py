@@ -4,7 +4,7 @@ tests/test_data.py's fake NeuMan sequence at 48x32 (10 frames: 8 train,
 
 JAX and torch draw different numbers, so the trainer is held by what
 does not depend on the draws, or with hugs_tpu's draws handed across:
-- _budget_bucket, _is_sync_step and the iterations at which each model
+- budget_bucket (train/budget.py), _is_sync_step and the iterations at which each model
   densifies or resets its opacity, over every step of the three
   cfg_files/neuman recipes: equal;
 - the frame order over 50 steps: equal;
@@ -108,8 +108,10 @@ def _jax_trainer(root, overrides=()):
 
 def test_budget_bucket_as_jax():
     from hugs_tpu.train.trainer import _budget_bucket
+
+    from hugs_tpu_torch.train.budget import budget_bucket
     for n in [0, 1, 4096, 65536, 100_000, 2_500_000, 10_485_760]:
-        assert ttr._budget_bucket(n) == _budget_bucket(n)
+        assert budget_bucket(n) == _budget_bucket(n)
 
 
 def _schedule(cls, cfg, scene_step, human_step, key=None):
@@ -242,6 +244,31 @@ def test_validate_as_jax(pair):
     for k, v in want.items():
         atol = 1e-3 if "psnr" in k else 1e-5
         np.testing.assert_allclose(got[k], v, atol=atol, err_msg=k)
+
+
+def test_validate_overflow_grows_the_frame_budget_alone(fake_root, capsys):
+    """An evaluation frame that overflows the automatic budget renders
+    again at a budget grown for that frame alone: its image equals the
+    render at the frame's demand, and the training budget stays. A fixed
+    budget renders once and warns."""
+    tt = _port_trainer(fake_root, ["eval=true"])
+    data = tt.val_dataset[0]
+    bg = torch.zeros(3)
+    demand, over = tt.render_frame(data, outputs=("n_slots", "overflowed"),
+                                   budget=1 << 16)
+    assert not bool(over)
+    want = tt.render_frame(data, bg=bg, budget=int(demand))["render"]
+    tt._ibudget = 64
+    img = tt._val_frame(data, bg)[0]
+    assert tt.eval_retries == 1 and tt._ibudget == 64
+    torch.testing.assert_close(img, want, atol=0, rtol=0)
+    assert "evaluation frame" in capsys.readouterr().out
+
+    tf = _port_trainer(fake_root, ["eval=true", "tpu.instance_budget=64"])
+    tf.validate()
+    assert tf.eval_retries == 0 and tf._ibudget == 64
+    assert "WARNING: an evaluation frame overflowed the fixed instance " \
+           "budget 64" in capsys.readouterr().out
 
 
 def test_overflow_retry_as_jax(pair, monkeypatch):

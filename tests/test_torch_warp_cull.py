@@ -157,3 +157,36 @@ def test_device_warp_cull_matches_plain_on_card(cuda_device, case):
     torch.cuda.synchronize()
     assert 0 < int(want.sum()) < want.numel()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["multichunk_empty", "tight_budget"])
+def test_device_warp_cull_on_edge_scenes_on_card(cuda_device, name):
+    """Every (instance, warp) pair of two of scripts/kernel_parity_tpu.py's
+    scenes (micro/kernel_parity.py): the device cull gives the plain
+    function's mask, bit for bit."""
+    from hugs_tpu_torch.micro import kernel_parity as kp
+    from hugs_tpu_torch.render.blend import gauss_features
+    from hugs_tpu_torch.render.tiles import TILE, tile_grid
+    inp, _, _, pg, bins, _ = kp.case_bins(name, cuda_device)
+    feat = gauss_features(pg).detach().contiguous()
+    nx, _ = tile_grid(inp["W"], inp["H"], TILE)
+    counts = (bins.ends - bins.starts).long()
+    tile = torch.repeat_interleave(torch.arange(counts.numel(),
+                                                device=cuda_device), counts)
+    slot = bins.starts.long()[tile] + (
+        torch.arange(tile.numel(), device=cuda_device)
+        - (torch.cumsum(counts, 0) - counts)[tile])
+    warps = TILE // RH
+    gid = bins.gauss_id[slot].repeat_interleave(warps)
+    t = tile.repeat_interleave(warps)
+    w = torch.arange(warps, device=cuda_device).repeat(tile.numel())
+    tx = (t % nx).to(torch.int32)
+    ty = ((t // nx) * warps + w).to(torch.int32)
+    got = cuda_blend.warp_cull(feat, gid, tx, ty)
+    f = feat[gid.long()]
+    want = _tight_cull_keep(f[:, 4], f[:, 5], f[:, 6], f[:, 7], f[:, 8],
+                            f[:, 3], f[:, 9], tx, ty, (RW, RH))
+    torch.cuda.synchronize()
+    assert 0 < int(want.sum()) < want.numel()
+    assert torch.equal(got, want)

@@ -277,3 +277,17 @@ def assert_joint_close(ts, js, p_rtol=0.0):
             np.testing.assert_allclose(
                 np_of(getattr(stats(t), f)), np.asarray(getattr(stats(j), f)),
                 atol=1e-6, rtol=1e-4, err_msg=f"{name} {f}")
+
+
+CPU_THREADS = 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """torch on CPU_THREADS CPU threads for the module that imports this
+    fixture: the suite runs 6 workers on the machine's cores, and a
+    worker on all of them oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(CPU_THREADS)
+    yield
+    torch.set_num_threads(n)
