@@ -195,6 +195,25 @@ source, all together, then:
      retry, the losses and the PSNR finite, one K2 a step, view 0's
      ground truth against plain_blend; the phase's time and each recipe's
      steps/s;
+  3k. the blend kernels' POWER_MXU mode (after 3j; K1 and K2 with the
+     Gaussian exponent as the recentred-basis product on the tensor
+     cores, pallas_blend.py's second mode): (a) K1 and K2 in the mode
+     against the plain mode on phase 2's serving frame and phase 3b's
+     step-0 training frame at K1's and K2's bars (K2 on the training
+     frame also against the plain mode in float64), the pixels beyond
+     the image bar with each pair at a cutoff (1/255, POW_EPS) and its
+     power; (b) the mode against the exact kernels; (c) both modes'
+     device ms in turns (exact, mode, mode, exact), the mode's bound (its
+     float operations over the fp32 peak, its tensor-core flops over the
+     bf16 peak, its bytes) and its float operations over S2's blendmix
+     rate, registers, shared memory and blocks per SM, and the warp
+     cull's drops that reach 1/255 in the mode (none allowed); (d) the
+     user's path with the mode as render()'s default (cuda_blend.
+     POWER_MXU, restored after): phase 3's 4 serving views and
+     MXU_STEPS scene_train_step calls of phase 3b's recipe against the
+     same steps in the exact mode, the losses within MXU_LOSS_RTOL, the
+     launches counted per mode; (e) micro/kernel_parity.py's four
+     scenes in both modes at the script's bars;
   4. times on the card (CUDA events, median of 20 after warm-up): one
      request split into project / bin / blend, one training step split
      into forward / loss / backward / Adam + stats, one densify step,
@@ -206,7 +225,8 @@ source, all together, then:
      the card could take for the work this frame needs of it (and the
      bound at the first kernels' operation count, the yardstick that
      compares designs);
-  5. one JSON line of the kernels; 6. the device line, last.
+  5. one JSON line of the kernels (K1 and K2 in the POWER_MXU mode
+     among them); 6. the device line, last.
 
 Any failed phase raises and the script exits non-zero (1, the
 exception's traceback on stderr). Without a CUDA device it exits 2;
@@ -401,6 +421,20 @@ R_SCALING = (3.5, 4.5)
 S3_RTOL = 1e-5
 # a skeleton's operations per kept pair: 9 multiplies, 9 adds to sum them
 OPS_SKEL = 18
+# phase 3k, the POWER_MXU mode: pair_alpha_mxu's float operations per
+# tested pair (OPS_TESTED without the exponent's 9: the offsets 2, the
+# clamp, exp, opacity product and cap 4, the tests and the distance 7);
+# mxu_record's per staged instance (the grid point and residual 18, the
+# six coefficients 16, the three-way bf16 split 54, the index 2); the
+# tensor-core flops of one (warp, group of 8 slots): 12 m16n8k16 mma; the
+# H100 SXM's dense bf16 tensor-core peak (NVIDIA data sheet), which
+# mma.sync does not reach
+OPS_TESTED_MXU = 13
+OPS_RECORD = 90
+MXU_GROUP_FLOPS = 12 * 2 * 16 * 8 * 16
+PEAK_BF16_TC = 989e12
+MXU_STEPS = 10            # phase 3k (d): scene_train_step calls per mode
+MXU_LOSS_RTOL = 1e-3
 
 
 class SceneLR:
@@ -3182,6 +3216,309 @@ def convergence_recipes(dev, smi):
     return out
 
 
+def cutoff_report(name, feat, b, width, height, pix, mxu_raw, plain_raw,
+                  top=10):
+    """Phase 3k (a): the pixels where the mode's K1 and its plain version
+    differ beyond PIXEL_ATOL, and in each the pairs that sit at one of the
+    mode's cutoffs in the plain version (alpha within 1e-5 of 1/255, or
+    the power within 1e-6 of POW_EPS): a flip there follows from the
+    order of the product's float32 sums. Prints up to `top` pixels with
+    each such pair's power (the plain product's and the exact quadratic);
+    returns the count of pixels beyond PIXEL_ATOL and of those with such
+    a pair."""
+    from hugs_tpu_torch.render.blend import (
+        POW_EPS, alpha_mxu, grid_basis, power_mxu,
+    )
+    from hugs_tpu_torch.render.oracle import MIN_ALPHA
+    from hugs_tpu_torch.render.tiles import TILE, tile_grid
+    bad = torch.nonzero((mxu_raw - plain_raw).abs().amax(0) > PIXEL_ATOL)
+    nx = tile_grid(width, height, TILE)[0]
+    at_cutoff = 0
+    basis = grid_basis(TILE, feat.device)
+    for n, (y, x) in enumerate(bad.tolist()):
+        t = (y // TILE) * nx + x // TILE
+        s0, s1 = int(b.starts[t]), int(b.ends[t])
+        f = feat[b.gauss_id[s0:s1].long()]
+        tx0, ty0 = float(x // TILE * TILE), float(y // TILE * TILE)
+        p = (y % TILE) * TILE + x % TILE
+        power = power_mxu(f, tx0, ty0, basis)[:, p:p + 1]
+        px = torch.full((1, 1), float(x), device=feat.device)
+        py = torch.full((1, 1), float(y), device=feat.device)
+        a = alpha_mxu(f, f[:, 3], px, py, power)[:, 0]
+        dx, dy = f[:, 4] - x, f[:, 5] - y
+        exact = -0.5 * (f[:, 6] * dx * dx + f[:, 8] * dy * dy) \
+            - f[:, 7] * dx * dy
+        full = torch.clamp(f[:, 3] * torch.exp(torch.clamp(
+            power[:, 0], max=0.0)), max=0.99)
+        near = ((full - MIN_ALPHA).abs() <= 1e-5) \
+            | ((power[:, 0] - POW_EPS).abs() <= 1e-6)
+        idx = torch.nonzero(near)[:, 0]
+        at_cutoff += int(idx.numel() > 0)
+        if n < top:
+            print(f"#   {name} pixel ({x}, {y}): |d| "
+                  f"{float((mxu_raw - plain_raw)[:, y, x].abs().max()):.3e};"
+                  f" pairs at a cutoff: " + (", ".join(
+                      f"slot {int(i)} power {float(power[i, 0]):.9g} (exact"
+                      f" {float(exact[i]):.9g}) alpha {float(a[i]):.9g}"
+                      for i in idx[:4]) or "none"))
+    print(f"# phase 3k (a) {name}: {bad.shape[0]} of {pix} pixels beyond "
+          f"{PIXEL_ATOL}, {at_cutoff} of them with a pair at a cutoff")
+    return bad.shape[0], at_cutoff
+
+
+def mxu_work(feat, b, width, height, pairs, n_walked, cull, work):
+    """What K1 and K2 in the POWER_MXU mode must do for one frame: the
+    float operations left (OPS_TESTED_MXU per kept pair, the cull, the
+    blended pairs as blend_work counts them, OPS_RECORD per staged
+    instance), the tensor-core flops of the groups they run, and the
+    exact kernels' bytes (blend_work's). Returns {"k1" / "k2": {"ops",
+    "tc_flops", "bytes", "ops_ms", "tc_ms", "bytes_ms", "bound_ms",
+    "bound_by"}}."""
+    from hugs_tpu_torch.micro import mxu_groups
+    tested, blended = (int(x) for x in pairs.sum(dim=(1, 2)))
+    groups = mxu_groups(feat, b, n_walked, width, height)
+    kept = cull["tested"]
+    out = {}
+    for k, ops in (
+            ("k1", OPS_TESTED_MXU * kept + OPS_CULL * cull["K1"]
+             + OPS_BLENDED * blended + OPS_RECORD * groups["K1_staged"]),
+            ("k2", OPS_TESTED_MXU * kept + OPS_CULL * cull["K2"]
+             + OPS_WARP_SUM * cull["K2_kept"] + OPS_BWD_BLENDED * blended
+             + OPS_RECORD * groups["K2_staged"])):
+        tc = MXU_GROUP_FLOPS * groups[k.upper()]
+        nbytes = work[k][2]
+        ms = {"ops_ms": ops / PEAK_FP32 * 1e3, "tc_ms": tc / PEAK_BF16_TC
+              * 1e3, "bytes_ms": nbytes / PEAK_BYTES * 1e3}
+        by = max(ms, key=ms.get)
+        out[k] = {"ops": ops, "tc_flops": tc, "bytes": nbytes,
+                  "groups": groups[k.upper()], **ms, "bound_ms": ms[by],
+                  "bound_by": "bytes" if by == "bytes_ms" else "operations",
+                  "bound_term": by}
+    return out
+
+
+def power_mxu_phase(dev, smi, ctx, blendmix_rate):
+    """Phase 3k, the POWER_MXU mode (K1 and K2 with the exponent on the
+    tensor cores): (a) each kernel against the plain mode on phase 2's
+    serving frame and phase 3b's step-0 training frame, with the pixels
+    beyond the image bar and the pairs at a cutoff printed; (b) the mode
+    against the exact kernels; (c) both modes' device ms in turns, each
+    mode's bound and its share, the float operations left over S2's
+    blendmix rate, registers, shared memory and blocks per SM, and the
+    warp cull's misses in the mode (micro.mxu_cull_misses); (d) the
+    user's path with the mode as render()'s default (cuda_blend.
+    POWER_MXU, restored after): phase 3's 4 serving views through
+    render_human_scene and MXU_STEPS scene_train_step calls of phase 3b's
+    recipe against the same steps in the exact mode, the launches counted
+    per mode; (e) micro/kernel_parity.py's four scenes in both modes.
+    Raises if a check fails; returns the numbers."""
+    from hugs_tpu_torch import build
+    from hugs_tpu_torch.micro import kernel_parity, mxu_cull_misses
+    from hugs_tpu_torch.models.scene_gs import create_from_pcd, scene_forward
+    from hugs_tpu_torch.render import cuda_blend
+    from hugs_tpu_torch.render.blend import plain_blend, plain_blend_bwd
+    from hugs_tpu_torch.render.renderer import render_human_scene
+    from hugs_tpu_torch.train.scene_step import (
+        init_scene_train_state, scene_train_step,
+    )
+    t_phase = time.time()
+    out = {"frames": {}}
+    print(f"# phase 3k: the POWER_MXU mode  [{smi}]")
+    for frame, (feat, b, bg, g, pairs, cull) in ctx["frames"].items():
+        args = (feat, b.gauss_id, b.starts, b.ends, bg, W, H)
+        # (a) each kernel against the plain mode
+        img_m, logt_m, nw_m, _ = cuda_blend.blend_fwd(*args, True)
+        ref_m, _, pairs_m = plain_blend(*args, power_mxu=True)
+        torch.cuda.synchronize()
+        # the image bar is K1's share; a pixel where a pair at the 1/255
+        # cutoff flips moves by up to 1/255 of its colour, so no bar on
+        # the largest difference (cutoff_report prints each)
+        d = (img_m - ref_m).abs().amax(0)
+        share = float((d <= PIXEL_ATOL).float().mean())
+        rec = {"k1_max_abs": float(d.max()), "k1_share": share}
+        print(f"# phase 3k (a) K1 mode vs plain mode, {frame}: "
+              f"{share * 100:.4f}% of pixels within {PIXEL_ATOL} (bar "
+              f"{MIN_SHARE * 100:.2f}%), max |d| {rec['k1_max_abs']:.3e}")
+        if share < MIN_SHARE:
+            raise AssertionError(f"phase 3k (a) {frame}: K1 in the mode "
+                                 f"disagrees with the plain mode")
+        rec["pixels_beyond"], rec["pixels_at_cutoff"] = cutoff_report(
+            frame, feat, b, W, H, W * H, img_m, ref_m)
+        rec["n_walked_share"] = float((nw_m.long() == pairs_m[0]).float()
+                                      .mean())
+        gf_m, gb_m = cuda_blend.blend_bwd(*args, g, logt_m, nw_m, True)
+        gf_p, gb_p = plain_blend_bwd(*args, g, True)
+        ref64 = None
+        if frame == "training":
+            ref64 = plain_blend_bwd(feat.double(), *args[1:4], bg.double(),
+                                    W, H, g.double(), True)[0][:, :9]
+        rec["k2_max_abs"] = held_grad(f"phase 3k (a) K2 mode vs plain mode,"
+                                      f" {frame}", gf_m[:, :9], gf_p[:, :9],
+                                      ref64)
+        # grad_bg sums g T_fin over the pixels, and a flip at a cutoff
+        # moves a pixel's T_fin by 1/255 of it: held at the mode's own
+        # relative gradient bar (kernel_parity_tpu.py:133), not BG_RTOL
+        bg_rel = float(((gb_m - gb_p).abs() / gb_p.abs().clamp(
+            min=1e-30)).max())
+        rec["bg_rel"] = bg_rel
+        print(f"# phase 3k (a) K2 mode grad_bg, {frame}: {gb_m.tolist()} vs "
+              f"plain mode {gb_p.tolist()}, max relative {bg_rel:.3e} (bar "
+              f"{kernel_parity.GRAD_BAR})")
+        if float(gf_m[:, 9].abs().max()) != 0.0 \
+                or bg_rel > kernel_parity.GRAD_BAR:
+            raise AssertionError(f"phase 3k (a) {frame}: K2's radius "
+                                 f"column or grad_bg ({bg_rel:.3e}) is off")
+        # (b) the mode against the exact kernels
+        img_e, logt_e, nw_e, _ = cuda_blend.blend_fwd(*args)
+        d = (img_m - img_e).abs().amax(0)
+        rec["vs_exact_max_abs"] = float(d.max())
+        rec["vs_exact_share"] = float((d <= PIXEL_ATOL).float().mean())
+        print(f"# phase 3k (b) {frame}: K1 mode vs K1 exact, raw image max "
+              f"|d| {rec['vs_exact_max_abs']:.3e}, "
+              f"{rec['vs_exact_share'] * 100:.4f}% of pixels within "
+              f"{PIXEL_ATOL}")
+        # (c) device ms, the modes in turns (exact, mode, mode, exact)
+        fns = {"k1": (lambda: cuda_blend.blend_fwd(*args),
+                      lambda: cuda_blend.blend_fwd(*args, True)),
+               "k2": (lambda: cuda_blend.blend_bwd(*args, g, logt_e, nw_e),
+                      lambda: cuda_blend.blend_bwd(*args, g, logt_m, nw_m,
+                                                   True))}
+        for k, (exact_fn, mode_fn) in fns.items():
+            ms = [device_ms(f, inner=BACK_TO_BACK)
+                  for f in (exact_fn, mode_fn, mode_fn, exact_fn)]
+            rec[k + "_exact_ms"] = [ms[0], ms[3]]
+            rec[k + "_mxu_ms"] = [ms[1], ms[2]]
+        rec["plain_mxu_ms"] = device_ms(
+            lambda: plain_blend(*args, power_mxu=True), reps=5, warmup=1)
+        rec["plain_bwd_mxu_ms"] = device_ms(
+            lambda: plain_blend_bwd(*args, g, True), reps=5, warmup=1)
+        work = blend_work(feat, b, W, H, pairs, cull)[0]
+        cull_m = warp_cull_counts(feat, b, nw_m, W, H)
+        bound = mxu_work(feat, b, W, H, pairs_m, nw_m, cull_m, work)
+        for k in ("k1", "k2"):
+            bd = bound[k]
+            mode_ms = statistics.median(rec[k + "_mxu_ms"])
+            exact_ms = statistics.median(rec[k + "_exact_ms"])
+            bd["at_s2_ms"] = bd["ops"] / blendmix_rate * 1e3
+            rec[k + "_bound"] = bd
+            print(f"# phase 3k (c) {frame} {k.upper()}: exact "
+                  f"{rec[k + '_exact_ms'][0]:.4f} / "
+                  f"{rec[k + '_exact_ms'][1]:.4f} ms, mode "
+                  f"{rec[k + '_mxu_ms'][0]:.4f} / {rec[k + '_mxu_ms'][1]:.4f}"
+                  f" ms ({(mode_ms / exact_ms - 1) * 100:+.1f}%); the mode's "
+                  f"bound: {bd['ops']:.4e} float ops / 67 TFLOP/s = "
+                  f"{bd['ops_ms']:.5f} ms, {bd['groups']} (warp, group) x 12"
+                  f" mma = {bd['tc_flops']:.4e} tensor-core flops / 989 "
+                  f"TFLOP/s = {bd['tc_ms']:.5f} ms, {bd['bytes']} bytes = "
+                  f"{bd['bytes_ms']:.5f} ms, so {bd['bound_ms']:.5f} ms by "
+                  f"{bd['bound_term']} ({bd['bound_ms'] / mode_ms * 100:.1f}% "
+                  f"of its time); float ops at S2's blendmix rate "
+                  f"{bd['at_s2_ms']:.5f} ms "
+                  f"({bd['at_s2_ms'] / mode_ms * 100:.1f}% of its time)"
+                  f"  [{smi}]")
+        print(f"# phase 3k (c) {frame}: plain mode {rec['plain_mxu_ms']:.4f}"
+              f" ms, its backward {rec['plain_bwd_mxu_ms']:.4f} ms")
+        rec["cull"] = mxu_cull_misses(feat, b, nw_m, W, H)
+        print(f"# phase 3k (c) {frame}: the warp cull drops "
+              f"{rec['cull']['dropped']} (warp, instance) pairs of the "
+              f"mode's K1 walk; {rec['cull']['missed']} of them reach alpha"
+              f" 1/255 in the plain mode at a pixel of the warp (largest "
+              f"alpha among the dropped {rec['cull']['max_alpha']:.3e})")
+        if rec["cull"]["missed"]:
+            raise AssertionError(f"phase 3k {frame}: the warp cull drops "
+                                 f"pairs the mode keeps")
+        out["frames"][frame] = rec
+    res = cuda_blend.mxu_blocks_per_sm()
+    for k, entry in (("K1", "blend_fwd_mxu_kernel"),
+                     ("K2", "blend_bwd_mxu_kernel")):
+        source = cuda_blend.SOURCE if k == "K1" else cuda_blend.BWD_SOURCE
+        res[k].update(build.kernel_resources(build.build_logs[source], entry))
+        r = res[k]
+        print(f"# phase 3k (c) {k} {entry}: {r['registers']} registers, "
+              f"{r['smem_bytes']} B static + {r['dynamic_smem_bytes']} B "
+              f"dynamic shared memory, {r['spill_bytes']} B spill stores, "
+              f"{r['blocks_per_sm']} resident blocks per SM")
+    out["resources"] = res
+
+    # (d) the user's path with the mode as the default
+    serve, tr = ctx["serve"], ctx["train"]
+    saved = cuda_blend.POWER_MXU
+    losses = {}
+    try:
+        for mode in (False, True):
+            cuda_blend.POWER_MXU = mode
+            cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
+            cuda_blend.MXU_LAUNCHES = cuda_blend.K2_MXU_LAUNCHES = 0
+            if mode:
+                with torch.no_grad():
+                    a = scene_forward(serve["gs"])
+                    for i, cam in enumerate(serve["cams"]):
+                        pkg = render_human_scene(
+                            {"camera": cam, "width": W, "height": H}, None, a,
+                            serve["bg"], render_mode="scene",
+                            instance_budget=serve["budget"])
+                        img = pkg["render"]
+                        if bool(pkg["overflowed"]) or not bool(
+                                torch.isfinite(img).all()):
+                            raise AssertionError(f"phase 3k (d): request {i}"
+                                                 f" overflowed or not finite")
+                        if i == 0:
+                            out["serve_vs_exact"] = float(
+                                (img - serve["image0"]).abs().max())
+                serve_k1 = cuda_blend.MXU_LAUNCHES
+            state = init_scene_train_state(create_from_pcd(
+                tr["noisy"], np.full((N_GAUSS, 3), 0.5, np.float32),
+                CAPACITY, device=dev))
+            losses[mode] = []
+            for step in range(MXU_STEPS):
+                i = step % len(tr["cams"])
+                state, aux = scene_train_step(
+                    state, tr["cams"][i], tr["targets"][i], tr["bg"],
+                    tr["xyz_sched"](step), tr["lrs"], width=W, height=H,
+                    instance_budget=tr["budget"])
+                if bool(aux["overflowed"]):
+                    raise AssertionError(f"phase 3k (d) step {step} "
+                                         f"overflowed")
+                losses[mode].append(float(aux["loss"]))
+            torch.cuda.synchronize()
+            counts = (cuda_blend.LAUNCHES, cuda_blend.K2_LAUNCHES,
+                      cuda_blend.MXU_LAUNCHES, cuda_blend.K2_MXU_LAUNCHES)
+            want = ((0, 0, len(serve["cams"]) + MXU_STEPS, MXU_STEPS) if mode
+                    else (MXU_STEPS, MXU_STEPS, 0, 0))
+            print(f"# phase 3k (d) mode {mode}: K1, K2, K1 mode, K2 mode "
+                  f"launches {counts} (want {want})")
+            if counts != want:
+                raise AssertionError("phase 3k (d): launches off")
+    finally:
+        cuda_blend.POWER_MXU = saved
+    rel = [abs(m - e) / abs(e) for e, m in zip(losses[False], losses[True])]
+    print("# phase 3k (d): loss by step, exact / mode: " + " ".join(
+        f"{e:.6f}/{m:.6f}" for e, m in zip(losses[False], losses[True]))
+        + f"; max relative difference {max(rel):.3e} (bar "
+        f"{MXU_LOSS_RTOL}); serving request 0 vs phase 3's exact image max "
+        f"|d| {out['serve_vs_exact']:.3e}")
+    if not (np.isfinite(losses[True]).all() and max(rel) <= MXU_LOSS_RTOL):
+        raise AssertionError("phase 3k (d): the mode's losses are off")
+    out.update(losses=losses, loss_rel=max(rel), k1_launches=serve_k1
+               + MXU_STEPS, serve_k1=serve_k1, k2_launches=MXU_STEPS)
+
+    # (e) the kernel-parity scenes in both modes
+    cases, ok = kernel_parity.run_all(dev, modes=(False, True))
+    for c in cases:
+        print(f"# phase 3k (e) kernel parity {c['case']} power_mxu "
+              f"{c['power_mxu']}: image max |d| {c['max_abs_dimg']:.3e} "
+              f"(bar {kernel_parity.IMG_BAR}), gradients max rel "
+              f"{max(c['rel_dgrad'].values()):.3e} (bar "
+              f"{kernel_parity.GRAD_BAR}); K1 {c.get('k1')}; K2 "
+              f"{c.get('k2')}")
+    if not ok:
+        raise AssertionError("phase 3k (e): a kernel-parity case failed")
+    out["kernel_parity"] = cases
+    out["phase_s"] = time.time() - t_phase
+    print(f"# phase 3k: {out['phase_s']:.1f} s (host clock)")
+    return out
+
+
 def micro_benchmarks(dev, smi, cull_counts):
     """Phase 3d, the three micro-benchmarks through their entry points'
     functions at the scripts' full sizes (see the module docstring), each
@@ -3708,7 +4045,7 @@ def main():
                                          4 * CAPACITY).n_slots)
                        for c in cams)
 
-    train_budget = slot_budget(trainee_demand(state))
+    train_budget = train_budget0 = slot_budget(trainee_demand(state))
     print(f"# training: trainee {N_GAUSS} Gaussians in capacity "
           f"{CAPACITY}, budget {train_budget} slots, extent {extent:.4f}, "
           f"learning rates of hugs_tpu's config (scene.lr), unboosted")
@@ -4035,6 +4372,20 @@ def main():
     recipe_by_path = {k: {f"{n}_recipe": recipes[n][f"{k.lower()}_launches"]
                           for n in ("human_avatar", "joint_scene",
                                     "surface_scene")} for k in ("K1", "K2")}
+    # ---- 3k. the blend kernels' POWER_MXU mode, after 3j
+    print(f"# phase 3k starts at {time.time() - t_start:.1f} s (host "
+          f"clock)")
+    mxu = power_mxu_phase(dev, smi, {
+        "frames": {"serving": (feat, bins, bg, g_raw, pairs, cull_serve),
+                   "training": (feat_t, bins_t, black, g_t, pairs_t,
+                                cull_train)},
+        "serve": {"gs": gs, "cams": cams, "bg": bg, "budget": budget,
+                  "image0": images[0]},
+        "train": {"noisy": noisy, "cams": cams, "targets": targets,
+                  "bg": black, "xyz_sched": xyz_sched, "lrs": static_lrs,
+                  "budget": train_budget0}}, blendmix_rate)
+    mxf = mxu["frames"]
+    mxu_parity = [c for c in mxu["kernel_parity"] if c["power_mxu"]]
 
     # K1 and K2 against the rate S2 measured on the blend's mix
     at_s2 = {
@@ -4262,7 +4613,42 @@ def main():
                                "joint_training": joint["cull"]["K2_dropped"]},
         **resources["K2"],
         "held_to": "plain_blend_bwd", "ok": True,
-    }, *micro]}))
+    }, *({
+        "name": f"{k} {fn}, POWER_MXU mode", "route": "cuda",
+        "source": f"hugs_tpu_torch/csrc/{fn}.cu",
+        "replaces": f"hugs_tpu/render/pallas_blend.py:{line}",
+        "mode": "power_mxu: the exponent as the recentred-basis product "
+                f"(_grid_basis :116, _power_mxu :149, _chunk_alpha :279, "
+                f"called at {calls}), on the tensor cores (mma.sync)",
+        "launches": mxu[k.lower() + "_launches"],
+        "launches_by_path": {
+            "serving, render() default": mxu["serve_k1"] if k == "K1" else 0,
+            "training, render() default": MXU_STEPS},
+        "max_abs_err": max(
+            *(mxf[f][k.lower() + "_max_abs"] for f in mxf),
+            *(c[k.lower()]["max_abs"] for c in mxu_parity)),
+        "frame": f"{frame} (phases 2, 3b)",
+        "ms": statistics.median(mxf[frame][k.lower() + "_mxu_ms"]),
+        "exact_ms_same_call": statistics.median(
+            mxf[frame][k.lower() + "_exact_ms"]),
+        "plain_ms": mxf[frame]["plain_mxu_ms" if k == "K1"
+                              else "plain_bwd_mxu_ms"],
+        "bound_ms": mxf[frame][k.lower() + "_bound"]["bound_ms"],
+        "bound_by": mxf[frame][k.lower() + "_bound"]["bound_by"],
+        "library_ms": None,
+        "frames": {f: {key: r[key] for key in (
+            k.lower() + "_mxu_ms", k.lower() + "_exact_ms",
+            k.lower() + "_bound", k.lower() + "_max_abs", "pixels_beyond",
+            "pixels_at_cutoff", "vs_exact_max_abs", "vs_exact_share",
+            "cull")} for f, r in mxf.items()},
+        "loss_rel_vs_exact": mxu["loss_rel"],
+        "phase_s": mxu["phase_s"],
+        **mxu["resources"][k],
+        "held_to": "plain_blend(power_mxu=True)" if k == "K1"
+                   else "plain_blend_bwd(power_mxu=True)", "ok": True,
+    } for k, fn, line, calls, frame in (
+        ("K1", "blend_fwd", 354, ":365, :428", "serving"),
+        ("K2", "blend_bwd", 486, ":499, :589", "training"))), *micro]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -78,6 +78,18 @@
 // Built with -fmad=false, as K1 is, so the alpha of a pair and the cull
 // are bit-identical to K1's and to the plain PyTorch version's.
 //
+// The POWER_MXU mode (blend_bwd_mxu_kernel, hugs_blend_bwd_mxu; the TPU
+// kernel's `basis` at pallas_blend.py:499 and its alpha at :589) is
+// bwd_tile<kMxu>: the alpha of a pair comes from K1's mode's routine
+// (mxu_powers on the same aligned groups of 8 slots, so both kernels
+// agree on every alpha), and the gradient math is the exact mode's
+// (pallas_blend.py:603-613: d power = d_alpha alpha wherever the pair is
+// live and unclamped, the moments from the exact dx, dy). Each group's
+// kept instances form one group of the reduce-scatter. The mode adds
+// 15,360 B of dynamic shared memory (6,144 B of records for a batch of
+// 128, 9,216 B of powers), past 48 KB with the static 42,752 B, which
+// the launch opts into.
+//
 // S3, K2's skeleton: the tile's work is one template, `bwd_tile`, on a
 // variant. K2 is the `kFull` instantiation (blend_bwd_kernel); the others
 // (blend_bwd_skeleton_kernel) replace the TPU kernel `_skel_kernel` of
@@ -129,7 +141,8 @@ enum Variant : int {
   kSkeleton = 1,
   kNoCull = 2,
   kNoShuffle = 3,
-  kStagingOnly = 4
+  kStagingOnly = 4,
+  kMxu = 5  // K2 in the POWER_MXU mode
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -165,15 +178,23 @@ struct Cursor {
 };
 
 // The nine sums of one pair: instance row f at the pixel p, whose walk
-// reaches it if `live`. Advances the pixel's compensated sums.
+// reaches it if `live`. Advances the pixel's compensated sums. kMxuAlpha:
+// the alpha from the POWER_MXU mode's `power` (the gradient math is the
+// exact mode's, pallas_blend.py:589-613).
+template <bool kMxuAlpha>
 __device__ __forceinline__ void pair_grad(Pixel& p, const float* f, bool live,
-                                          float d[kGrad]) {
+                                          float power, float d[kGrad]) {
 #pragma unroll
   for (int k = 0; k < kGrad; ++k) d[k] = 0.0f;
   if (!live) return;
   float dx, dy;
-  const float alpha =
-      pair_alpha(f[3], f[4], f[5], f[6], f[7], f[8], f[9], p.px, p.py, dx, dy);
+  float alpha;
+  if constexpr (kMxuAlpha) {
+    alpha = pair_alpha_mxu(power, f[3], f[4], f[5], f[9], p.px, p.py, dx, dy);
+  } else {
+    alpha = pair_alpha(f[3], f[4], f[5], f[6], f[7], f[8], f[9], p.px, p.py,
+                       dx, dy);
+  }
   if (alpha <= 0.0f) return;
   // log T_i (exclusive) = log T_fin - (suffix behind i + la)
   const float la_c = log1pf(-alpha) - p.suf_c;
@@ -215,26 +236,30 @@ __device__ __forceinline__ void pair_skel(const Pixel& p, const float* f,
 // group ran out), the sum of the partials of the 2^L lanes whose index
 // differs from this lane's only in bits 4 down to 5 - L; lane bits 4 ..
 // 5 - L pick the instance. Instances are computed back to front, and each
-// stage runs as soon as both of its halves are computed.
+// stage runs as soon as both of its halves are computed. kMxu: the
+// instances' powers at this lane's pixel are power[j][lane].
 template <int L, int V>
 __device__ __forceinline__ void group_sums(Pixel& p, Cursor& cur,
                                            float (*rows)[kFeat], int b0,
                                            int lane, float out[kGrad],
-                                           int& j) {
+                                           int& j,
+                                           const float (*power)[kPowStride]) {
   if constexpr (L == 0) {
     j = cur.pop();
     const float* f = rows[j < 0 ? 0 : j];
     const bool live = j >= 0 && b0 + j < p.n_walk;
     if constexpr (V == kFull) {
-      pair_grad(p, f, live, out);
+      pair_grad<false>(p, f, live, 0.0f, out);
+    } else if constexpr (V == kMxu) {
+      pair_grad<true>(p, f, live, power[j < 0 ? 0 : j][lane], out);
     } else {
       pair_skel(p, f, live, out);
     }
   } else {
     float a[kGrad], b[kGrad];
     int ja, jb;
-    group_sums<L - 1, V>(p, cur, rows, b0, lane, a, ja);
-    group_sums<L - 1, V>(p, cur, rows, b0, lane, b, jb);
+    group_sums<L - 1, V>(p, cur, rows, b0, lane, a, ja, power);
+    group_sums<L - 1, V>(p, cur, rows, b0, lane, b, jb, power);
     constexpr int off = 32 >> L;
     const bool upper = (lane & off) != 0;
 #pragma unroll
@@ -248,9 +273,9 @@ __device__ __forceinline__ void group_sums(Pixel& p, Cursor& cur,
 }
 
 // One 16x16 tile's work, variant V (the header says what each keeps).
-// `out` is the variant's own output: grad_feat (N, 10) for kFull,
+// `out` is the variant's own output: grad_feat (N, 10) for kFull, kMxu,
 // kSkeleton and kNoCull, the (H, W) per-pixel plane for kNoShuffle, the
-// (T,) per-tile checksum for kStagingOnly.
+// (T,) per-tile checksum for kStagingOnly. `mx`: kMxu's shared memory.
 template <int V>
 __device__ __forceinline__ void bwd_tile(const float* __restrict__ feat,
                                          const int* __restrict__ gauss_id,
@@ -261,7 +286,8 @@ __device__ __forceinline__ void bwd_tile(const float* __restrict__ feat,
                                          const float* __restrict__ grad,
                                          int width, int height, int nx,
                                          float* __restrict__ out,
-                                         float* __restrict__ grad_bg) {
+                                         float* __restrict__ grad_bg,
+                                         MxuShared<kBatch>* mx) {
   __shared__ float s_feat[kBatch][kFeat];
   __shared__ int s_gid[kBatch];
   __shared__ float s_part[kWarps][kBatch][kGrad];
@@ -279,6 +305,8 @@ __device__ __forceinline__ void bwd_tile(const float* __restrict__ feat,
   const int py_i = ty0 + tid / kTile;
   const bool inside = px_i < width && py_i < height;
   const int start = starts[t];
+  uint32_t basis[2][2][4];  // kMxu's A fragments
+  if constexpr (V == kMxu) mxu_basis(warp, lane, basis);
 
   // per-pixel setup: g, K1's final log T and walked count; the sums start
   // from the background's term
@@ -335,6 +363,10 @@ __device__ __forceinline__ void bwd_tile(const float* __restrict__ feat,
 #pragma unroll
       for (int k = 0; k < kFeat; ++k) s_feat[tid][k] = f[k];
       s_gid[tid] = gid;
+      if constexpr (V == kMxu) {
+        mxu_record(s_feat[tid], static_cast<float>(tx0),
+                   static_cast<float>(ty0), mx->cof[tid]);
+      }
     }
     __syncthreads();
 
@@ -361,6 +393,35 @@ __device__ __forceinline__ void bwd_tile(const float* __restrict__ feat,
     }
     __syncwarp();
 
+    if constexpr (V == kMxu) {
+      // the batch's aligned groups of 8 slots, back to front; each group's
+      // kept instances are one group of the reduce-scatter
+#pragma unroll 1
+      for (int q = kBatch / kGroupN - 1; q >= 0; --q) {
+        const unsigned group =
+            (s_mask[warp][q / (32 / kGroupN)] >> (kGroupN * (q % (32 / kGroupN)))) &
+            ((1u << kGroupN) - 1u);
+        if (group == 0u) continue;
+        mxu_powers(basis, mx->cof + kGroupN * q, lane, mx->power[warp]);
+        __syncwarp();
+        Cursor cur{nullptr, 0, group};
+        float r[kGrad];
+        int j;
+        group_sums<kGroupLog, V>(p, cur, s_feat + kGroupN * q,
+                                 b0 + kGroupN * q, lane, r, j,
+                                 mx->power[warp]);
+#pragma unroll
+        for (int off = 16 >> kGroupLog; off > 0; off >>= 1) {
+#pragma unroll
+          for (int k = 0; k < kGrad; ++k) r[k] += __shfl_xor_sync(kAll, r[k], off);
+        }
+        if ((lane & (32 / kGroup - 1)) == 0 && j >= 0) {
+#pragma unroll
+          for (int k = 0; k < kGrad; ++k) s_part[warp][kGroupN * q + j][k] = r[k];
+        }
+        __syncwarp();  // the group's readers before the next one's mma
+      }
+    }
     Cursor cur{s_mask[warp], kWords, 0u};
     if constexpr (V == kNoShuffle) {
       for (int j = cur.pop(); j >= 0; j = cur.pop()) {
@@ -371,10 +432,11 @@ __device__ __forceinline__ void bwd_tile(const float* __restrict__ feat,
       }
       continue;
     }
+    if constexpr (V != kMxu) {
     while (cur.more()) {
       float r[kGrad];
       int j;
-      group_sums<kGroupLog, V>(p, cur, s_feat, b0, lane, r, j);
+      group_sums<kGroupLog, V>(p, cur, s_feat, b0, lane, r, j, nullptr);
 #pragma unroll
       for (int off = 16 >> kGroupLog; off > 0; off >>= 1) {
 #pragma unroll
@@ -384,6 +446,7 @@ __device__ __forceinline__ void bwd_tile(const float* __restrict__ feat,
 #pragma unroll
         for (int k = 0; k < kGrad; ++k) s_part[warp][j][k] = r[k];
       }
+    }
     }
     __syncthreads();
 
@@ -405,7 +468,7 @@ __device__ __forceinline__ void bwd_tile(const float* __restrict__ feat,
       }
       if (any) {
         float* dst = out + static_cast<size_t>(s_gid[tid]) * kFeat;
-        if constexpr (V == kFull) {
+        if constexpr (V == kFull || V == kMxu) {
           const float* f = s_feat[tid];
           const float op = f[3], ca = f[6], cb = f[7], cc = f[8];
           const float g[kGrad] = {
@@ -452,7 +515,27 @@ blend_bwd_kernel(const float* __restrict__ feat,
                  float* __restrict__ grad_feat,
                  float* __restrict__ grad_bg) {
   bwd_tile<kFull>(feat, gauss_id, starts, bg, log_t_fin, n_walked, grad,
-                  width, height, nx, grad_feat, grad_bg);
+                  width, height, nx, grad_feat, grad_bg, nullptr);
+}
+
+// K2 in the POWER_MXU mode: the mode's shared memory is dynamic. Left
+// to itself ptxas gives it 97 registers, 2 blocks per SM; held to K2's 3
+// blocks it takes 80 and spills 4 bytes (times of both: PERF.md).
+__global__ void __launch_bounds__(kThreads, 3)
+blend_bwd_mxu_kernel(const float* __restrict__ feat,
+                     const int* __restrict__ gauss_id,
+                     const int* __restrict__ starts,
+                     const float* __restrict__ bg,
+                     const float* __restrict__ log_t_fin,
+                     const int* __restrict__ n_walked,
+                     const float* __restrict__ grad,
+                     int width, int height, int nx,
+                     float* __restrict__ grad_feat,
+                     float* __restrict__ grad_bg) {
+  extern __shared__ __align__(16) unsigned char s_mxu[];
+  bwd_tile<kMxu>(feat, gauss_id, starts, bg, log_t_fin, n_walked, grad, width,
+                 height, nx, grad_feat, grad_bg,
+                 reinterpret_cast<MxuShared<kBatch>*>(s_mxu));
 }
 
 template <int V>
@@ -468,7 +551,7 @@ blend_bwd_skeleton_kernel(const float* __restrict__ feat,
                           float* __restrict__ out,
                           float* __restrict__ grad_bg) {
   bwd_tile<V>(feat, gauss_id, starts, bg, log_t_fin, n_walked, grad, width,
-              height, nx, out, grad_bg);
+              height, nx, out, grad_bg, nullptr);
 }
 
 // The dynamic shared memory (bytes, a multiple of 128) that the launch of
@@ -561,6 +644,29 @@ extern "C" int hugs_blend_bwd(const float* feat, const int* gauss_id,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launches K2 in the POWER_MXU mode (blend_bwd_mxu_kernel), with
+// hugs_blend_bwd's arguments and outputs. Its static and dynamic shared
+// memory together pass 48 KB, which the launch opts into once. Returns
+// cudaGetLastError(), or the opt-in's error.
+extern "C" int hugs_blend_bwd_mxu(const float* feat, const int* gauss_id,
+                                  const int* starts, const float* bg,
+                                  const float* log_t_fin, const int* n_walked,
+                                  const float* grad, int width, int height,
+                                  int nx, int n_tiles, float* grad_feat,
+                                  float* grad_bg, void* stream) {
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      blend_bwd_mxu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(sizeof(MxuShared<kBatch>)));
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  if (n_tiles > 0) {
+    blend_bwd_mxu_kernel<<<n_tiles, kThreads, sizeof(MxuShared<kBatch>),
+                           static_cast<cudaStream_t>(stream)>>>(
+        feat, gauss_id, starts, bg, log_t_fin, n_walked, grad, width, height,
+        nx, grad_feat, grad_bg);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Launches S3, K2's skeleton variant `variant` (1 kSkeleton, 2 kNoCull,
 // 3 kNoShuffle, 4 kStagingOnly), with hugs_blend_bwd's arguments; `out`
 // is the variant's output (bwd_tile), which the caller zeroes with
@@ -597,6 +703,18 @@ extern "C" int hugs_blend_bwd_skeleton(int variant, const float* feat,
 // K2's resident blocks per SM, from the occupancy calculator.
 extern "C" int hugs_blend_bwd_blocks_per_sm() {
   return blocks_per_sm(blend_bwd_kernel);
+}
+
+// The mode's K2's resident blocks per SM, and in *dynamic the dynamic
+// shared memory (bytes) it is launched with; -1 where the opt-in fails.
+extern "C" int hugs_blend_bwd_mxu_blocks_per_sm(int* dynamic) {
+  *dynamic = static_cast<int>(sizeof(MxuShared<kBatch>));
+  if (cudaFuncSetAttribute(blend_bwd_mxu_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           *dynamic) != cudaSuccess) {
+    return -1;
+  }
+  return blocks_per_sm(blend_bwd_mxu_kernel, sizeof(MxuShared<kBatch>));
 }
 
 // Skeleton variant `variant`'s resident blocks per SM as it is launched,

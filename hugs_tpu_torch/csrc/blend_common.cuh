@@ -1,11 +1,14 @@
 // Shared by K1 (blend_fwd.cu) and K2 (blend_bwd.cu): the constants of the
-// blend, the alpha of one (instance, pixel) pair, the warp cull and the
-// occupancy query. Both kernels include this one definition, so the
-// forward's keep test and the backward's recompute of it cannot drift
-// apart by an ulp.
+// blend, the alpha of one (instance, pixel) pair, the warp cull, the
+// POWER_MXU mode's exponent on the tensor cores and the occupancy query.
+// Both kernels include this one definition, so the forward's keep test
+// and the backward's recompute of it cannot drift apart by an ulp.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace hugs_blend {
 
@@ -84,16 +87,207 @@ __device__ __forceinline__ bool warp_keep(const float* f, int tx0, int ty0,
                    x0 + (kTile - 1), y0 + (kWarpRows - 1));
 }
 
-// Resident blocks per SM of `kernel` at kThreads threads, no dynamic
-// shared memory; -1 if the query fails.
+// ---- The POWER_MXU mode (hugs_tpu/render/pallas_blend.py:116-188 and
+// :279-313, off by default): the Gaussian's exponent at a pixel is a
+// quadratic in the pixel's coordinates, so for the 32 pixels of a warp
+// and 8 instances it is one matrix product, D (32 x 8) = A (32 x K) B
+// (K x 8), run here on the tensor cores with mma.sync m16n8k16 (bf16
+// operands, float32 accumulation). A holds each pixel's basis [1, u', v',
+// u'^2, v'^2, u'v'] at the tile's 2 x 2 grid points (tile-local (8 gx +
+// 4, 8 gy + 4)), u' and v' relative to the grid point: integers of at
+// most 144, exact in bf16, so the TPU's second (lo) basis term is zero
+// at a 16-pixel tile and its two passes are left out (they add exact
+// zeros). B holds each instance's coefficients [a0, bu, bv, -ca/2,
+// -cc/2, -cb] at its own grid point (floor of its tile-local mean over 8,
+// clipped to the tile: a mean outside the tile keeps a residual beyond 4
+// pixels, pallas_blend.py:94-104), zero at the other three, each split
+// into three bf16 terms c1 + c2 + c3, and the power is bh c1 + bh c2 +
+// bh c3, chained through the accumulator in that order. K = 32: each
+// grid point g takes rows 8 g .. 8 g + 7 (six terms and two zero rows),
+// the TPU's rows 6 g .. 6 g + 5 padded from 24 to 32 in another order:
+// the same products, summed inside one mma in the hardware's order. 75 %
+// of B is structurally zero (one grid point's rows of four). K1 and K2
+// call mxu_powers on the same aligned groups of 8 slots of a tile's
+// list, with the same fragments, k order and pass order, so a pair's
+// power, and its alpha, are bit-identical in the two kernels.
+//
+// Per (warp, group of 8 slots): 12 mma (2 pixel rows x 3 passes x 2 k
+// steps), 12 x 4,096 = 49,152 tensor-core flops for 256 pairs.
+constexpr int kGridSp = 8;                 // grid spacing (pixels)
+constexpr int kGridN = kTile / kGridSp;    // grid points a side
+constexpr float kPowEps = 1e-4f;           // the mode's `power <= 0` guard
+constexpr int kGroupN = 8;                 // instances per mma (n8)
+constexpr int kCofStride = 12;  // words per instance record: 3 passes x 3
+                                // bf16 pairs, the grid point, 2 pad words
+constexpr int kPowStride = 36;  // floats per instance row of powers: the
+                                // warp's 32 pixels and 4 pad (no bank
+                                // conflicts on the fragment's stores)
+
+// The mode's shared memory for a batch of B instances: each instance's
+// coefficient record, and per warp one group's powers.
+template <int B>
+struct MxuShared {
+  uint32_t cof[B][kCofStride];
+  float power[kWarps][kGroupN][kPowStride];
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return static_cast<uint32_t>(
+             __bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<uint32_t>(
+              __bfloat16_as_ushort(__float2bfloat16_rn(hi)))
+          << 16);
+}
+
+// The coefficient record of the instance with feature row f in the tile
+// whose top-left pixel is (tx0, ty0), in the operation order of
+// pallas_blend.py:162-177 (and of render/blend.py::mxu_coefficients,
+// under -fmad=false): rec[3 p + t] packs pass p's terms 2 t and 2 t + 1
+// (p = 0, 1, 2 for c1, c2, c3), rec[9] the grid point.
+__device__ __forceinline__ void mxu_record(const float* f, float tx0,
+                                           float ty0, uint32_t* rec) {
+  const float ca = f[6], cb = f[7], cc = f[8];
+  const float mxl = f[4] - tx0;
+  const float myl = f[5] - ty0;
+  const float gx = fminf(fmaxf(floorf(mxl * (1.0f / kGridSp)), 0.0f),
+                         static_cast<float>(kGridN - 1));
+  const float gy = fminf(fmaxf(floorf(myl * (1.0f / kGridSp)), 0.0f),
+                         static_cast<float>(kGridN - 1));
+  const float rx = mxl - (gx * kGridSp + kGridSp / 2);
+  const float ry = myl - (gy * kGridSp + kGridSp / 2);
+  float c[6] = {-0.5f * (ca * rx * rx + cc * ry * ry) - cb * rx * ry,
+                ca * rx + cb * ry,
+                cc * ry + cb * rx,
+                -0.5f * ca,
+                -0.5f * cc,
+                -cb};
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    float term[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      term[k] = __bfloat162float(__float2bfloat16_rn(c[k]));
+      c[k] = c[k] - term[k];  // the remainder the next pass splits
+    }
+#pragma unroll
+    for (int t = 0; t < 3; ++t) rec[3 * p + t] = pack_bf16(term[2 * t],
+                                                           term[2 * t + 1]);
+  }
+  rec[9] = static_cast<uint32_t>(static_cast<int>(gy * kGridN + gx));
+}
+
+// Term s of the basis [1, u, v, u^2, v^2, uv] (0 for s = 6, 7).
+__device__ __forceinline__ float basis_term(int s, float u, float v) {
+  return s == 0   ? 1.0f
+         : s == 1 ? u
+         : s == 2 ? v
+         : s == 3 ? u * u
+         : s == 4 ? v * v
+         : s == 5 ? u * v
+                  : 0.0f;
+}
+
+// This lane's A fragments (basis) for the warp's 32 pixels: warp w holds
+// tile-local pixel rows y = 2 w + mt (mt = 0, 1), its lanes 16 mt .. 16
+// mt + 15 the columns x = 0 .. 15, which are the rows of m-tile mt.
+// a[mt][ks][r] is register r of the m16n8k16 A fragment of k step ks:
+// rows x = lane / 4 + 8 (r & 1), columns 16 ks + 8 (r >> 1) + 2 (lane %
+// 4) + {0, 1}, i.e. grid point 2 ks + (r >> 1) and terms 2 (lane % 4) +
+// {0, 1}.
+__device__ __forceinline__ void mxu_basis(int warp, int lane,
+                                          uint32_t a[2][2][4]) {
+  const int tig = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int g = 2 * ks + (r >> 1);
+        const float u = static_cast<float>((lane >> 2) + 8 * (r & 1) -
+                                           (kGridSp * (g % kGridN) +
+                                            kGridSp / 2));
+        const float v = static_cast<float>(kWarpRows * warp + mt -
+                                           (kGridSp * (g / kGridN) +
+                                            kGridSp / 2));
+        a[mt][ks][r] = pack_bf16(basis_term(2 * tig, u, v),
+                                 basis_term(2 * tig + 1, u, v));
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The powers of the 8 instances whose records are cof[0 .. 7] at the
+// warp's 32 pixels, into out[j][pixel lane]. Every lane of the warp calls
+// it together (mma.sync), and the caller syncs the warp before it reads
+// out. Lane (n = lane / 4, t = lane % 4) builds B's column n from record
+// n: pass p's bf16 pair t where the instance's grid point is 2 ks + rb,
+// zero elsewhere (and for t = 3, terms 6 and 7).
+__device__ __forceinline__ void mxu_powers(const uint32_t a[2][2][4],
+                                           const uint32_t (*cof)[kCofStride],
+                                           int lane,
+                                           float (*out)[kPowStride]) {
+  const int n = lane >> 2, t = lane & 3;
+  const uint32_t* rec = cof[n];
+  const int g = static_cast<int>(rec[9]);
+  uint32_t w[3];
+#pragma unroll
+  for (int p = 0; p < 3; ++p) w[p] = t < 3 ? rec[3 * p + t] : 0u;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        mma_bf16(d, a[mt][ks], g == 2 * ks ? w[p] : 0u,
+                 g == 2 * ks + 1 ? w[p] : 0u);
+      }
+    }
+    // d: rows x = n, n + 8 of pixel row mt, columns (instances) 2 t, 2 t + 1
+    out[2 * t][16 * mt + n] = d[0];
+    out[2 * t + 1][16 * mt + n] = d[1];
+    out[2 * t][16 * mt + n + 8] = d[2];
+    out[2 * t + 1][16 * mt + n + 8] = d[3];
+  }
+}
+
+// pair_alpha in the mode, from the pair's power off the tensor cores:
+// alpha = min(0.99, op * exp(min(power, 0))), zero unless power <=
+// kPowEps, alpha >= 1/255 and dist^2 <= rad^2 (pallas_blend.py:279-313).
+// Also returns dx = mx - px and dy = my - py.
+__device__ __forceinline__ float pair_alpha_mxu(float power, float op,
+                                                float mx, float my,
+                                                float rad, float px, float py,
+                                                float& dx, float& dy) {
+  dx = mx - px;
+  dy = my - py;
+  const float alpha = fminf(kMaxAlpha, op * expf(fminf(power, 0.0f)));
+  const bool keep = power <= kPowEps && alpha >= kMinAlpha &&
+                    dx * dx + dy * dy <= rad * rad;
+  return keep ? alpha : 0.0f;
+}
+
+// Resident blocks per SM of `kernel` at kThreads threads and `dynamic`
+// bytes of dynamic shared memory; -1 if the query fails.
 template <typename Kernel>
-int blocks_per_sm(Kernel kernel) {
+int blocks_per_sm(Kernel kernel, size_t dynamic = 0) {
   int n = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, 0) !=
-      cudaSuccess) {
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads,
+                                                    dynamic) != cudaSuccess) {
     return -1;
   }
   return n;
 }
+
 
 }  // namespace hugs_blend

@@ -48,6 +48,20 @@
 // of a pair, and the cull of an (instance, warp), are then bit-identical
 // between the two, and only the order of the transmittance and colour
 // sums differs.
+//
+// The POWER_MXU mode (blend_fwd_mxu_kernel, hugs_blend_fwd_mxu) is the
+// TPU kernel's second mode (`basis` at pallas_blend.py:365, its alpha at
+// :428): the staging thread also writes each instance's coefficient
+// record (mxu_record, blend_common.cuh), 48 B, and for each aligned group
+// of 8 slots of a window with a kept instance the warp runs mxu_powers
+// (12 mma.sync on the tensor cores) into its row of powers in shared
+// memory; the walk reads each pair's power from there and the alpha test
+// takes 13 float operations instead of 22. The mode adds 21,504 B of
+// dynamic shared memory (12,288 B of records for the 256 instances of a
+// batch, 9,216 B of powers), which leaves it at 4 blocks per SM, set by
+// its 64 registers (the exact mode 5). Bound on the H100: its remaining
+// float operations; the tensor-core flops bound it less (PERF.md). The
+// exact mode's code is unchanged (fwd_tile<false>).
 
 #include "blend_common.cuh"
 
@@ -57,17 +71,20 @@ using namespace hugs_blend;
 
 constexpr int kBatch = kThreads;
 
-__global__ void __launch_bounds__(kThreads)
-blend_fwd_kernel(const float* __restrict__ feat,
-                 const int* __restrict__ gauss_id,
-                 const int* __restrict__ starts,
-                 const int* __restrict__ ends,
-                 const float* __restrict__ bg,
-                 int width, int height, int nx,
-                 float* __restrict__ out_rgb,
-                 float* __restrict__ out_log_t,
-                 int* __restrict__ out_n_walked,
-                 int* __restrict__ out_walked) {
+// One 16x16 tile's forward, in the exact mode (kMxu false: K1) or in the
+// POWER_MXU mode (kMxu true, `mx` the mode's shared memory).
+template <bool kMxu>
+__device__ __forceinline__ void fwd_tile(const float* __restrict__ feat,
+                                         const int* __restrict__ gauss_id,
+                                         const int* __restrict__ starts,
+                                         const int* __restrict__ ends,
+                                         const float* __restrict__ bg,
+                                         int width, int height, int nx,
+                                         float* __restrict__ out_rgb,
+                                         float* __restrict__ out_log_t,
+                                         int* __restrict__ out_n_walked,
+                                         int* __restrict__ out_walked,
+                                         MxuShared<kBatch>* mx) {
   __shared__ float s_feat[kBatch][kFeat];
 
   const int t = blockIdx.x;
@@ -89,6 +106,8 @@ blend_fwd_kernel(const float* __restrict__ feat,
   bool done = !inside;  // pixels outside the image never hold the block
   int walked = 0;
   int n_walked = 0;  // this pixel's instances, up to its saturating one
+  uint32_t basis[2][2][4];  // the mode's A fragments
+  if constexpr (kMxu) mxu_basis(warp, lane, basis);
 
   for (int base = start; base < end; base += kBatch) {
     // also the barrier that keeps the previous batch's readers ahead of
@@ -99,6 +118,10 @@ blend_fwd_kernel(const float* __restrict__ feat,
       const float* f = feat + static_cast<size_t>(gauss_id[base + tid]) * kFeat;
 #pragma unroll
       for (int k = 0; k < kFeat; ++k) s_feat[tid][k] = f[k];
+      if constexpr (kMxu) {
+        mxu_record(s_feat[tid], static_cast<float>(tx0),
+                   static_cast<float>(ty0), mx->cof[tid]);
+      }
     }
     __syncthreads();
     walked = base + n - start;
@@ -111,25 +134,55 @@ blend_fwd_kernel(const float* __restrict__ feat,
       const unsigned bits =
           __ballot_sync(0xffffffffu, i < n && warp_keep(s_feat[i], tx0, ty0,
                                                         warp));
-      // a counted loop with a warp-uniform test of the cull's bit costs
-      // fewer instructions per instance than extracting set bits
+      if constexpr (kMxu) {
+        // the window's aligned groups of 8 slots that the cull keeps
+#pragma unroll 1
+        for (int q = 0; q < 32; q += kGroupN) {
+          const unsigned group = (bits >> q) & 0xffu;
+          if (group == 0u) continue;
+          if (__all_sync(0xffffffffu, done)) break;
+          mxu_powers(basis, mx->cof + w0 + q, lane, mx->power[warp]);
+          __syncwarp();
+          for (int jj = 0; jj < kGroupN; ++jj) {
+            if (!((group >> jj) & 1u) || done) continue;
+            const int j = w0 + q + jj;
+            const float* f = s_feat[j];
+            float dx, dy;
+            const float alpha = pair_alpha_mxu(mx->power[warp][jj][lane],
+                                               f[3], f[4], f[5], f[9], px, py,
+                                               dx, dy);
+            if (alpha == 0.0f) continue;
+            const float w = alpha * expf(log_t);
+            cr += f[0] * w;
+            cg += f[1] * w;
+            cb += f[2] * w;
+            log_t += log1pf(-alpha);
+            done = log_t < kLogTEps;
+            if (done) sat = j + 1;
+          }
+          __syncwarp();  // the group's readers before the next one's mma
+        }
+      } else {
+        // a counted loop with a warp-uniform test of the cull's bit costs
+        // fewer instructions per instance than extracting set bits
 #pragma unroll 4
-      for (int jj = 0; jj < 32; ++jj) {
-        if (!((bits >> jj) & 1u)) continue;
-        const int j = w0 + jj;
-        if (done) continue;
-        const float* f = s_feat[j];
-        float dx, dy;
-        const float alpha = pair_alpha(f[3], f[4], f[5], f[6], f[7], f[8],
-                                       f[9], px, py, dx, dy);
-        if (alpha == 0.0f) continue;
-        const float w = alpha * expf(log_t);
-        cr += f[0] * w;
-        cg += f[1] * w;
-        cb += f[2] * w;
-        log_t += log1pf(-alpha);
-        done = log_t < kLogTEps;
-        if (done) sat = j + 1;
+        for (int jj = 0; jj < 32; ++jj) {
+          if (!((bits >> jj) & 1u)) continue;
+          const int j = w0 + jj;
+          if (done) continue;
+          const float* f = s_feat[j];
+          float dx, dy;
+          const float alpha = pair_alpha(f[3], f[4], f[5], f[6], f[7], f[8],
+                                         f[9], px, py, dx, dy);
+          if (alpha == 0.0f) continue;
+          const float w = alpha * expf(log_t);
+          cr += f[0] * w;
+          cg += f[1] * w;
+          cb += f[2] * w;
+          log_t += log1pf(-alpha);
+          done = log_t < kLogTEps;
+          if (done) sat = j + 1;
+        }
       }
       if (__all_sync(0xffffffffu, done)) break;
     }
@@ -146,6 +199,39 @@ blend_fwd_kernel(const float* __restrict__ feat,
   out_rgb[2 * plane + p] = cb + bg[2] * t_fin;
   out_log_t[p] = log_t;
   out_n_walked[p] = n_walked;
+}
+
+__global__ void __launch_bounds__(kThreads)
+blend_fwd_kernel(const float* __restrict__ feat,
+                 const int* __restrict__ gauss_id,
+                 const int* __restrict__ starts,
+                 const int* __restrict__ ends,
+                 const float* __restrict__ bg,
+                 int width, int height, int nx,
+                 float* __restrict__ out_rgb,
+                 float* __restrict__ out_log_t,
+                 int* __restrict__ out_n_walked,
+                 int* __restrict__ out_walked) {
+  fwd_tile<false>(feat, gauss_id, starts, ends, bg, width, height, nx,
+                  out_rgb, out_log_t, out_n_walked, out_walked, nullptr);
+}
+
+// K1 in the POWER_MXU mode: the mode's shared memory is dynamic.
+__global__ void __launch_bounds__(kThreads)
+blend_fwd_mxu_kernel(const float* __restrict__ feat,
+                     const int* __restrict__ gauss_id,
+                     const int* __restrict__ starts,
+                     const int* __restrict__ ends,
+                     const float* __restrict__ bg,
+                     int width, int height, int nx,
+                     float* __restrict__ out_rgb,
+                     float* __restrict__ out_log_t,
+                     int* __restrict__ out_n_walked,
+                     int* __restrict__ out_walked) {
+  extern __shared__ __align__(16) unsigned char s_mxu[];
+  fwd_tile<true>(feat, gauss_id, starts, ends, bg, width, height, nx,
+                 out_rgb, out_log_t, out_n_walked, out_walked,
+                 reinterpret_cast<MxuShared<kBatch>*>(s_mxu));
 }
 
 // The warp cull alone, for tests and measurement: keep[i] = cull_keep of
@@ -200,7 +286,31 @@ extern "C" int hugs_warp_cull(const float* feat, const int* gauss_id,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launches K1 in the POWER_MXU mode (blend_fwd_mxu_kernel), with
+// hugs_blend_fwd's arguments and outputs. Returns cudaGetLastError().
+extern "C" int hugs_blend_fwd_mxu(const float* feat, const int* gauss_id,
+                                  const int* starts, const int* ends,
+                                  const float* bg, int width, int height,
+                                  int nx, int n_tiles, float* out_rgb,
+                                  float* out_log_t, int* out_n_walked,
+                                  int* out_walked, void* stream) {
+  if (n_tiles > 0) {
+    blend_fwd_mxu_kernel<<<n_tiles, kThreads, sizeof(MxuShared<kBatch>),
+                           static_cast<cudaStream_t>(stream)>>>(
+        feat, gauss_id, starts, ends, bg, width, height, nx, out_rgb,
+        out_log_t, out_n_walked, out_walked);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // K1's resident blocks per SM, from the occupancy calculator.
 extern "C" int hugs_blend_fwd_blocks_per_sm() {
   return blocks_per_sm(blend_fwd_kernel);
+}
+
+// The mode's K1's resident blocks per SM, and in *dynamic the dynamic
+// shared memory (bytes) it is launched with.
+extern "C" int hugs_blend_fwd_mxu_blocks_per_sm(int* dynamic) {
+  *dynamic = static_cast<int>(sizeof(MxuShared<kBatch>));
+  return blocks_per_sm(blend_fwd_mxu_kernel, sizeof(MxuShared<kBatch>));
 }

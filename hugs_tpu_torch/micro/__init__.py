@@ -77,15 +77,11 @@ def device_kernels(fn, reps: int = 5):
     return by_name, n / reps, (last - first) / reps if n else 0.0
 
 
-def warp_cull_counts(feat, bins, n_walked, width: int, height: int) -> dict:
-    """What the warp cull leaves K1 and K2 to do on one frame, from their
-    own device cull (render/cuda_blend.py::warp_cull). K2's warps cull
-    their tile's instances up to the most any of their 32 pixels walked
-    in K1; K1's cull whole chunks of 32 until every pixel of the warp has
-    saturated. Returns each kernel's culled (warp, instance) pairs ("K1",
-    "K2") and the share dropped ("K1_dropped", "K2_dropped"), K2's kept
-    ones ("K2_kept"), and the (pixel, instance) pairs both kernels test:
-    the kept instances before each pixel's n_walked ("tested")."""
+def _walk_pairs(feat, bins, n_walked, width: int, height: int) -> dict:
+    """The (warp, instance) pairs K1's warps cull on one frame, and the
+    device cull's verdict on each: K1's warps cull whole chunks of 32 of
+    their tile's list until every pixel of the warp has saturated, K2's
+    up to the most any of their 32 pixels walked in K1."""
     from hugs_tpu_torch.render import cuda_blend
     from hugs_tpu_torch.render.tiles import TILE, tile_grid
     dev = feat.device
@@ -108,7 +104,22 @@ def warp_cull_counts(feat, bins, n_walked, width: int, height: int) -> dict:
     gid = bins.gauss_id[bins.starts.long()[t] + offset]
     keep = cuda_blend.warp_cull(feat, gid, (t % nx).to(torch.int32),
                                 ((t // nx) * wpt + w).to(torch.int32))
-    in_k2 = offset < k2_len[warp_of]
+    return {"gid": gid, "t": t, "w": w, "nx": nx, "keep": keep,
+            "in_k2": offset < k2_len[warp_of], "seg0": seg0,
+            "per_warp": per_warp, "warp_of": warp_of, "offset": offset}
+
+
+def warp_cull_counts(feat, bins, n_walked, width: int, height: int) -> dict:
+    """What the warp cull leaves K1 and K2 to do on one frame, from their
+    own device cull (render/cuda_blend.py::warp_cull; _walk_pairs). Returns
+    each kernel's culled (warp, instance) pairs ("K1", "K2") and the share
+    dropped ("K1_dropped", "K2_dropped"), K2's kept ones ("K2_kept"), and
+    the (pixel, instance) pairs both kernels test: the kept instances
+    before each pixel's n_walked ("tested")."""
+    wp = _walk_pairs(feat, bins, n_walked, width, height)
+    keep, in_k2, seg0, per_warp = (wp[k] for k in ("keep", "in_k2", "seg0",
+                                                     "per_warp"))
+    dev = feat.device
     kept = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
                       torch.cumsum(keep.long(), 0)])
     s0 = seg0[:, None]
@@ -118,6 +129,75 @@ def warp_cull_counts(feat, bins, n_walked, width: int, height: int) -> dict:
         kept_k = int(keep.sum()) if k == "K1" else out["K2_kept"]
         out[k] = n
         out[k + "_dropped"] = 1.0 - kept_k / n if n else 0.0
+    return out
+
+
+def mxu_cull_misses(feat, bins, n_walked, width: int, height: int,
+                    chunk: int = 1 << 20) -> dict:
+    """The warp cull against the POWER_MXU mode. The cull proves alpha <
+    1/255 at every pixel of a warp from the exact exponent with a margin
+    of 0.999 (about 1e-3 in the exponent); the mode's exponent, the
+    product, differs from the exact one by about 1e-5 inside the tile and
+    more for a splat whose mean lies outside it (pallas_blend.py:94-104).
+    Over the (warp, instance) pairs K1's warps cull on this frame (its
+    walk given by the mode's n_walked), counts those the cull drops where
+    the plain mode's alpha reaches 1/255 at one of the warp's pixels in
+    the image: {"dropped": pairs dropped, "missed": of them those,
+    "max_alpha": the largest such alpha among the dropped, 0 if none}."""
+    from hugs_tpu_torch.render.blend import (
+        alpha_mxu, grid_basis, mxu_coefficients,
+    )
+    from hugs_tpu_torch.render.oracle import MIN_ALPHA
+    from hugs_tpu_torch.render.tiles import TILE
+    wp = _walk_pairs(feat, bins, n_walked, width, height)
+    drop = ~wp["keep"]
+    gid, t, w = wp["gid"][drop], wp["t"][drop], wp["w"][drop]
+    nx = wp["nx"]
+    bh, bl = (b.float() for b in grid_basis(TILE, feat.device))
+    lin = torch.arange(32, device=feat.device)
+    missed, top = 0, 0.0
+    for warp in range(TILE // 2):           # each warp's 32 pixel columns
+        cols = 32 * warp + lin
+        sel = torch.nonzero(w == warp)[:, 0]
+        for i0 in range(0, sel.numel(), chunk):
+            s = sel[i0:i0 + chunk]
+            f = feat[gid[s].long()]
+            tx0 = ((t[s] % nx) * TILE).float()
+            ty0 = ((t[s] // nx) * TILE).float()
+            _, (c1, c2, c3) = mxu_coefficients(f, tx0, ty0)
+            c1, c2, c3 = c1.float(), c2.float(), c3.float()
+            b, l = bh[:, cols], bl[:, cols]
+            power = c1 @ b + c2 @ b + c3 @ b + c1 @ l + c2 @ l
+            px = tx0[:, None] + (lin % TILE).float()
+            py = ty0[:, None] + (2 * warp + lin // TILE).float()
+            a = alpha_mxu(f, f[:, 3], px, py, power).detach()
+            a = torch.where((px < width) & (py < height), a, 0.0)
+            hit = a.amax(1)
+            missed += int((hit >= MIN_ALPHA).sum())
+            top = max(top, float(hit.max()) if hit.numel() else 0.0)
+    return {"dropped": int(drop.sum()), "missed": missed, "max_alpha": top}
+
+
+def mxu_groups(feat, bins, n_walked, width: int, height: int,
+               group: int = 8) -> dict:
+    """The (warp, aligned group of `group` slots of its tile's list) pairs
+    on which the POWER_MXU mode's K1 and K2 run their tensor-core product
+    (blend_common.cuh::mxu_powers): those holding an instance the warp
+    cull keeps, within K1's walk ("K1") or K2's ("K2"); and the instances
+    each stages, with a coefficient record each: K1 its tile's walked
+    batches of 256 (K1's per-tile walk, from the mode's n_walked), K2 up
+    to its tile's longest pixel walk ("K1_staged", "K2_staged")."""
+    from hugs_tpu_torch.render.tiles import TILE, tile_grid
+    wp = _walk_pairs(feat, bins, n_walked, width, height)
+    key = wp["warp_of"] * (1 << 24) + wp["offset"] // group
+    out = {"K1": int(torch.unique(key[wp["keep"]]).numel()),
+           "K2": int(torch.unique(key[wp["keep"] & wp["in_k2"]]).numel())}
+    nx, ny = tile_grid(width, height, TILE)
+    tile_walk = wp["per_warp"].reshape(nx * ny, -1).amax(1)
+    count = (bins.ends - bins.starts).long()
+    out["K1_staged"] = int(torch.minimum((tile_walk + 255) // 256 * 256,
+                                         count).sum())
+    out["K2_staged"] = int(tile_walk.sum())
     return out
 
 

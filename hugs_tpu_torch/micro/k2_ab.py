@@ -1,16 +1,19 @@
-"""K2 built from this checkout and from another, timed in one process.
+"""K2 and K1 built from this checkout and from another, timed in one
+process.
 
-Compares K2 (csrc/blend_bwd.cu) of two source trees on one card, where
-times taken in separate processes differ by a few % with the code
-unchanged. Each tree's blend_bwd.cu is built with this checkout's nvcc
-flags; both libraries are loaded into this process, and K2 is launched
-through each in turn on the same frame (micro_bwd.frame: bench.py's
-scene, g = ones) for ROUNDS rounds, each timing each build as the median
-of 20 spans of 20 back-to-back launches, the build that goes first
-alternating. Prints one JSON object: per build, K2's ptxas report, its
-SASS instruction count and most frequent opcodes, and its round times and
-their median; whether the two SASS listings are the same opcodes in the
-same order; and the largest difference between the builds' grad_feat.
+Compares K2 (csrc/blend_bwd.cu) and K1 (csrc/blend_fwd.cu, its exact
+mode) of two source trees on one card, where times taken in separate
+processes differ by a few % with the code unchanged. Each tree's source
+is built with this checkout's nvcc flags; both libraries are loaded into
+this process, and the kernel is launched through each in turn on the
+same frame (micro_bwd.frame: bench.py's scene, g = ones) for ROUNDS
+rounds, each timing each build as the median of 20 spans of 20
+back-to-back launches, the build that goes first alternating. Prints one
+JSON object: for K2 at the top level and for K1 under "k1", per build,
+the kernel's ptxas report, its SASS instruction count and most frequent
+opcodes, and its round times and their median; whether the two SASS
+listings are the same opcodes in the same order; and the largest
+difference between the builds' outputs (grad_feat; K1's image).
 
 Run on the card: `python -m hugs_tpu_torch.micro.k2_ab --other DIR
 [--out F]`, DIR the root of the other checkout (for example the parent
@@ -35,13 +38,15 @@ from hugs_tpu_torch.render.tiles import TILE, tile_grid
 
 ROUNDS = 8
 KERNEL = "blend_bwd_kernel"
+K1_KERNEL = "blend_fwd_kernel"
 
 
-def build_other(root: Path) -> tuple[Path, str]:
-    """blend_bwd.cu of the checkout at `root`, built with this checkout's
-    flags into the build directory: (library, nvcc's output)."""
-    src = root / "hugs_tpu_torch" / "csrc" / f"{cuda_blend.BWD_SOURCE}.cu"
-    out = build.BUILD_DIR / "k2_ab" / f"{cuda_blend.BWD_SOURCE}-other.so"
+def build_other(root: Path, source: str = cuda_blend.BWD_SOURCE
+                ) -> tuple[Path, str]:
+    """csrc/<source>.cu of the checkout at `root`, built with this
+    checkout's flags into the build directory: (library, nvcc's output)."""
+    src = root / "hugs_tpu_torch" / "csrc" / f"{source}.cu"
+    out = build.BUILD_DIR / "k2_ab" / f"{source}-other.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     res = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
                           str(src)], capture_output=True, text=True,
@@ -75,19 +80,45 @@ def launcher(lib: ctypes.CDLL, fr: dict):
     return run
 
 
-def compare(other: Path, rounds: int = ROUNDS) -> dict:
-    fr = frame("cuda")
-    this_path = build.build([cuda_blend.BWD_SOURCE])[cuda_blend.BWD_SOURCE]
-    other_path, other_log = build_other(other)
+def k1_launcher(lib: ctypes.CDLL, fr: dict):
+    """K1 through `lib` on frame `fr`, as cuda_blend.blend_fwd launches
+    it: a function returning its raw image."""
+    fn = lib.hugs_blend_fwd
+    fn.argtypes, fn.restype = cuda_blend._FWD_ARGS, ctypes.c_int
+    b, w, h = fr["bins"], fr["width"], fr["height"]
+    nx, ny = tile_grid(w, h, TILE)
+    dev = fr["feat"].device
+
+    def run():
+        img = torch.empty((3, h, w), dtype=torch.float32, device=dev)
+        log_t = torch.empty((h, w), dtype=torch.float32, device=dev)
+        n_walked = torch.empty((h, w), dtype=torch.int32, device=dev)
+        walked = torch.empty((nx * ny,), dtype=torch.int32, device=dev)
+        err = fn(fr["feat"].data_ptr(), b.gauss_id.data_ptr(),
+                 b.starts.data_ptr(), b.ends.data_ptr(), fr["bg"].data_ptr(),
+                 w, h, nx, nx * ny, img.data_ptr(), log_t.data_ptr(),
+                 n_walked.data_ptr(), walked.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"K1 launch failed: cudaError {err}")
+        return (img,)
+    return run
+
+
+def compare(other: Path, rounds: int = ROUNDS, source=cuda_blend.BWD_SOURCE,
+            kernel=KERNEL, make_launcher=launcher, fr=None) -> dict:
+    fr = frame("cuda") if fr is None else fr
+    this_path = build.build([source])[source]
+    other_path, other_log = build_other(other, source)
     builds = {
-        "this": (this_path, build.build_logs[cuda_blend.BWD_SOURCE]),
+        "this": (this_path, build.build_logs[source]),
         "other": (other_path, other_log)}
     runs, out = {}, {}
     for name, (path, log) in builds.items():
-        runs[name] = launcher(ctypes.CDLL(str(path)), fr)
-        ops = sass_opcodes(path, KERNEL)
+        runs[name] = make_launcher(ctypes.CDLL(str(path)), fr)
+        ops = sass_opcodes(path, kernel)
         out[name] = {"library": str(path),
-                     "ptxas": build.kernel_resources(log, KERNEL),
+                     "ptxas": build.kernel_resources(log, kernel),
                      "sass_instructions": len(ops), "sass_ops": ops,
                      "ms_rounds": []}
     for i in range(rounds):
@@ -121,7 +152,11 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: K2 runs on the card only")
-    emit(compare(Path(args.other)), args.out)
+    fr = frame("cuda")
+    out = compare(Path(args.other), fr=fr)
+    out["k1"] = compare(Path(args.other), source=cuda_blend.SOURCE,
+                        kernel=K1_KERNEL, make_launcher=k1_launcher, fr=fr)
+    emit(out, args.out)
 
 
 if __name__ == "__main__":

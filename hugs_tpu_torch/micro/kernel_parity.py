@@ -28,14 +28,18 @@ least 99.9 % of entries to 1e-5 + 1e-3 |g| with ||d|| / ||g|| <= 1e-4.
 On CPU tensors both sides are the plain blend (the tests hold that path
 to hugs_tpu's tiled backend instead).
 
-The script's second half, the POWER_MXU mode (the exponent and K2's pixel
-moments evaluated on the TPU's MXU), has no counterpart: the port does
-not carry that mode (render/cuda_blend.py).
+The script's second half (kernel_parity_tpu.py:114-131) runs the four
+cases again in the POWER_MXU mode (render/cuda_blend.py: K1's and K2's
+exponent on the tensor cores; the plain mode on CPU tensors), each held
+at the same bars against the exact path: the mode's image and gradients
+against the exact plain blend's. On the card K1 and K2 in the mode are
+held to the plain mode at the kernels' bars.
 
 Run: `python -m hugs_tpu_torch.micro.kernel_parity [--device cpu]
 [--out F]` (default F: runs/kernel_parity.json). Prints one JSON
-line per case, in the script's keys, then PASS or FAIL; exits 1 on FAIL
-and 2 without a card unless --device cpu.
+line per case, in the script's keys (`power_mxu` false for the first
+four, true for the second four), then PASS or FAIL; exits 1 on FAIL and
+2 without a card unless --device cpu.
 """
 from __future__ import annotations
 
@@ -191,9 +195,11 @@ def k2_bars(got_f, got_b, want_f, want_b) -> dict:
             "bg_rel": bg_rel, "ok": ok}
 
 
-def run_case(name: str, device) -> dict:
+def run_case(name: str, device, power_mxu: bool = False) -> dict:
     """One case: the tiled path (K1 / K2 on the card) against the plain
-    blend, end to end and, on the card, kernel by kernel. Returns the
+    blend, end to end and, on the card, kernel by kernel. With power_mxu
+    the tiled path runs in the POWER_MXU mode and is held end to end to
+    the exact plain blend, kernel by kernel to the plain mode. Returns the
     script's record plus the binning's and the kernels' numbers."""
     device = torch.device(device)
     inp, leaves, cam, pg, bins, budget = case_bins(name, device)
@@ -203,7 +209,7 @@ def run_case(name: str, device) -> dict:
     feat = gauss_features(pg)
     args = (bins.gauss_id, bins.starts, bins.ends, bg, W, H)
 
-    img_k = cuda_blend.blend_feat(feat, *args)
+    img_k = cuda_blend.blend_feat(feat, *args, power_mxu=power_mxu)
     img_p = clip01(plain_blend(feat, *args)[0])
     g_k = _grads(img_k, target, leaves)
     g_p = _grads(img_p, target, leaves)
@@ -211,18 +217,19 @@ def run_case(name: str, device) -> dict:
     for k, a, b in zip(PARAMS, g_p, g_k):
         rel[k] = float((a - b).abs().max()) / (float(a.abs().max()) + 1e-12)
     out = {"case": name, "W": W, "H": H, "n": CASES[name]["n"],
-           "budget": budget, **chunk_stats(bins),
+           "power_mxu": power_mxu, "budget": budget, **chunk_stats(bins),
            "max_abs_dimg": float((img_k - img_p).detach().abs().max()),
            "rel_dgrad": rel}
     ok = out["max_abs_dimg"] < IMG_BAR and max(rel.values()) < GRAD_BAR
     if device.type == "cuda":
         f = feat.detach()
-        raw_k, log_t, n_walked, _ = cuda_blend.blend_fwd(f, *args)
-        raw_p = plain_blend(f, *args)[0]
+        raw_k, log_t, n_walked, _ = cuda_blend.blend_fwd(f, *args,
+                                                         power_mxu)
+        raw_p = plain_blend(f, *args, power_mxu=power_mxu)[0]
         g = torch.rand((3, H, W), generator=torch.Generator(
             device=device).manual_seed(TARGET_SEED), device=device)
-        got = cuda_blend.blend_bwd(f, *args, g, log_t, n_walked)
-        want = plain_blend_bwd(f, *args, g)
+        got = cuda_blend.blend_bwd(f, *args, g, log_t, n_walked, power_mxu)
+        want = plain_blend_bwd(f, *args, g, power_mxu)
         torch.cuda.synchronize()
         out["k1"] = k1_bars(raw_k, raw_p)
         out["k2"] = k2_bars(*got, *want)
@@ -231,9 +238,11 @@ def run_case(name: str, device) -> dict:
     return out
 
 
-def run_all(device, names=tuple(CASES)) -> tuple[list, bool]:
-    """Every case in order; (the records, whether all held)."""
-    cases = [run_case(n, device) for n in names]
+def run_all(device, names=tuple(CASES), modes=(False,)
+            ) -> tuple[list, bool]:
+    """Every case in order, in each of `modes` (power_mxu) in turn; (the
+    records, whether all held)."""
+    cases = [run_case(n, device, m) for m in modes for n in names]
     return cases, all(c["ok"] for c in cases)
 
 
@@ -253,7 +262,7 @@ def main(argv=None) -> int:
     if dev.type == "cuda":
         from hugs_tpu_torch import build
         build.build([cuda_blend.SOURCE, cuda_blend.BWD_SOURCE])
-    cases, ok = run_all(dev)
+    cases, ok = run_all(dev, modes=(False, True))
     for c in cases:
         print(json.dumps(c))
     print("PASS" if ok else "FAIL", flush=True)

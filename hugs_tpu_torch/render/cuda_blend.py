@@ -25,14 +25,20 @@ without the warp cull and the sum across pixels, or its staging alone
 per SM (`skeleton_residency`). CUDA tensors only; their plain versions
 are in hugs_tpu_torch/micro/micro_bwd.py.
 
-The TPU kernels' POWER_MXU mode (a matmul evaluation of the Gaussian
-exponent and of K2's pixel moments on the TPU's MXU, off by default) has
-no output of its own: K1 computes the same exponent directly and K2 sums
-the same moments per pixel. It has no counterpart here.
+The TPU kernels' POWER_MXU mode (pallas_blend.py:63-188: the Gaussian
+exponent as one matrix product of a recentred pixel basis and per-
+instance coefficients, off by default) is the kernels' second mode here,
+`power_mxu=True`: K1 and K2 evaluate the exponent on the tensor cores
+(mma.sync, blend_common.cuh::mxu_powers, one routine for both, so they
+agree on every alpha), the rest of each kernel unchanged; the plain
+version is render/blend.py's mode. The mode's launches count apart
+(MXU_LAUNCHES, K2_MXU_LAUNCHES). POWER_MXU, read from HUGS_POWER_MXU as
+pallas_blend.py:106 reads it, is render()'s default (renderer.py).
 """
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -48,6 +54,10 @@ SOURCE = "blend_fwd"
 BWD_SOURCE = "blend_bwd"
 LAUNCHES = 0      # K1 launches since the count was last set to 0
 K2_LAUNCHES = 0   # K2 launches since the count was last set to 0
+MXU_LAUNCHES = 0      # K1 launches in the POWER_MXU mode, likewise
+K2_MXU_LAUNCHES = 0   # K2 launches in the POWER_MXU mode, likewise
+# render()'s default mode: HUGS_POWER_MXU set and not "0" turns it on
+POWER_MXU = os.environ.get("HUGS_POWER_MXU", "0") != "0"
 WARP_RECT = (TILE, 2)   # the pixel rectangle of one warp of a tile
 # S3's variants, in the order of their numbers in blend_bwd.cu
 SKELETON_MODES = ("skeleton", "skeleton_no_cull", "skeleton_no_shuffle",
@@ -100,8 +110,9 @@ def _check_bins(feat, gauss_id, starts, ends, bg, width, height, kernel):
 
 def blend_fwd(feat: torch.Tensor, gauss_id: torch.Tensor,
               starts: torch.Tensor, ends: torch.Tensor, bg: torch.Tensor,
-              width: int, height: int):
-    """Launch K1 on the current stream. CUDA tensors only.
+              width: int, height: int, power_mxu: bool = False):
+    """Launch K1 on the current stream (in the POWER_MXU mode with
+    power_mxu). CUDA tensors only.
 
     feat: (N, 10) float32 (blend.gauss_features); gauss_id: (I,) int32;
     starts/ends: (T,) int32 over 16x16 tiles; bg: (3,) float32.
@@ -111,39 +122,44 @@ def blend_fwd(feat: torch.Tensor, gauss_id: torch.Tensor,
     that saturated it, and walked (T,) int32, the instances each tile
     walked before all its pixels saturated, in whole batches of 256.
     """
-    global LAUNCHES
+    global LAUNCHES, MXU_LAUNCHES
     dev, nx, T = _check_bins(feat, gauss_id, starts, ends, bg, width,
                              height, "K1")
     img = torch.empty((3, height, width), dtype=torch.float32, device=dev)
     log_t = torch.empty((height, width), dtype=torch.float32, device=dev)
     n_walked = torch.empty((height, width), dtype=torch.int32, device=dev)
     walked = torch.empty((T,), dtype=torch.int32, device=dev)
-    lib = _library(SOURCE, "hugs_blend_fwd", _FWD_ARGS)
+    entry = "hugs_blend_fwd_mxu" if power_mxu else "hugs_blend_fwd"
+    fn = getattr(_library(SOURCE, entry, _FWD_ARGS), entry)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.hugs_blend_fwd(
-            feat.data_ptr(), gauss_id.data_ptr(), starts.data_ptr(),
-            ends.data_ptr(), bg.data_ptr(), width, height, nx, T,
-            img.data_ptr(), log_t.data_ptr(), n_walked.data_ptr(),
-            walked.data_ptr(), stream)
+        err = fn(feat.data_ptr(), gauss_id.data_ptr(), starts.data_ptr(),
+                 ends.data_ptr(), bg.data_ptr(), width, height, nx, T,
+                 img.data_ptr(), log_t.data_ptr(), n_walked.data_ptr(),
+                 walked.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {err}")
-    LAUNCHES += 1
+    if power_mxu:
+        MXU_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return img, log_t, n_walked, walked
 
 
 def blend_bwd(feat: torch.Tensor, gauss_id: torch.Tensor,
               starts: torch.Tensor, ends: torch.Tensor, bg: torch.Tensor,
               width: int, height: int, grad_raw: torch.Tensor,
-              log_t: torch.Tensor, n_walked: torch.Tensor):
-    """Launch K2 on the current stream. CUDA tensors only.
+              log_t: torch.Tensor, n_walked: torch.Tensor,
+              power_mxu: bool = False):
+    """Launch K2 on the current stream (in the POWER_MXU mode with
+    power_mxu, on the mode's K1's log_t and n_walked). CUDA tensors only.
 
     The forward's inputs, grad_raw (3, H, W) = d(loss)/d(raw colour), and
     K1's log_t and n_walked. Returns grad_feat (N, 10), the gradient of
     each Gaussian (columns r g b op mx my ca cb cc; the radius column is
     zero), and grad_bg (3,), as blend.plain_blend_bwd does. K2 adds both
     with atomics, so the sums run in an order that is not fixed."""
-    global K2_LAUNCHES
+    global K2_LAUNCHES, K2_MXU_LAUNCHES
     dev, nx, T = _check_bins(feat, gauss_id, starts, ends, bg, width,
                              height, "K2")
     _check("grad_raw", grad_raw, torch.float32, (3, height, width), dev)
@@ -151,17 +167,20 @@ def blend_bwd(feat: torch.Tensor, gauss_id: torch.Tensor,
     _check("n_walked", n_walked, torch.int32, (height, width), dev)
     grad_feat = torch.zeros_like(feat)
     grad_bg = torch.zeros((3,), dtype=torch.float32, device=dev)
-    lib = _library(BWD_SOURCE, "hugs_blend_bwd", _BWD_ARGS)
+    entry = "hugs_blend_bwd_mxu" if power_mxu else "hugs_blend_bwd"
+    fn = getattr(_library(BWD_SOURCE, entry, _BWD_ARGS), entry)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.hugs_blend_bwd(
-            feat.data_ptr(), gauss_id.data_ptr(), starts.data_ptr(),
-            bg.data_ptr(), log_t.data_ptr(), n_walked.data_ptr(),
-            grad_raw.data_ptr(), width, height, nx, T, grad_feat.data_ptr(),
-            grad_bg.data_ptr(), stream)
+        err = fn(feat.data_ptr(), gauss_id.data_ptr(), starts.data_ptr(),
+                 bg.data_ptr(), log_t.data_ptr(), n_walked.data_ptr(),
+                 grad_raw.data_ptr(), width, height, nx, T,
+                 grad_feat.data_ptr(), grad_bg.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"K2 launch failed: cudaError {err}")
-    K2_LAUNCHES += 1
+    if power_mxu:
+        K2_MXU_LAUNCHES += 1
+    else:
+        K2_LAUNCHES += 1
     return grad_feat, grad_bg
 
 
@@ -243,6 +262,25 @@ def blocks_per_sm() -> dict[str, int]:
     return out
 
 
+def mxu_blocks_per_sm() -> dict[str, dict[str, int]]:
+    """The POWER_MXU mode's K1 and K2: resident blocks per SM on the
+    current card (occupancy calculator) and the dynamic shared memory
+    (bytes: coefficient records and powers) each launch requests."""
+    out = {}
+    for name, source, fn in (("K1", SOURCE,
+                              "hugs_blend_fwd_mxu_blocks_per_sm"),
+                             ("K2", BWD_SOURCE,
+                              "hugs_blend_bwd_mxu_blocks_per_sm")):
+        dynamic = _I32(-1)
+        lib = _library(source, fn, [ctypes.POINTER(_I32)])
+        n = int(getattr(lib, fn)(ctypes.byref(dynamic)))
+        if n < 0:
+            raise RuntimeError(f"{name} in the POWER_MXU mode: occupancy "
+                               f"query failed")
+        out[name] = {"blocks_per_sm": n, "dynamic_smem_bytes": dynamic.value}
+    return out
+
+
 def skeleton_residency() -> dict[str, dict[str, int]]:
     """Each S3 variant's resident blocks per SM as it is launched, and the
     unused dynamic shared memory (bytes) that pins it to K2's count
@@ -261,15 +299,18 @@ def skeleton_residency() -> dict[str, dict[str, int]]:
 
 
 class _BlendFwd(torch.autograd.Function):
-    """K1 forward, K2 backward; differentiable in feat and bg."""
+    """K1 forward, K2 backward, both in the mode power_mxu selects;
+    differentiable in feat and bg."""
 
     @staticmethod
-    def forward(ctx, feat, gauss_id, starts, ends, bg, width, height):
+    def forward(ctx, feat, gauss_id, starts, ends, bg, width, height,
+                power_mxu=False):
         img, log_t, n_walked, _ = blend_fwd(feat, gauss_id, starts, ends, bg,
-                                            width, height)
+                                            width, height, power_mxu)
         ctx.save_for_backward(feat, gauss_id, starts, ends, bg, log_t,
                               n_walked)
         ctx.size = (width, height)
+        ctx.power_mxu = power_mxu
         return img
 
     @staticmethod
@@ -277,29 +318,34 @@ class _BlendFwd(torch.autograd.Function):
         feat, gauss_id, starts, ends, bg, log_t, n_walked = ctx.saved_tensors
         grad_feat, grad_bg = blend_bwd(
             feat, gauss_id, starts, ends, bg, *ctx.size,
-            grad_img.to(torch.float32).contiguous(), log_t, n_walked)
-        return grad_feat, None, None, None, grad_bg, None, None
+            grad_img.to(torch.float32).contiguous(), log_t, n_walked,
+            ctx.power_mxu)
+        return grad_feat, None, None, None, grad_bg, None, None, None
 
 
 def blend_feat(feat: torch.Tensor, gauss_id: torch.Tensor,
                starts: torch.Tensor, ends: torch.Tensor, bg: torch.Tensor,
-               width: int, height: int) -> torch.Tensor:
+               width: int, height: int,
+               power_mxu: bool = False) -> torch.Tensor:
     """Composite all tiles of a feature table (N, 10) in gauss_features'
     layout. Returns (3, H, W) in [0, 1], differentiable in feat and bg.
 
     CUDA tensors go through K1 (and K2 for the gradient), on 16x16 tiles;
-    CPU tensors through the plain blend, with no tile cap."""
+    CPU tensors through the plain blend, with no tile cap; each in the
+    POWER_MXU mode with power_mxu."""
     if feat.device.type == "cpu":
         return clip01(plain_blend(feat, gauss_id, starts, ends, bg, width,
-                                  height)[0])
+                                  height, power_mxu=power_mxu)[0])
     raw = _BlendFwd.apply(feat.contiguous(), gauss_id, starts, ends,
-                          bg.to(torch.float32).contiguous(), width, height)
+                          bg.to(torch.float32).contiguous(), width, height,
+                          power_mxu)
     return clip01(raw)
 
 
 def blend_tiles(pg: ProjectedGaussians, bins: TileBins, width: int,
-                height: int, bg: torch.Tensor) -> torch.Tensor:
+                height: int, bg: torch.Tensor,
+                power_mxu: bool = False) -> torch.Tensor:
     """Composite all tiles of the projected set pg over its bins. Returns
     (3, H, W) in [0, 1] (blend_feat)."""
     return blend_feat(gauss_features(pg), bins.gauss_id, bins.starts,
-                      bins.ends, bg, width, height)
+                      bins.ends, bg, width, height, power_mxu)

@@ -11,7 +11,8 @@ renderer (parallel/gauss_shard.py), which every rank of the mesh calls.
 Backends: 'tiled' (default) bins into 16x16 tiles and blends through
 cuda_blend.blend_tiles, which launches the CUDA kernels for CUDA tensors
 (K1 forward, K2 backward) and runs the plain PyTorch blend under autograd
-for CPU tensors; 'oracle' is the dense
+for CPU tensors, in the POWER_MXU mode where `power_mxu` (default
+cuda_blend.POWER_MXU, from HUGS_POWER_MXU) says so; 'oracle' is the dense
 reference. Inputs may carry an `alive` capacity mask; culled or dead
 Gaussians render with radius 0.
 """
@@ -47,6 +48,7 @@ def render(
     gauss_mesh=None,
     gauss_frag_cap: int | None = None,
     bin_only: bool = False,
+    power_mxu: bool | None = None,
 ) -> dict[str, Any]:
     """Render one view. Returns a dict with 'render' (3, H, W), 'radii'
     (N,), 'visibility_filter' (N,) bool, and the binning diagnostics
@@ -63,7 +65,11 @@ def render(
     budget, max(budget // D, 4096) a rank; gauss_frag_cap bounds one
     (sender, band) packet; the dict adds 'frag_counts' (D, D), and
     'n_instances' and 'n_slots' are 0 (hugs_tpu/render/renderer.py:
-    67-89). Not with bin_only."""
+    67-89). Not with bin_only.
+    power_mxu: the blend kernels' POWER_MXU mode (the exponent on the
+    tensor cores, render/cuda_blend.py); None takes cuda_blend.POWER_MXU.
+    The 'tiled' backend's; the Gaussian-sharded route ignores it, as
+    hugs_tpu's does."""
     dev = means3d.device
     if bg is None:
         bg = torch.zeros(3, dtype=torch.float32, device=dev)
@@ -96,8 +102,9 @@ def render(
     elif backend == "tiled":
         budget = instance_budget or max(4 * means3d.shape[0], 1 << 16)
         bins = bin_gaussians(pg, width, height, budget, TILE)
+        mxu = cuda_blend.POWER_MXU if power_mxu is None else power_mxu
         img = None if bin_only else cuda_blend.blend_tiles(
-            pg, bins, width, height, bg)
+            pg, bins, width, height, bg, bool(mxu))
         overflowed = bins.overflowed
         n_instances = bins.n_instances
         n_slots = bins.n_slots

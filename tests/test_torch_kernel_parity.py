@@ -13,8 +13,13 @@ scripts/kernel_parity_tpu.py, on the CPU.
 - tight_budget's budget is its exact slot demand (every span slot of
   the binning, before the tight cull): it fits, and one slot less
   overflows.
+- The POWER_MXU mode (the script's second half): each scene through the
+  port's render path in the mode (the plain mode on the CPU) against the
+  exact plain blend, at the script's bars: image max |d| < 5e-5,
+  gradients max |d| / max |g| < 5e-4 (kernel_parity_tpu.py:132-133).
 - The entry point on the CPU: one JSON line per case in the script's
-  keys, PASS, exit 0 and the record written; 2 without a card.
+  keys, the four exact cases then the four in the mode, PASS, exit 0 and
+  the record written; 2 without a card.
 """
 import functools
 import json
@@ -85,6 +90,15 @@ def test_scene_matches_jax_tiled(name):
         assert stats["empty_tiles"] > 0
 
 
+@pytest.mark.parametrize("name", list(kp.CASES))
+def test_mode_case_holds_the_scripts_bars(name):
+    c = kp.run_case(name, "cpu", power_mxu=True)
+    assert c["power_mxu"] and not c["overflowed"]
+    assert 0.0 < c["max_abs_dimg"] < kp.IMG_BAR, c["max_abs_dimg"]
+    assert max(c["rel_dgrad"].values()) < kp.GRAD_BAR, c["rel_dgrad"]
+    assert c["ok"]
+
+
 def test_tight_budget_is_the_exact_demand():
     _, _, _, pg, bins, budget = kp.case_bins("tight_budget", "cpu")
     # the demand counts every (Gaussian, tile) span slot before the
@@ -101,11 +115,14 @@ def test_entry_point_on_cpu(tmp_path, capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[-1] == "PASS"
     cases = [json.loads(line) for line in lines[:-1]]
-    assert [c["case"] for c in cases] == list(kp.CASES)
+    assert [c["case"] for c in cases] == 2 * list(kp.CASES)
+    assert [c["power_mxu"] for c in cases] == [False] * 4 + [True] * 4
     for c in cases:
         assert {"case", "W", "H", "n", "n_instances", "max_chunks_per_tile",
-                "max_abs_dimg", "rel_dgrad"} <= set(c)
-        assert c["max_abs_dimg"] == 0.0 and c["ok"]     # plain vs plain
+                "max_abs_dimg", "rel_dgrad", "power_mxu"} <= set(c)
+        assert c["ok"]
+        if not c["power_mxu"]:
+            assert c["max_abs_dimg"] == 0.0         # plain vs plain
     assert json.loads(out.read_text())["pass"] is True
     if not torch.cuda.is_available():
         assert kp.main(["--out", str(out)]) == 2
