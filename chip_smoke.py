@@ -180,9 +180,9 @@ source, all together, then:
      per-Gaussian avatar on 3c's body through K1 at W x H, and at
      EVAL_CPU_WH against the CPU;
   3j. the convergence recipes of hugs_tpu_torch/convergence, cut (after
-     3i): (a) micro/kernel_parity.py's four scenes (multichunk_empty,
-     saturating, tile16, tight_budget) through K1 and K2 against their
-     plain versions, end to end at the script's bars (image 5e-5,
+     3i): (a) micro/kernel_parity.py's scenes (multichunk_empty,
+     saturating, tile16, tight_budget, gather) through K1 and K2 against
+     their plain versions, end to end at the script's bars (image 5e-5,
      gradients 5e-4 relative) and kernel by kernel at K1's and K2's bars;
      (b) human_avatar and joint_scene at full width (512x512, 24 frames)
      through their own functions, the distillation cut to
@@ -203,16 +203,19 @@ source, all together, then:
      frame also against the plain mode in float64), the pixels beyond
      the image bar with each pair at a cutoff (1/255, POW_EPS) and its
      power; (b) the mode against the exact kernels; (c) both modes'
-     device ms in turns (exact, mode, mode, exact), the mode's bound (its
-     float operations over the fp32 peak, its tensor-core flops over the
-     bf16 peak, its bytes) and its float operations over S2's blendmix
-     rate, registers, shared memory and blocks per SM, and the warp
-     cull's drops that reach 1/255 in the mode (none allowed); (d) the
+     device ms in turns (exact, mode, mode, exact) and the mode's one
+     call alone, the mode's bound (its
+     float operations over the fp32 peak, the product's tensor-core flops
+     per kept (warp, instance) pair over the bf16 peak, its bytes) and
+     its float operations over S2's blendmix rate, beside the design's
+     own groups, mma and column fill (micro.mxu_groups), registers,
+     shared memory and blocks per SM, and the warp cull's drops that
+     reach 1/255 in the mode (none allowed); (d) the
      user's path with the mode as render()'s default (cuda_blend.
      POWER_MXU, restored after): phase 3's 4 serving views and
      MXU_STEPS scene_train_step calls of phase 3b's recipe against the
      same steps in the exact mode, the losses within MXU_LOSS_RTOL, the
-     launches counted per mode; (e) micro/kernel_parity.py's four
+     launches counted per mode; (e) micro/kernel_parity.py's five
      scenes in both modes at the script's bars;
   4. times on the card (CUDA events, median of 20 after warm-up): one
      request split into project / bin / blend, one training step split
@@ -426,12 +429,15 @@ OPS_SKEL = 18
 # clamp, exp, opacity product and cap 4, the tests and the distance 7);
 # mxu_record's per staged instance (the grid point and residual 18, the
 # six coefficients 16, the three-way bf16 split 54, the index 2); the
-# tensor-core flops of one (warp, group of 8 slots): 12 m16n8k16 mma; the
-# H100 SXM's dense bf16 tensor-core peak (NVIDIA data sheet), which
-# mma.sync does not reach
+# product's own tensor-core flops per kept (warp, instance) pair: 2 flops
+# x 32 pixels x 6 basis terms x 3 passes, whatever groups, padding and k
+# steps a design runs them in (micro.mxu_groups counts the design's own
+# groups, mma and column fill beside the bound); the H100 SXM's dense
+# bf16 tensor-core peak (NVIDIA data sheet), which mma.sync does not reach
 OPS_TESTED_MXU = 13
 OPS_RECORD = 90
-MXU_GROUP_FLOPS = 12 * 2 * 16 * 8 * 16
+MXU_PAIR_FLOPS = 2 * 32 * 6 * 3
+MMA_FLOPS = 2 * 16 * 8 * 16   # one mma.sync m16n8k16
 PEAK_BF16_TC = 989e12
 MXU_STEPS = 10            # phase 3k (d): scene_train_step calls per mode
 MXU_LOSS_RTOL = 1e-3
@@ -3185,7 +3191,7 @@ def surface_cut(dev, smi):
 
 
 def convergence_recipes(dev, smi):
-    """Phase 3j: (a) micro/kernel_parity.py's four scenes through K1 and
+    """Phase 3j: (a) micro/kernel_parity.py's five scenes through K1 and
     K2 against plain (comparison launches, not counted for a path); (b)
     the human and joint recipes cut (recipe_cut); (c) the surface recipe
     cut (surface_cut). Raises if a check fails; returns the numbers."""
@@ -3270,10 +3276,14 @@ def mxu_work(feat, b, width, height, pairs, n_walked, cull, work):
     """What K1 and K2 in the POWER_MXU mode must do for one frame: the
     float operations left (OPS_TESTED_MXU per kept pair, the cull, the
     blended pairs as blend_work counts them, OPS_RECORD per staged
-    instance), the tensor-core flops of the groups they run, and the
-    exact kernels' bytes (blend_work's). Returns {"k1" / "k2": {"ops",
-    "tc_flops", "bytes", "ops_ms", "tc_ms", "bytes_ms", "bound_ms",
-    "bound_by"}}."""
+    instance), the product's tensor-core flops (MXU_PAIR_FLOPS per kept
+    (warp, instance) pair within the warp's walk, both kernels), and the
+    exact kernels' bytes (blend_work's). Beside the bound, not in it, the
+    design's own products (micro.mxu_groups): its groups, the mma they
+    issue, the share of their columns filled and of groups that one k step
+    would cover. Returns {"k1" / "k2": {"ops", "tc_flops", "bytes", "ops_ms",
+    "tc_ms", "bytes_ms", "bound_ms", "bound_by", "groups", "mma",
+    "fill", "one_step"}}."""
     from hugs_tpu_torch.micro import mxu_groups
     tested, blended = (int(x) for x in pairs.sum(dim=(1, 2)))
     groups = mxu_groups(feat, b, n_walked, width, height)
@@ -3285,15 +3295,18 @@ def mxu_work(feat, b, width, height, pairs, n_walked, cull, work):
             ("k2", OPS_TESTED_MXU * kept + OPS_CULL * cull["K2"]
              + OPS_WARP_SUM * cull["K2_kept"] + OPS_BWD_BLENDED * blended
              + OPS_RECORD * groups["K2_staged"])):
-        tc = MXU_GROUP_FLOPS * groups[k.upper()]
+        tc = MXU_PAIR_FLOPS * cull["K2_kept"]
         nbytes = work[k][2]
         ms = {"ops_ms": ops / PEAK_FP32 * 1e3, "tc_ms": tc / PEAK_BF16_TC
               * 1e3, "bytes_ms": nbytes / PEAK_BYTES * 1e3}
         by = max(ms, key=ms.get)
+        K = k.upper()
         out[k] = {"ops": ops, "tc_flops": tc, "bytes": nbytes,
-                  "groups": groups[k.upper()], **ms, "bound_ms": ms[by],
+                  "kept": cull["K2_kept"], **ms, "bound_ms": ms[by],
                   "bound_by": "bytes" if by == "bytes_ms" else "operations",
-                  "bound_term": by}
+                  "bound_term": by, "groups": groups[K],
+                  "mma": groups[K + "_mma"], "fill": groups[K + "_fill"],
+                  "one_step": groups[K + "_one_step"]}
     return out
 
 
@@ -3310,7 +3323,7 @@ def power_mxu_phase(dev, smi, ctx, blendmix_rate):
     POWER_MXU, restored after): phase 3's 4 serving views through
     render_human_scene and MXU_STEPS scene_train_step calls of phase 3b's
     recipe against the same steps in the exact mode, the launches counted
-    per mode; (e) micro/kernel_parity.py's four scenes in both modes.
+    per mode; (e) micro/kernel_parity.py's five scenes in both modes.
     Raises if a check fails; returns the numbers."""
     from hugs_tpu_torch import build
     from hugs_tpu_torch.micro import kernel_parity, mxu_cull_misses
@@ -3388,6 +3401,8 @@ def power_mxu_phase(dev, smi, ctx, blendmix_rate):
                   for f in (exact_fn, mode_fn, mode_fn, exact_fn)]
             rec[k + "_exact_ms"] = [ms[0], ms[3]]
             rec[k + "_mxu_ms"] = [ms[1], ms[2]]
+            # one call alone, the wrapper's host cost included
+            rec[k + "_mxu_call_ms"] = device_ms(mode_fn)
         rec["plain_mxu_ms"] = device_ms(
             lambda: plain_blend(*args, power_mxu=True), reps=5, warmup=1)
         rec["plain_bwd_mxu_ms"] = device_ms(
@@ -3405,17 +3420,23 @@ def power_mxu_phase(dev, smi, ctx, blendmix_rate):
                   f"{rec[k + '_exact_ms'][0]:.4f} / "
                   f"{rec[k + '_exact_ms'][1]:.4f} ms, mode "
                   f"{rec[k + '_mxu_ms'][0]:.4f} / {rec[k + '_mxu_ms'][1]:.4f}"
-                  f" ms ({(mode_ms / exact_ms - 1) * 100:+.1f}%); the mode's "
+                  f" ms ({(mode_ms / exact_ms - 1) * 100:+.1f}%), one call "
+                  f"{rec[k + '_mxu_call_ms']:.4f} ms; the mode's "
                   f"bound: {bd['ops']:.4e} float ops / 67 TFLOP/s = "
-                  f"{bd['ops_ms']:.5f} ms, {bd['groups']} (warp, group) x 12"
-                  f" mma = {bd['tc_flops']:.4e} tensor-core flops / 989 "
-                  f"TFLOP/s = {bd['tc_ms']:.5f} ms, {bd['bytes']} bytes = "
+                  f"{bd['ops_ms']:.5f} ms, {bd['kept']} kept (warp, "
+                  f"instance) x {MXU_PAIR_FLOPS} = {bd['tc_flops']:.4e} "
+                  f"tensor-core flops / 989 TFLOP/s = {bd['tc_ms']:.5f} ms, "
+                  f"{bd['bytes']} bytes = "
                   f"{bd['bytes_ms']:.5f} ms, so {bd['bound_ms']:.5f} ms by "
                   f"{bd['bound_term']} ({bd['bound_ms'] / mode_ms * 100:.1f}% "
                   f"of its time); float ops at S2's blendmix rate "
                   f"{bd['at_s2_ms']:.5f} ms "
-                  f"({bd['at_s2_ms'] / mode_ms * 100:.1f}% of its time)"
-                  f"  [{smi}]")
+                  f"({bd['at_s2_ms'] / mode_ms * 100:.1f}% of its time); the"
+                  f" design's products: {bd['groups']} groups, {bd['mma']} "
+                  f"mma ({bd['mma'] * MMA_FLOPS / bd['tc_flops']:.2f}x the "
+                  f"product's flops), {bd['fill'] * 100:.1f}% of columns "
+                  f"filled, {bd['one_step'] * 100:.1f}% of groups within one"
+                  f" row of grid points  [{smi}]")
         print(f"# phase 3k (c) {frame}: plain mode {rec['plain_mxu_ms']:.4f}"
               f" ms, its backward {rec['plain_bwd_mxu_ms']:.4f} ms")
         rec["cull"] = mxu_cull_misses(feat, b, nw_m, W, H)
@@ -4629,6 +4650,7 @@ def main():
             *(c[k.lower()]["max_abs"] for c in mxu_parity)),
         "frame": f"{frame} (phases 2, 3b)",
         "ms": statistics.median(mxf[frame][k.lower() + "_mxu_ms"]),
+        "call_ms": mxf[frame][k.lower() + "_mxu_call_ms"],
         "exact_ms_same_call": statistics.median(
             mxf[frame][k.lower() + "_exact_ms"]),
         "plain_ms": mxf[frame]["plain_mxu_ms" if k == "K1"
@@ -4637,7 +4659,8 @@ def main():
         "bound_by": mxf[frame][k.lower() + "_bound"]["bound_by"],
         "library_ms": None,
         "frames": {f: {key: r[key] for key in (
-            k.lower() + "_mxu_ms", k.lower() + "_exact_ms",
+            k.lower() + "_mxu_ms", k.lower() + "_mxu_call_ms",
+            k.lower() + "_exact_ms",
             k.lower() + "_bound", k.lower() + "_max_abs", "pixels_beyond",
             "pixels_at_cutoff", "vs_exact_max_abs", "vs_exact_share",
             "cull")} for f, r in mxf.items()},

@@ -80,15 +80,27 @@
 //
 // The POWER_MXU mode (blend_bwd_mxu_kernel, hugs_blend_bwd_mxu; the TPU
 // kernel's `basis` at pallas_blend.py:499 and its alpha at :589) is
-// bwd_tile<kMxu>: the alpha of a pair comes from K1's mode's routine
-// (mxu_powers on the same aligned groups of 8 slots, so both kernels
-// agree on every alpha), and the gradient math is the exact mode's
+// bwd_tile<kMxu>: each warp compacts the slots its mask keeps into its
+// list, back to front, and each 8 of them form a group, as the exact
+// mode's cursor pops them: one product on the tensor cores (K1's
+// mxu_product), the group's rows (mxu_group_row), and one group of the
+// reduce-scatter (group_sums), whose leaves read their column's power
+// and row at fixed offsets. A pair's power does not depend on its group
+// (blend_common.cuh), so K2's alphas are K1's though the two group the
+// kept instances differently. The gradient math is the exact mode's
 // (pallas_blend.py:603-613: d power = d_alpha alpha wherever the pair is
-// live and unclamped, the moments from the exact dx, dy). Each group's
-// kept instances form one group of the reduce-scatter. The mode adds
-// 15,360 B of dynamic shared memory (6,144 B of records for a batch of
-// 128, 9,216 B of powers), past 48 KB with the static 42,752 B, which
-// the launch opts into.
+// live and unclamped, the moments from the exact dx, dy). Measured
+// against the alternatives as K1's mode was (blend_fwd.cu; PERF.md,
+// section 6): groups of kept instances -1.5 % on the training frame, -14 %
+// serving; the group's rows -9 % and -10 %; left out, each slower or
+// within the noise: the k-step vote, the next group's product over this
+// group's sums (64 B of spills at 3 blocks per SM, +5 %), two buffers,
+// split accumulators and a shared table of A fragments (its 16 KB leave
+// 2 blocks per SM, +5 %). The mode adds 20,544 B of dynamic shared
+// memory (8,256 B of records with the zero record, 9,216 B of powers,
+// 2,048 B of rows, 1,024 B of lists), past 48 KB with the static 42,752
+// B, which the launch opts into; held to K2's 3 blocks per SM by its
+// launch bounds (80 registers).
 //
 // S3, K2's skeleton: the tile's work is one template, `bwd_tile`, on a
 // variant. K2 is the `kFull` instantiation (blend_bwd_kernel); the others
@@ -177,20 +189,30 @@ struct Cursor {
   }
 };
 
+// One group of the POWER_MXU mode: the rows (mxu_group_row) and powers
+// of its kGroupN columns; column c's slot is rows[c][1].w, -1 past the
+// group's end.
+struct MxuGroup {
+  const float4 (*rows)[2];
+  const float (*power)[kPowStride];
+};
+
 // The nine sums of one pair: instance row f at the pixel p, whose walk
 // reaches it if `live`. Advances the pixel's compensated sums. kMxuAlpha:
-// the alpha from the POWER_MXU mode's `power` (the gradient math is the
-// exact mode's, pallas_blend.py:589-613).
+// the instance's group row `row` in place of f and the alpha from the
+// POWER_MXU mode's `power` (the gradient math is the exact mode's,
+// pallas_blend.py:589-613).
 template <bool kMxuAlpha>
 __device__ __forceinline__ void pair_grad(Pixel& p, const float* f, bool live,
-                                          float power, float d[kGrad]) {
+                                          float power, float d[kGrad],
+                                          const float4* row = nullptr) {
 #pragma unroll
   for (int k = 0; k < kGrad; ++k) d[k] = 0.0f;
   if (!live) return;
   float dx, dy;
   float alpha;
   if constexpr (kMxuAlpha) {
-    alpha = pair_alpha_mxu(power, f[3], f[4], f[5], f[9], p.px, p.py, dx, dy);
+    alpha = pair_alpha_mxu(power, row[0], p.px, p.py, dx, dy);
   } else {
     alpha = pair_alpha(f[3], f[4], f[5], f[6], f[7], f[8], f[9], p.px, p.py,
                        dx, dy);
@@ -201,7 +223,12 @@ __device__ __forceinline__ void pair_grad(Pixel& p, const float* f, bool live,
   const float pre = (p.log_t - p.suf_log) - la_c;
   const float ti = pre >= kLogTEps ? expf(pre) : 0.0f;
   const float w = alpha * ti;
-  const float gc = p.g0 * f[0] + p.g1 * f[1] + p.g2 * f[2];
+  float gc;
+  if constexpr (kMxuAlpha) {
+    gc = p.g0 * row[1].x + p.g1 * row[1].y + p.g2 * row[1].z;
+  } else {
+    gc = p.g0 * f[0] + p.g1 * f[1] + p.g2 * f[2];
+  }
   const float d_alpha =
       gc * ti - (p.s_acc - p.s_c) / fmaxf(1.0f - alpha, 1e-6f);
   const float suf_new = p.suf_log + la_c;
@@ -236,30 +263,32 @@ __device__ __forceinline__ void pair_skel(const Pixel& p, const float* f,
 // group ran out), the sum of the partials of the 2^L lanes whose index
 // differs from this lane's only in bits 4 down to 5 - L; lane bits 4 ..
 // 5 - L pick the instance. Instances are computed back to front, and each
-// stage runs as soon as both of its halves are computed. kMxu: the
-// instances' powers at this lane's pixel are power[j][lane].
-template <int L, int V>
-__device__ __forceinline__ void group_sums(Pixel& p, Cursor& cur,
+// stage runs as soon as both of its halves are computed. kMxu: `cur` is
+// the group (MxuGroup), its instances its columns C, C + 1, ... in turn.
+template <int L, int V, int C = 0, typename Cur = Cursor>
+__device__ __forceinline__ void group_sums(Pixel& p, Cur& cur,
                                            float (*rows)[kFeat], int b0,
                                            int lane, float out[kGrad],
-                                           int& j,
-                                           const float (*power)[kPowStride]) {
-  if constexpr (L == 0) {
+                                           int& j) {
+  if constexpr (L == 0 && V == kMxu) {
+    j = __float_as_int(cur.rows[C][1].w);
+    pair_grad<true>(p, nullptr, j >= 0 && b0 + j < p.n_walk,
+                    cur.power[C][lane], out, cur.rows[C]);
+  } else if constexpr (L == 0) {
     j = cur.pop();
     const float* f = rows[j < 0 ? 0 : j];
     const bool live = j >= 0 && b0 + j < p.n_walk;
     if constexpr (V == kFull) {
       pair_grad<false>(p, f, live, 0.0f, out);
-    } else if constexpr (V == kMxu) {
-      pair_grad<true>(p, f, live, power[j < 0 ? 0 : j][lane], out);
     } else {
       pair_skel(p, f, live, out);
     }
   } else {
     float a[kGrad], b[kGrad];
     int ja, jb;
-    group_sums<L - 1, V>(p, cur, rows, b0, lane, a, ja, power);
-    group_sums<L - 1, V>(p, cur, rows, b0, lane, b, jb, power);
+    group_sums<L - 1, V, C, Cur>(p, cur, rows, b0, lane, a, ja);
+    group_sums<L - 1, V, C + (1 << (L - 1)), Cur>(p, cur, rows, b0, lane, b,
+                                                  jb);
     constexpr int off = 32 >> L;
     const bool upper = (lane & off) != 0;
 #pragma unroll
@@ -305,8 +334,11 @@ __device__ __forceinline__ void bwd_tile(const float* __restrict__ feat,
   const int py_i = ty0 + tid / kTile;
   const bool inside = px_i < width && py_i < height;
   const int start = starts[t];
-  uint32_t basis[2][2][4];  // kMxu's A fragments
-  if constexpr (V == kMxu) mxu_basis(warp, lane, basis);
+  uint4 basis[2][2];  // kMxu's A fragments
+  if constexpr (V == kMxu) {
+    mxu_basis(warp, lane, basis);
+    if (tid < kCofStride) mx->cof[kBatch][tid] = 0u;  // the zero record
+  }
 
   // per-pixel setup: g, K1's final log T and walked count; the sums start
   // from the background's term
@@ -394,22 +426,35 @@ __device__ __forceinline__ void bwd_tile(const float* __restrict__ feat,
     __syncwarp();
 
     if constexpr (V == kMxu) {
-      // the batch's aligned groups of 8 slots, back to front; each group's
-      // kept instances are one group of the reduce-scatter
+      // the warp's kept instances, back to front
+      uint8_t* list = mx->list[warp];
+      int cnt = 0;
+#pragma unroll
+      for (int w = kWords - 1; w >= 0; --w) {
+        const unsigned m = s_mask[warp][w];
+        if ((m >> lane) & 1u) {
+          list[cnt + __popc(m & (0xfffffffeu << lane))] = 32 * w + lane;
+        }
+        cnt += __popc(m);
+      }
+      __syncwarp();
+      // groups of kGroupN kept instances, each one group of the
+      // reduce-scatter: a group's product and rows, then its sums
+      MxuGroup cur{mx->rows[warp], mx->power[warp]};
 #pragma unroll 1
-      for (int q = kBatch / kGroupN - 1; q >= 0; --q) {
-        const unsigned group =
-            (s_mask[warp][q / (32 / kGroupN)] >> (kGroupN * (q % (32 / kGroupN)))) &
-            ((1u << kGroupN) - 1u);
-        if (group == 0u) continue;
-        mxu_powers(basis, mx->cof + kGroupN * q, lane, mx->power[warp]);
+      for (int c0 = 0; c0 < cnt; c0 += kGroupN) {
+        const int c = c0 + (lane >> 2);
+        const bool valid = c < cnt;
+        const int slot = valid ? list[c] : 0;
+        float d[2][4];
+        mxu_product(basis, mx->cof, valid ? slot : kBatch, lane, d);
+        // the rows' loads run while the product's chain completes
+        mxu_group_row(s_feat[slot], slot, valid, lane, mx->rows[warp]);
+        mxu_store(d, lane, mx->power[warp]);
         __syncwarp();
-        Cursor cur{nullptr, 0, group};
         float r[kGrad];
         int j;
-        group_sums<kGroupLog, V>(p, cur, s_feat + kGroupN * q,
-                                 b0 + kGroupN * q, lane, r, j,
-                                 mx->power[warp]);
+        group_sums<kGroupLog, V>(p, cur, s_feat, b0, lane, r, j);
 #pragma unroll
         for (int off = 16 >> kGroupLog; off > 0; off >>= 1) {
 #pragma unroll
@@ -417,9 +462,9 @@ __device__ __forceinline__ void bwd_tile(const float* __restrict__ feat,
         }
         if ((lane & (32 / kGroup - 1)) == 0 && j >= 0) {
 #pragma unroll
-          for (int k = 0; k < kGrad; ++k) s_part[warp][kGroupN * q + j][k] = r[k];
+          for (int k = 0; k < kGrad; ++k) s_part[warp][j][k] = r[k];
         }
-        __syncwarp();  // the group's readers before the next one's mma
+        __syncwarp();  // the group's readers before the next one's writers
       }
     }
     Cursor cur{s_mask[warp], kWords, 0u};
@@ -436,7 +481,7 @@ __device__ __forceinline__ void bwd_tile(const float* __restrict__ feat,
     while (cur.more()) {
       float r[kGrad];
       int j;
-      group_sums<kGroupLog, V>(p, cur, s_feat, b0, lane, r, j, nullptr);
+      group_sums<kGroupLog, V>(p, cur, s_feat, b0, lane, r, j);
 #pragma unroll
       for (int off = 16 >> kGroupLog; off > 0; off >>= 1) {
 #pragma unroll
@@ -518,9 +563,9 @@ blend_bwd_kernel(const float* __restrict__ feat,
                   width, height, nx, grad_feat, grad_bg, nullptr);
 }
 
-// K2 in the POWER_MXU mode: the mode's shared memory is dynamic. Left
-// to itself ptxas gives it 97 registers, 2 blocks per SM; held to K2's 3
-// blocks it takes 80 and spills 4 bytes (times of both: PERF.md).
+// K2 in the POWER_MXU mode: the mode's shared memory is dynamic. Held to
+// K2's 3 blocks per SM by its launch bounds (80 registers; unbounded,
+// ptxas takes more and leaves 2 blocks, PERF.md).
 __global__ void __launch_bounds__(kThreads, 3)
 blend_bwd_mxu_kernel(const float* __restrict__ feat,
                      const int* __restrict__ gauss_id,

@@ -105,30 +105,40 @@ __device__ __forceinline__ bool warp_keep(const float* f, int tx0, int ty0,
 // bh c3, chained through the accumulator in that order. K = 32: each
 // grid point g takes rows 8 g .. 8 g + 7 (six terms and two zero rows),
 // the TPU's rows 6 g .. 6 g + 5 padded from 24 to 32 in another order:
-// the same products, summed inside one mma in the hardware's order. 75 %
-// of B is structurally zero (one grid point's rows of four). K1 and K2
-// call mxu_powers on the same aligned groups of 8 slots of a tile's
-// list, with the same fragments, k order and pass order, so a pair's
-// power, and its alpha, are bit-identical in the two kernels.
+// the same products, summed inside one mma in the hardware's order. k
+// step ks covers the grid points 2 ks and 2 ks + 1.
 //
-// Per (warp, group of 8 slots): 12 mma (2 pixel rows x 3 passes x 2 k
-// steps), 12 x 4,096 = 49,152 tensor-core flops for 256 pairs.
+// A group is the next kGroupN instances that a warp's cull keeps, in the
+// order its kernel walks them (K1 front to back, K2 back to front): the
+// columns of one product. Each column of an mma is its own dot product
+// over the same A rows, and the k step that does not hold an instance's
+// grid point adds exact zeros to its column, so a pair's power does not
+// depend on its column or on the other instances of its group: K1 and K2
+// group their kept instances differently and still agree on every alpha,
+// bit for bit. Per (warp, group): 12 mma (2 pixel rows x 3 passes x 2 k
+// steps), 4,096 tensor-core flops each.
 constexpr int kGridSp = 8;                 // grid spacing (pixels)
 constexpr int kGridN = kTile / kGridSp;    // grid points a side
 constexpr float kPowEps = 1e-4f;           // the mode's `power <= 0` guard
 constexpr int kGroupN = 8;                 // instances per mma (n8)
-constexpr int kCofStride = 12;  // words per instance record: 3 passes x 3
-                                // bf16 pairs, the grid point, 2 pad words
+constexpr int kCofStride = 16;  // words per instance record: for each
+                                // lane t of a column, its bf16 pair of
+                                // the three passes and the grid point
+                                // (one 16-byte load; t = 3 loads zeros)
 constexpr int kPowStride = 36;  // floats per instance row of powers: the
                                 // warp's 32 pixels and 4 pad (no bank
                                 // conflicts on the fragment's stores)
 
 // The mode's shared memory for a batch of B instances: each instance's
-// coefficient record, and per warp one group's powers.
+// coefficient record and, past them, a record of zeros (a group's
+// columns past its end); per warp its list of kept slots, and its
+// group's powers and rows (mxu_group_row).
 template <int B>
 struct MxuShared {
-  uint32_t cof[B][kCofStride];
+  uint32_t cof[B + 1][kCofStride];
   float power[kWarps][kGroupN][kPowStride];
+  float4 rows[kWarps][kGroupN][2];
+  uint8_t list[kWarps][B];
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -142,8 +152,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // The coefficient record of the instance with feature row f in the tile
 // whose top-left pixel is (tx0, ty0), in the operation order of
 // pallas_blend.py:162-177 (and of render/blend.py::mxu_coefficients,
-// under -fmad=false): rec[3 p + t] packs pass p's terms 2 t and 2 t + 1
-// (p = 0, 1, 2 for c1, c2, c3), rec[9] the grid point.
+// under -fmad=false): rec[4 t + p] packs pass p's terms 2 t and 2 t + 1
+// (p = 0, 1, 2 for c1, c2, c3; t = 0, 1, 2) and rec[4 t + 3] the grid
+// point; rec[12 .. 14] are zero (terms 6 and 7), rec[15] the grid point.
 __device__ __forceinline__ void mxu_record(const float* f, float tx0,
                                            float ty0, uint32_t* rec) {
   const float ca = f[6], cb = f[7], cc = f[8];
@@ -161,6 +172,8 @@ __device__ __forceinline__ void mxu_record(const float* f, float tx0,
                 -0.5f * ca,
                 -0.5f * cc,
                 -cb};
+  const uint32_t grid =
+      static_cast<uint32_t>(static_cast<int>(gy * kGridN + gx));
 #pragma unroll
   for (int p = 0; p < 3; ++p) {
     float term[6];
@@ -170,10 +183,12 @@ __device__ __forceinline__ void mxu_record(const float* f, float tx0,
       c[k] = c[k] - term[k];  // the remainder the next pass splits
     }
 #pragma unroll
-    for (int t = 0; t < 3; ++t) rec[3 * p + t] = pack_bf16(term[2 * t],
+    for (int t = 0; t < 3; ++t) rec[4 * t + p] = pack_bf16(term[2 * t],
                                                            term[2 * t + 1]);
   }
-  rec[9] = static_cast<uint32_t>(static_cast<int>(gy * kGridN + gx));
+#pragma unroll
+  for (int t = 0; t < 4; ++t) rec[4 * t + 3] = grid;
+  rec[12] = rec[13] = rec[14] = 0u;
 }
 
 // Term s of the basis [1, u, v, u^2, v^2, uv] (0 for s = 6, 7).
@@ -190,17 +205,18 @@ __device__ __forceinline__ float basis_term(int s, float u, float v) {
 // This lane's A fragments (basis) for the warp's 32 pixels: warp w holds
 // tile-local pixel rows y = 2 w + mt (mt = 0, 1), its lanes 16 mt .. 16
 // mt + 15 the columns x = 0 .. 15, which are the rows of m-tile mt.
-// a[mt][ks][r] is register r of the m16n8k16 A fragment of k step ks:
-// rows x = lane / 4 + 8 (r & 1), columns 16 ks + 8 (r >> 1) + 2 (lane %
-// 4) + {0, 1}, i.e. grid point 2 ks + (r >> 1) and terms 2 (lane % 4) +
-// {0, 1}.
+// a[mt][ks] is the m16n8k16 A fragment of k step ks, its register r rows
+// x = lane / 4 + 8 (r & 1), columns 16 ks + 8 (r >> 1) + 2 (lane % 4) +
+// {0, 1}, i.e. grid point 2 ks + (r >> 1) and terms 2 (lane % 4) + {0,
+// 1}.
 __device__ __forceinline__ void mxu_basis(int warp, int lane,
-                                          uint32_t a[2][2][4]) {
+                                          uint4 a[2][2]) {
   const int tig = lane & 3;
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
     for (int ks = 0; ks < 2; ++ks) {
+      uint32_t r4[4];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int g = 2 * ks + (r >> 1);
@@ -210,70 +226,114 @@ __device__ __forceinline__ void mxu_basis(int warp, int lane,
         const float v = static_cast<float>(kWarpRows * warp + mt -
                                            (kGridSp * (g / kGridN) +
                                             kGridSp / 2));
-        a[mt][ks][r] = pack_bf16(basis_term(2 * tig, u, v),
-                                 basis_term(2 * tig + 1, u, v));
+        r4[r] = pack_bf16(basis_term(2 * tig, u, v),
+                          basis_term(2 * tig + 1, u, v));
       }
+      a[mt][ks] = make_uint4(r4[0], r4[1], r4[2], r4[3]);
     }
   }
 }
 
-__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
+__device__ __forceinline__ void mma_bf16(float d[4], const uint4& a,
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
 }
 
-// The powers of the 8 instances whose records are cof[0 .. 7] at the
-// warp's 32 pixels, into out[j][pixel lane]. Every lane of the warp calls
-// it together (mma.sync), and the caller syncs the warp before it reads
-// out. Lane (n = lane / 4, t = lane % 4) builds B's column n from record
-// n: pass p's bf16 pair t where the instance's grid point is 2 ks + rb,
-// zero elsewhere (and for t = 3, terms 6 and 7).
-__device__ __forceinline__ void mxu_powers(const uint32_t a[2][2][4],
-                                           const uint32_t (*cof)[kCofStride],
-                                           int lane,
-                                           float (*out)[kPowStride]) {
-  const int n = lane >> 2, t = lane & 3;
-  const uint32_t* rec = cof[n];
-  const int g = static_cast<int>(rec[9]);
-  uint32_t w[3];
-#pragma unroll
-  for (int p = 0; p < 3; ++p) w[p] = t < 3 ? rec[3 * p + t] : 0u;
+// One group's powers at the warp's 32 pixels, into the accumulator
+// fragments d of both pixel rows (mxu_store writes them out). Every lane
+// of the warp calls it together (mma.sync). Lane (n = lane / 4, t = lane
+// % 4) builds B's column n from the record of slot `slot` (the zero
+// record past the group's end): pass p's bf16 pair t where the
+// instance's grid point is 2 ks + rb, zero elsewhere; each pixel row's
+// accumulator runs the passes in turn, both k steps each.
+__device__ __forceinline__ void mxu_product(const uint4 a[2][2],
+                                            const uint32_t (*cof)[kCofStride],
+                                            int slot, int lane,
+                                            float d[2][4]) {
+  const uint4 rec =
+      *reinterpret_cast<const uint4*>(&cof[slot][4 * (lane & 3)]);
+  const uint32_t w[3] = {rec.x, rec.y, rec.z};
+  const int g = static_cast<int>(rec.w);
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
-    float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-    for (int p = 0; p < 3; ++p) {
+    for (int i = 0; i < 4; ++i) d[mt][i] = 0.0f;
+  }
 #pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        mma_bf16(d, a[mt][ks], g == 2 * ks ? w[p] : 0u,
-                 g == 2 * ks + 1 ? w[p] : 0u);
-      }
+  for (int p = 0; p < 3; ++p) {
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const uint32_t b0 = g == 2 * ks ? w[p] : 0u;
+      const uint32_t b1 = g == 2 * ks + 1 ? w[p] : 0u;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) mma_bf16(d[mt], a[mt][ks], b0, b1);
     }
-    // d: rows x = n, n + 8 of pixel row mt, columns (instances) 2 t, 2 t + 1
-    out[2 * t][16 * mt + n] = d[0];
-    out[2 * t + 1][16 * mt + n] = d[1];
-    out[2 * t][16 * mt + n + 8] = d[2];
-    out[2 * t + 1][16 * mt + n + 8] = d[3];
   }
 }
 
-// pair_alpha in the mode, from the pair's power off the tensor cores:
-// alpha = min(0.99, op * exp(min(power, 0))), zero unless power <=
-// kPowEps, alpha >= 1/255 and dist^2 <= rad^2 (pallas_blend.py:279-313).
-// Also returns dx = mx - px and dy = my - py.
-__device__ __forceinline__ float pair_alpha_mxu(float power, float op,
-                                                float mx, float my,
-                                                float rad, float px, float py,
+// Writes mxu_product's accumulators to out[column][pixel lane]; the
+// caller syncs the warp before another lane reads them.
+__device__ __forceinline__ void mxu_store(const float d[2][4], int lane,
+                                          float (*out)[kPowStride]) {
+  const int n = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    // d: rows x = n, n + 8 of pixel row mt, columns (instances) 2 t, 2 t + 1
+    out[2 * t][16 * mt + n] = d[mt][0];
+    out[2 * t + 1][16 * mt + n] = d[mt][1];
+    out[2 * t][16 * mt + n + 8] = d[mt][2];
+    out[2 * t + 1][16 * mt + n + 8] = d[mt][3];
+  }
+}
+
+// The row of the group's column lane / 4 that the walk reads in place of
+// the instance's feature row f (slot `slot` of the batch): rows[0] = (op,
+// mx, my, rad^2), rows[1] = (r, g, b, slot); the column's four lanes
+// write it together, lane t floats 2 t and 2 t + 1. A column past the
+// group's end (valid false) gets opacity 0, so its alpha is 0 at every
+// pixel, and slot -1.
+__device__ __forceinline__ void mxu_group_row(const float* f, int slot,
+                                              bool valid, int lane,
+                                              float4 (*rows)[2]) {
+  const int t = lane & 3;
+  float lo, hi;
+  if (t == 0) {
+    lo = f[3];
+    hi = f[4];
+  } else if (t == 1) {
+    lo = f[5];
+    hi = f[9] * f[9];
+  } else if (t == 2) {
+    lo = f[0];
+    hi = f[1];
+  } else {
+    lo = f[2];
+    hi = __int_as_float(slot);
+  }
+  if (!valid) {
+    lo = 0.0f;
+    hi = t == 3 ? __int_as_float(-1) : 0.0f;
+  }
+  reinterpret_cast<float2*>(rows[lane >> 2])[t] = make_float2(lo, hi);
+}
+
+// pair_alpha in the mode, from the pair's power off the tensor cores and
+// the instance's group row r = (op, mx, my, rad^2): alpha = min(0.99, op
+// * exp(min(power, 0))), zero unless power <= kPowEps, alpha >= 1/255
+// and dist^2 <= rad^2 (pallas_blend.py:279-313). Also returns dx = mx -
+// px and dy = my - py.
+__device__ __forceinline__ float pair_alpha_mxu(float power, float4 r,
+                                                float px, float py,
                                                 float& dx, float& dy) {
-  dx = mx - px;
-  dy = my - py;
-  const float alpha = fminf(kMaxAlpha, op * expf(fminf(power, 0.0f)));
+  dx = r.y - px;
+  dy = r.z - py;
+  const float alpha = fminf(kMaxAlpha, r.x * expf(fminf(power, 0.0f)));
   const bool keep = power <= kPowEps && alpha >= kMinAlpha &&
-                    dx * dx + dy * dy <= rad * rad;
+                    dx * dx + dy * dy <= r.w;
   return keep ? alpha : 0.0f;
 }
 

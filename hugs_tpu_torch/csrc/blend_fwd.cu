@@ -51,15 +51,35 @@
 //
 // The POWER_MXU mode (blend_fwd_mxu_kernel, hugs_blend_fwd_mxu) is the
 // TPU kernel's second mode (`basis` at pallas_blend.py:365, its alpha at
-// :428): the staging thread also writes each instance's coefficient
-// record (mxu_record, blend_common.cuh), 48 B, and for each aligned group
-// of 8 slots of a window with a kept instance the warp runs mxu_powers
-// (12 mma.sync on the tensor cores) into its row of powers in shared
-// memory; the walk reads each pair's power from there and the alpha test
-// takes 13 float operations instead of 22. The mode adds 21,504 B of
-// dynamic shared memory (12,288 B of records for the 256 instances of a
-// batch, 9,216 B of powers), which leaves it at 4 blocks per SM, set by
-// its 64 registers (the exact mode 5). Bound on the H100: its remaining
+// :428). The staging thread also writes each instance's coefficient
+// record (mxu_record, blend_common.cuh). Each warp culls the whole batch
+// and compacts the slots it keeps into its list; each 8 of them in list
+// order are a group. Per group, one product on the tensor cores
+// (mxu_product, 12 mma.sync) gives the powers at the warp's 32 pixels;
+// while its chain completes, each column's four lanes copy what the walk
+// needs of its instance into the group's rows (mxu_group_row: opacity,
+// mean, squared radius, colour, slot; past the list's end a row of
+// opacity 0); then the powers go to shared memory (mxu_store). The walk
+// reads both at fixed offsets, with no index and no end test per pair,
+// and its alpha test takes 13 float operations where the exact mode
+// takes 22. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// against the alternatives, in one process each (PERF.md, section 6):
+// - groups of 8 kept instances, not aligned groups of 8 slots (which ran
+//   88 % full on the training frame, 59 % serving): -5 % and -12 %;
+// - the group's rows, one 16-byte load a pair in place of an index, an
+//   address and four loads: -11 % and -10 %, the largest gain;
+// - left out, each slower or within the noise: a warp-uniform vote that
+//   skips the k step no instance of a group uses (1 % of the training
+//   frame's groups lie in one row of grid points, 13 % serving); the
+//   next group's product issued before this group's walk (its
+//   accumulators live through the walk: 78 registers, 3 blocks per SM,
+//   +3 %); two groups' powers in two buffers with one warp sync a group;
+//   the k steps in separate accumulators; the A fragments in a shared
+//   table (16 KB a block, +5 %).
+// The mode adds 29,760 B of dynamic shared memory (16,448 B of records,
+// the zero record past the batch's 256 among them, 9,216 B of powers,
+// 2,048 B of rows and 2,048 B of lists) and runs at 4 blocks per SM, set
+// by its registers (the exact mode 5). Bound on the H100: its remaining
 // float operations; the tensor-core flops bound it less (PERF.md). The
 // exact mode's code is unchanged (fwd_tile<false>).
 
@@ -106,8 +126,11 @@ __device__ __forceinline__ void fwd_tile(const float* __restrict__ feat,
   bool done = !inside;  // pixels outside the image never hold the block
   int walked = 0;
   int n_walked = 0;  // this pixel's instances, up to its saturating one
-  uint32_t basis[2][2][4];  // the mode's A fragments
-  if constexpr (kMxu) mxu_basis(warp, lane, basis);
+  uint4 basis[2][2];  // the mode's A fragments
+  if constexpr (kMxu) {
+    mxu_basis(warp, lane, basis);
+    if (tid < kCofStride) mx->cof[kBatch][tid] = 0u;  // the zero record
+  }
 
   for (int base = start; base < end; base += kBatch) {
     // also the barrier that keeps the previous batch's readers ahead of
@@ -129,40 +152,58 @@ __device__ __forceinline__ void fwd_tile(const float* __restrict__ feat,
 
     const bool was_done = done;
     int sat = n;  // one past the instance that saturated this pixel
-    for (int w0 = 0; w0 < n; w0 += 32) {
-      const int i = w0 + lane;
-      const unsigned bits =
-          __ballot_sync(0xffffffffu, i < n && warp_keep(s_feat[i], tx0, ty0,
-                                                        warp));
-      if constexpr (kMxu) {
-        // the window's aligned groups of 8 slots that the cull keeps
+    if constexpr (kMxu) {
+      // the warp's kept instances of the batch, in list order
+      uint8_t* list = mx->list[warp];
+      int cnt = 0;
+      for (int w0 = 0; w0 < n; w0 += 32) {
+        const int i = w0 + lane;
+        const bool keep = i < n && warp_keep(s_feat[i], tx0, ty0, warp);
+        const unsigned bits = __ballot_sync(0xffffffffu, keep);
+        if (keep) list[cnt + __popc(bits & ((1u << lane) - 1u))] = i;
+        cnt += __popc(bits);
+      }
+      __syncwarp();
+      // groups of kGroupN kept instances: a group's product and rows,
+      // then its walk
 #pragma unroll 1
-        for (int q = 0; q < 32; q += kGroupN) {
-          const unsigned group = (bits >> q) & 0xffu;
-          if (group == 0u) continue;
-          if (__all_sync(0xffffffffu, done)) break;
-          mxu_powers(basis, mx->cof + w0 + q, lane, mx->power[warp]);
-          __syncwarp();
-          for (int jj = 0; jj < kGroupN; ++jj) {
-            if (!((group >> jj) & 1u) || done) continue;
-            const int j = w0 + q + jj;
-            const float* f = s_feat[j];
-            float dx, dy;
-            const float alpha = pair_alpha_mxu(mx->power[warp][jj][lane],
-                                               f[3], f[4], f[5], f[9], px, py,
-                                               dx, dy);
-            if (alpha == 0.0f) continue;
-            const float w = alpha * expf(log_t);
-            cr += f[0] * w;
-            cg += f[1] * w;
-            cb += f[2] * w;
-            log_t += log1pf(-alpha);
-            done = log_t < kLogTEps;
-            if (done) sat = j + 1;
-          }
-          __syncwarp();  // the group's readers before the next one's mma
+      for (int c0 = 0; c0 < cnt; c0 += kGroupN) {
+        float (*pw)[kPowStride] = mx->power[warp];
+        const int c = c0 + (lane >> 2);
+        const bool valid = c < cnt;
+        const int slot = valid ? list[c] : 0;
+        float d[2][4];
+        mxu_product(basis, mx->cof, valid ? slot : kBatch, lane, d);
+        // the rows' loads run while the product's chain completes
+        mxu_group_row(s_feat[slot], slot, valid, lane, mx->rows[warp]);
+        mxu_store(d, lane, pw);
+        __syncwarp();
+#pragma unroll
+        for (int jj = 0; jj < kGroupN; ++jj) {
+          if (done) continue;
+          const float4 (*rows)[2] = mx->rows[warp];
+          float dx, dy;
+          const float alpha = pair_alpha_mxu(pw[jj][lane], rows[jj][0], px,
+                                             py, dx, dy);
+          if (alpha == 0.0f) continue;
+          const float4 col = rows[jj][1];
+          const float w = alpha * expf(log_t);
+          cr += col.x * w;
+          cg += col.y * w;
+          cb += col.z * w;
+          log_t += log1pf(-alpha);
+          done = log_t < kLogTEps;
+          if (done) sat = __float_as_int(col.w) + 1;
         }
-      } else {
+        __syncwarp();  // the group's readers before the next one's writers
+        if (__all_sync(0xffffffffu, done)) break;
+      }
+    } else {
+      for (int w0 = 0; w0 < n; w0 += 32) {
+        const int i = w0 + lane;
+        const unsigned bits =
+            __ballot_sync(0xffffffffu, i < n && warp_keep(s_feat[i], tx0, ty0,
+                                                          warp));
         // a counted loop with a warp-uniform test of the cull's bit costs
         // fewer instructions per instance than extracting set bits
 #pragma unroll 4
@@ -183,8 +224,8 @@ __device__ __forceinline__ void fwd_tile(const float* __restrict__ feat,
           done = log_t < kLogTEps;
           if (done) sat = j + 1;
         }
+        if (__all_sync(0xffffffffu, done)) break;
       }
-      if (__all_sync(0xffffffffu, done)) break;
     }
     if (!was_done) n_walked = base - start + sat;
   }

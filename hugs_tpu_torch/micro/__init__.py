@@ -77,11 +77,13 @@ def device_kernels(fn, reps: int = 5):
     return by_name, n / reps, (last - first) / reps if n else 0.0
 
 
-def _walk_pairs(feat, bins, n_walked, width: int, height: int) -> dict:
+def _walk_pairs(feat, bins, n_walked, width: int, height: int,
+                chunk: int = 32) -> dict:
     """The (warp, instance) pairs K1's warps cull on one frame, and the
-    device cull's verdict on each: K1's warps cull whole chunks of 32 of
-    their tile's list until every pixel of the warp has saturated, K2's
-    up to the most any of their 32 pixels walked in K1."""
+    device cull's verdict on each: K1's warps cull whole chunks of `chunk`
+    of their tile's list (32; the POWER_MXU mode's K1 its batches of 256)
+    until every pixel of the warp has saturated, K2's up to the most any
+    of their 32 pixels walked in K1."""
     from hugs_tpu_torch.render import cuda_blend
     from hugs_tpu_torch.render.tiles import TILE, tile_grid
     dev = feat.device
@@ -95,7 +97,7 @@ def _walk_pairs(feat, bins, n_walked, width: int, height: int) -> dict:
         .permute(0, 3, 1, 2, 4).reshape(-1, rows * TILE)
     k2_len = per_warp.amax(1)
     count = (bins.ends - bins.starts).long().repeat_interleave(wpt)
-    k1_len = torch.minimum((k2_len + 31) // 32 * 32, count)
+    k1_len = torch.minimum((k2_len + chunk - 1) // chunk * chunk, count)
     seg0 = torch.cumsum(k1_len, 0) - k1_len
     warp_of = torch.repeat_interleave(
         torch.arange(k1_len.numel(), device=dev), k1_len)
@@ -178,22 +180,85 @@ def mxu_cull_misses(feat, bins, n_walked, width: int, height: int,
     return {"dropped": int(drop.sum()), "missed": missed, "max_alpha": top}
 
 
+def _mode_groups(wp, sel, grid_row, batch: int, back: bool, group: int,
+                 walk=None) -> dict:
+    """The POWER_MXU mode's groups over the (warp, instance) pairs `sel`
+    of _walk_pairs: per warp and batch of `batch` slots, the selected
+    instances in list order (back to front with `back`) cut into runs of
+    `group`; with `walk` (per warp), only the groups whose first instance
+    lies within the warp's walk run. Returns the groups run, the mma they
+    issue (12 each: 2 pixel rows x 3 passes x 2 k steps), the share of
+    their columns filled and the share of groups whose instances all lie
+    in one row of grid points, which one k step would cover."""
+    idx = torch.nonzero(sel)[:, 0]
+    off, wof = wp["offset"][idx], wp["warp_of"][idx]
+    n = idx.numel()
+    if n == 0:
+        return {"groups": 0, "mma": 0, "fill": 0.0, "one_step": 0.0}
+    dev = off.device
+    key = wof * (1 << 24) + off // batch
+    _, kid, size = torch.unique_consecutive(key, return_inverse=True,
+                                            return_counts=True)
+    pos = torch.arange(n, device=dev)
+    rank = pos - (torch.cumsum(size, 0) - size)[kid]
+    if back:
+        rank = size[kid] - 1 - rank
+    _, gid = torch.unique(kid * (1 << 16) + rank // group,
+                          return_inverse=True)
+    ng = int(gid.max()) + 1
+    row = grid_row[idx]
+    lo = torch.full((ng,), 9, dtype=row.dtype, device=dev).scatter_reduce(
+        0, gid, row, "amin")
+    hi = torch.full((ng,), -1, dtype=row.dtype, device=dev).scatter_reduce(
+        0, gid, row, "amax")
+    members = torch.zeros(ng, dtype=torch.int64, device=dev).index_add_(
+        0, gid, torch.ones_like(gid))
+    run = torch.ones(ng, dtype=torch.bool, device=dev)
+    if walk is not None:
+        first = torch.full((ng,), 1 << 30, dtype=off.dtype,
+                           device=dev).scatter_reduce(0, gid, off, "amin")
+        gw = torch.zeros(ng, dtype=wof.dtype, device=dev).scatter_(0, gid,
+                                                                   wof)
+        run = first < walk[gw]
+    one = (lo == hi) & run
+    groups = int(run.sum())
+    return {"groups": groups, "mma": 12 * groups,
+            "fill": float(members[run].sum()) / (group * groups)
+            if groups else 0.0,
+            "one_step": float(one.sum()) / groups if groups else 0.0}
+
+
 def mxu_groups(feat, bins, n_walked, width: int, height: int,
                group: int = 8) -> dict:
-    """The (warp, aligned group of `group` slots of its tile's list) pairs
-    on which the POWER_MXU mode's K1 and K2 run their tensor-core product
-    (blend_common.cuh::mxu_powers): those holding an instance the warp
-    cull keeps, within K1's walk ("K1") or K2's ("K2"); and the instances
-    each stages, with a coefficient record each: K1 its tile's walked
-    batches of 256 (K1's per-tile walk, from the mode's n_walked), K2 up
-    to its tile's longest pixel walk ("K1_staged", "K2_staged")."""
+    """The tensor-core products of the POWER_MXU mode's K1 and K2 on one
+    frame (blend_common.cuh::mxu_product), from the warp cull's own keep:
+    each product covers the next `group` instances that a warp's cull
+    keeps. K1 culls every batch of 256 its warp enters and walks the
+    kept instances front to back until the warp's pixels have saturated;
+    K2 walks the kept ones within the warp's walk back to front, in
+    batches of 128. For each ("K1", "K2"): the groups, the mma they issue
+    and the share of their columns filled ("K1_mma", "K1_fill", ...;
+    "K1_one_step" the share of groups that one k step would cover), and the
+    instances each stages, with a coefficient record each: K1 its tile's
+    walked batches of 256 (from the mode's n_walked), K2 up to its tile's
+    longest pixel walk ("K1_staged", "K2_staged")."""
     from hugs_tpu_torch.render.tiles import TILE, tile_grid
-    wp = _walk_pairs(feat, bins, n_walked, width, height)
-    key = wp["warp_of"] * (1 << 24) + wp["offset"] // group
-    out = {"K1": int(torch.unique(key[wp["keep"]]).numel()),
-           "K2": int(torch.unique(key[wp["keep"] & wp["in_k2"]]).numel())}
+    wp = _walk_pairs(feat, bins, n_walked, width, height, chunk=256)
     nx, ny = tile_grid(width, height, TILE)
-    tile_walk = wp["per_warp"].reshape(nx * ny, -1).amax(1)
+    ty0 = ((wp["t"] // nx) * TILE).to(feat.dtype)
+    grid_row = torch.clamp(torch.floor((feat[wp["gid"].long(), 5] - ty0)
+                                       * (1.0 / 8)), 0, 1).long()
+    walk = wp["per_warp"].amax(1)
+    out = {}
+    for k, sel, batch, back, w in (
+            ("K1", wp["keep"], 256, False, walk),
+            ("K2", wp["keep"] & wp["in_k2"], 128, True, None)):
+        g = _mode_groups(wp, sel, grid_row, batch, back, group, w)
+        out[k] = g["groups"]
+        out[k + "_mma"] = g["mma"]
+        out[k + "_fill"] = g["fill"]
+        out[k + "_one_step"] = g["one_step"]
+    tile_walk = walk.reshape(nx * ny, -1).amax(1)
     count = (bins.ends - bins.starts).long()
     out["K1_staged"] = int(torch.minimum((tile_walk + 255) // 256 * 256,
                                          count).sum())

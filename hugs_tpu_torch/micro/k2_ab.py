@@ -3,17 +3,22 @@ process.
 
 Compares K2 (csrc/blend_bwd.cu) and K1 (csrc/blend_fwd.cu, its exact
 mode) of two source trees on one card, where times taken in separate
-processes differ by a few % with the code unchanged. Each tree's source
-is built with this checkout's nvcc flags; both libraries are loaded into
-this process, and the kernel is launched through each in turn on the
-same frame (micro_bwd.frame: bench.py's scene, g = ones) for ROUNDS
-rounds, each timing each build as the median of 20 spans of 20
-back-to-back launches, the build that goes first alternating. Prints one
-JSON object: for K2 at the top level and for K1 under "k1", per build,
-the kernel's ptxas report, its SASS instruction count and most frequent
-opcodes, and its round times and their median; whether the two SASS
-listings are the same opcodes in the same order; and the largest
-difference between the builds' outputs (grad_feat; K1's image).
+processes differ by a few % with the code unchanged, and the two kernels
+of the POWER_MXU mode (blend_fwd_mxu_kernel, blend_bwd_mxu_kernel). Each
+tree's source is built with this checkout's nvcc flags; both libraries
+are loaded into this process, and each kernel is launched through each
+in turn on the same frame for ROUNDS rounds, each timing each build as
+the median of 20 spans of 20 back-to-back launches, the build that goes
+first alternating. The exact kernels run on micro_bwd.frame (bench.py's
+scene, g = ones), the mode's on that frame ("serving") and on
+micro_bwd.training_frame (chip_smoke.py's training frame), K2 in the
+mode on this checkout's K1 mode's log T and walk. Prints one JSON
+object: for K2 at the top level, for K1 under "k1" and for the mode's
+kernels under "mxu" (frame, then "K1" / "K2"), per build, the kernel's
+ptxas report, its resident blocks per SM, its SASS instruction count and
+most frequent opcodes, and its round times and their median; whether
+the two SASS listings are the same opcodes in the same order; and the
+largest difference between the builds' outputs (grad_feat; K1's image).
 
 Run on the card: `python -m hugs_tpu_torch.micro.k2_ab --other DIR
 [--out F]`, DIR the root of the other checkout (for example the parent
@@ -24,6 +29,7 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
+import functools
 import statistics
 import subprocess
 from pathlib import Path
@@ -32,19 +38,22 @@ import torch
 
 from hugs_tpu_torch import build
 from hugs_tpu_torch.micro import card, device_ms, emit, sass_opcodes
-from hugs_tpu_torch.micro.micro_bwd import frame
+from hugs_tpu_torch.micro.micro_bwd import frame, training_frame
 from hugs_tpu_torch.render import cuda_blend
 from hugs_tpu_torch.render.tiles import TILE, tile_grid
 
 ROUNDS = 8
 KERNEL = "blend_bwd_kernel"
 K1_KERNEL = "blend_fwd_kernel"
+MXU_KERNELS = {"K1": "blend_fwd_mxu_kernel", "K2": "blend_bwd_mxu_kernel"}
 
 
+@functools.lru_cache(maxsize=None)
 def build_other(root: Path, source: str = cuda_blend.BWD_SOURCE
                 ) -> tuple[Path, str]:
     """csrc/<source>.cu of the checkout at `root`, built with this
-    checkout's flags into the build directory: (library, nvcc's output)."""
+    checkout's flags into the build directory (once per process):
+    (library, nvcc's output)."""
     src = root / "hugs_tpu_torch" / "csrc" / f"{source}.cu"
     out = build.BUILD_DIR / "k2_ab" / f"{source}-other.so"
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -56,11 +65,14 @@ def build_other(root: Path, source: str = cuda_blend.BWD_SOURCE
     return out, res.stdout + res.stderr
 
 
-def launcher(lib: ctypes.CDLL, fr: dict):
+def launcher(lib: ctypes.CDLL, fr: dict, mxu: bool = False):
     """K2 through `lib` on frame `fr`, as cuda_blend.blend_bwd launches
-    it: a function returning (grad_feat, grad_bg)."""
-    fn = lib.hugs_blend_bwd
+    it (in the POWER_MXU mode with mxu, on fr's "mxu_log_t" and
+    "mxu_n_walked"): a function returning (grad_feat, grad_bg)."""
+    fn = lib.hugs_blend_bwd_mxu if mxu else lib.hugs_blend_bwd
     fn.argtypes, fn.restype = cuda_blend._BWD_ARGS, ctypes.c_int
+    log_t = fr["mxu_log_t" if mxu else "log_t"]
+    n_walked = fr["mxu_n_walked" if mxu else "n_walked"]
     b, w, h = fr["bins"], fr["width"], fr["height"]
     nx, ny = tile_grid(w, h, TILE)
     dev = fr["feat"].device
@@ -70,7 +82,7 @@ def launcher(lib: ctypes.CDLL, fr: dict):
         grad_bg = torch.zeros((3,), dtype=torch.float32, device=dev)
         err = fn(fr["feat"].data_ptr(), b.gauss_id.data_ptr(),
                  b.starts.data_ptr(), fr["bg"].data_ptr(),
-                 fr["log_t"].data_ptr(), fr["n_walked"].data_ptr(),
+                 log_t.data_ptr(), n_walked.data_ptr(),
                  fr["grad"].data_ptr(), w, h, nx, nx * ny,
                  grad_feat.data_ptr(), grad_bg.data_ptr(),
                  torch.cuda.current_stream(dev).cuda_stream)
@@ -80,10 +92,11 @@ def launcher(lib: ctypes.CDLL, fr: dict):
     return run
 
 
-def k1_launcher(lib: ctypes.CDLL, fr: dict):
+def k1_launcher(lib: ctypes.CDLL, fr: dict, mxu: bool = False):
     """K1 through `lib` on frame `fr`, as cuda_blend.blend_fwd launches
-    it: a function returning its raw image."""
-    fn = lib.hugs_blend_fwd
+    it (in the POWER_MXU mode with mxu): a function returning its raw
+    image."""
+    fn = lib.hugs_blend_fwd_mxu if mxu else lib.hugs_blend_fwd
     fn.argtypes, fn.restype = cuda_blend._FWD_ARGS, ctypes.c_int
     b, w, h = fr["bins"], fr["width"], fr["height"]
     nx, ny = tile_grid(w, h, TILE)
@@ -105,6 +118,21 @@ def k1_launcher(lib: ctypes.CDLL, fr: dict):
     return run
 
 
+def blocks_per_sm(lib: ctypes.CDLL, kernel: str) -> int:
+    """The resident blocks per SM of `kernel` (one of the four above) as
+    `lib` launches it, from its occupancy query."""
+    mxu = kernel in MXU_KERNELS.values()
+    name = ("hugs_blend_fwd" if kernel.startswith("blend_fwd")
+            else "hugs_blend_bwd") + ("_mxu" if mxu else "") + "_blocks_per_sm"
+    fn = getattr(lib, name)
+    if not mxu:
+        fn.argtypes = []
+        return int(fn())
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    dynamic = ctypes.c_int(-1)
+    return int(fn(ctypes.byref(dynamic)))
+
+
 def compare(other: Path, rounds: int = ROUNDS, source=cuda_blend.BWD_SOURCE,
             kernel=KERNEL, make_launcher=launcher, fr=None) -> dict:
     fr = frame("cuda") if fr is None else fr
@@ -115,10 +143,12 @@ def compare(other: Path, rounds: int = ROUNDS, source=cuda_blend.BWD_SOURCE,
         "other": (other_path, other_log)}
     runs, out = {}, {}
     for name, (path, log) in builds.items():
-        runs[name] = make_launcher(ctypes.CDLL(str(path)), fr)
+        lib = ctypes.CDLL(str(path))
+        runs[name] = make_launcher(lib, fr)
         ops = sass_opcodes(path, kernel)
         out[name] = {"library": str(path),
                      "ptxas": build.kernel_resources(log, kernel),
+                     "blocks_per_sm": blocks_per_sm(lib, kernel),
                      "sass_instructions": len(ops), "sass_ops": ops,
                      "ms_rounds": []}
     for i in range(rounds):
@@ -152,10 +182,24 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: K2 runs on the card only")
+    other = Path(args.other)
     fr = frame("cuda")
-    out = compare(Path(args.other), fr=fr)
-    out["k1"] = compare(Path(args.other), source=cuda_blend.SOURCE,
-                        kernel=K1_KERNEL, make_launcher=k1_launcher, fr=fr)
+    out = compare(other, fr=fr)
+    out["k1"] = compare(other, source=cuda_blend.SOURCE, kernel=K1_KERNEL,
+                        make_launcher=k1_launcher, fr=fr)
+    out["mxu"] = {}
+    for name, f in (("serving", fr), ("training", training_frame("cuda"))):
+        _, f["mxu_log_t"], f["mxu_n_walked"], _ = cuda_blend.blend_fwd(
+            f["feat"], f["bins"].gauss_id, f["bins"].starts, f["bins"].ends,
+            f["bg"], f["width"], f["height"], power_mxu=True)
+        out["mxu"][name] = {
+            "K1": compare(other, source=cuda_blend.SOURCE,
+                          kernel=MXU_KERNELS["K1"], fr=f,
+                          make_launcher=lambda lib, x: k1_launcher(lib, x,
+                                                                   True)),
+            "K2": compare(other, kernel=MXU_KERNELS["K2"], fr=f,
+                          make_launcher=lambda lib, x: launcher(lib, x,
+                                                                True))}
     emit(out, args.out)
 
 

@@ -28,7 +28,13 @@ least 99.9 % of entries to 1e-5 + 1e-3 |g| with ||d|| / ||g|| <= 1e-4.
 On CPU tensors both sides are the plain blend (the tests hold that path
 to hugs_tpu's tiled backend instead).
 
-The script's second half (kernel_parity_tpu.py:114-131) runs the four
+A fifth scene, `gather` (gather_inputs: a feature table and lists built
+by hand, not projected), drives the POWER_MXU kernels' gathered groups:
+sparse warp masks, groups across 32-slot windows and batches, groups
+over all four grid points, means outside the tile, saturation part-way
+through a group; its gradients are with respect to the feature table.
+
+The script's second half (kernel_parity_tpu.py:114-131) runs the
 cases again in the POWER_MXU mode (render/cuda_blend.py: K1's and K2's
 exponent on the tensor cores; the plain mode on CPU tensors), each held
 at the same bars against the exact path: the mode's image and gradients
@@ -38,7 +44,7 @@ held to the plain mode at the kernels' bars.
 Run: `python -m hugs_tpu_torch.micro.kernel_parity [--device cpu]
 [--out F]` (default F: runs/kernel_parity.json). Prints one JSON
 line per case, in the script's keys (`power_mxu` false for the first
-four, true for the second four), then PASS or FAIL; exits 1 on FAIL and
+five, true for the second five), then PASS or FAIL; exits 1 on FAIL and
 2 without a card unless --device cpu.
 """
 from __future__ import annotations
@@ -57,7 +63,7 @@ from hugs_tpu_torch.render.blend import (
 )
 from hugs_tpu_torch.render.oracle import clip01
 from hugs_tpu_torch.render.project import project_gaussians
-from hugs_tpu_torch.render.tiles import TILE, bin_gaussians
+from hugs_tpu_torch.render.tiles import TILE, TileBins, bin_gaussians
 
 # the script's cases (kernel_parity_tpu.py:113-140), tile dropped
 CASES = {
@@ -69,6 +75,11 @@ CASES = {
     "tight_budget": dict(n=800, seed=3, W=96, H=64, budget=65536,
                          spread=0.6, tight=True),
 }
+# the scene that stresses the POWER_MXU kernels' gathered groups (a
+# feature table and lists built by hand; gather_inputs)
+GATHER = "gather"
+GATHER_W, GATHER_H, GATHER_SEED = 32, 16, 5
+GATHER_LIST = 640       # instances in each tile's list
 PARAMS = ("means", "scales", "rotq", "opacity", "shs")
 BG = (0.2, 0.3, 0.4)
 TARGET_SEED = 7
@@ -124,6 +135,93 @@ def exact_budget(pg, width: int, height: int, probe: int) -> int:
     return int(bins.n_slots)
 
 
+def _splats(rng, n, tx0, mx, my, sigma, op):
+    """n isotropic splats of the tile at tx0 as feature rows (N, 10) in
+    gauss_features' layout: colours uniform, opacity op, mean (tx0 + mx,
+    my), conic 1 / sigma^2 with a small random shear, radius ceil(3
+    sigma)."""
+    f = np.zeros((n, 10), np.float32)
+    f[:, 0:3] = rng.uniform(size=(n, 3))
+    f[:, 3] = op
+    f[:, 4] = tx0 + mx
+    f[:, 5] = my
+    c = 1.0 / np.square(sigma) * np.ones(n)
+    f[:, 6] = c
+    f[:, 7] = rng.uniform(-0.2, 0.2, n) * c
+    f[:, 8] = c
+    f[:, 9] = np.ceil(3.0 * sigma)
+    return f
+
+
+def gather_inputs() -> dict:
+    """The scene that drives the POWER_MXU kernels' gathered groups (the
+    next 8 instances a warp's cull keeps, blend_common.cuh), drawn with
+    numpy from GATHER_SEED: a feature table (N, 10) in gauss_features'
+    layout and a list of GATHER_LIST instances for each of the two 16x16
+    tiles of a 32x16 image (tile 1's splats are tile 0's kind, moved by 16
+    pixels), in list order:
+      0-383    small splats (sigma 0.6) on pixel rows 0.5, 6.5 and 12.5 in
+               turn: warps 0, 3 and 6 each keep every third slot, so
+               their groups straddle the 32-slot windows and K1's
+               256-instance batch (and K2's batches of 128);
+      384-415  large faint splats (sigma 5) centred on the tile's four
+               grid points in turn: every group of 8 kept instances there
+               spans all four, both k steps;
+      416-479  medium splats (sigma 2.5) with their means 1-5 pixels
+               outside the tile on each side in turn (the grid point
+               clipped to the tile, the residual beyond 4 pixels);
+      480-639  near-opaque splats (opacity 0.995, sigma 1.2) at (5.5, 9.5)
+               in every other slot, small splats between: the pixels
+               there saturate part-way through a group.
+    Also the background and the L1 loss's target (uniform, TARGET_SEED)."""
+    rng = np.random.default_rng(GATHER_SEED)
+    n = GATHER_LIST
+    tiles = []
+    for tx0 in (0.0, 16.0):
+        band = np.arange(384) % 3
+        a = _splats(rng, 384, tx0, rng.uniform(0, 16, 384),
+                    np.array([0.5, 6.5, 12.5])[band]
+                    + rng.uniform(-0.3, 0.3, 384), 0.6,
+                    rng.uniform(0.2, 0.45, 384))
+        q = np.arange(32) % 4
+        b = _splats(rng, 32, tx0, 4.0 + 8.0 * (q % 2) + rng.uniform(-1, 1, 32),
+                    4.0 + 8.0 * (q // 2) + rng.uniform(-1, 1, 32), 5.0, 0.05)
+        side = np.arange(64) % 4
+        off = rng.uniform(1, 5, 64)
+        along = rng.uniform(0, 16, 64)
+        c = _splats(rng, 64, tx0,
+                    np.select([side == 0, side == 1], [-off, 16.0 + off],
+                              along),
+                    np.select([side == 2, side == 3], [-off, 16.0 + off],
+                              along), 2.5, rng.uniform(0.2, 0.6, 64))
+        opaque = np.arange(160) % 2 == 0
+        d = _splats(rng, 160, tx0,
+                    np.where(opaque, 5.5 + rng.uniform(-0.2, 0.2, 160),
+                             rng.uniform(0, 16, 160)),
+                    np.where(opaque, 9.5 + rng.uniform(-0.2, 0.2, 160),
+                             rng.uniform(0, 16, 160)),
+                    np.where(opaque, 1.2, 0.6),
+                    np.where(opaque, 0.995, rng.uniform(0.2, 0.45, 160)))
+        tiles.append(np.concatenate([a, b, c, d]))
+    feat = np.concatenate(tiles).astype(np.float32)
+    target = np.random.default_rng(TARGET_SEED).uniform(
+        size=(3, GATHER_H, GATHER_W)).astype(np.float32)
+    return dict(feat=feat, gauss_id=np.arange(2 * n, dtype=np.int32),
+                starts=np.array([0, n], np.int32),
+                ends=np.array([n, 2 * n], np.int32), target=target,
+                bg=np.asarray(BG, np.float32), W=GATHER_W, H=GATHER_H)
+
+
+def gather_bins(inp: dict, device) -> TileBins:
+    """gather_inputs' lists as TileBins on `device`."""
+    n = int(inp["gauss_id"].shape[0])
+    total = torch.tensor(n, dtype=torch.int64, device=device)
+    return TileBins(torch.as_tensor(inp["gauss_id"], device=device),
+                    torch.as_tensor(inp["starts"], device=device),
+                    torch.as_tensor(inp["ends"], device=device), total,
+                    total, torch.tensor(False, device=device), total)
+
+
 def case_bins(name: str, device) -> tuple:
     """(inputs as leaf tensors on `device`, camera, projected set, bins,
     budget) of a case; tight_budget's budget is its exact demand. Raises
@@ -161,7 +259,7 @@ def chunk_stats(bins) -> dict:
 
 def _grads(img, target, leaves):
     loss = torch.mean(torch.abs(img - target))
-    return torch.autograd.grad(loss, [leaves[k] for k in PARAMS],
+    return torch.autograd.grad(loss, list(leaves.values()),
                                retain_graph=True)
 
 
@@ -202,11 +300,17 @@ def run_case(name: str, device, power_mxu: bool = False) -> dict:
     the exact plain blend, kernel by kernel to the plain mode. Returns the
     script's record plus the binning's and the kernels' numbers."""
     device = torch.device(device)
-    inp, leaves, cam, pg, bins, budget = case_bins(name, device)
+    if name == GATHER:
+        inp = gather_inputs()
+        bins = gather_bins(inp, device)
+        feat = torch.tensor(inp["feat"], device=device, requires_grad=True)
+        leaves, budget, n = {"feat": feat}, int(bins.n_slots), len(feat)
+    else:
+        inp, leaves, cam, pg, bins, budget = case_bins(name, device)
+        feat, n = gauss_features(pg), CASES[name]["n"]
     W, H = inp["W"], inp["H"]
     bg = torch.as_tensor(inp["bg"], device=device)
     target = torch.as_tensor(inp["target"], device=device)
-    feat = gauss_features(pg)
     args = (bins.gauss_id, bins.starts, bins.ends, bg, W, H)
 
     img_k = cuda_blend.blend_feat(feat, *args, power_mxu=power_mxu)
@@ -214,9 +318,9 @@ def run_case(name: str, device, power_mxu: bool = False) -> dict:
     g_k = _grads(img_k, target, leaves)
     g_p = _grads(img_p, target, leaves)
     rel = {}
-    for k, a, b in zip(PARAMS, g_p, g_k):
+    for k, a, b in zip(leaves, g_p, g_k):
         rel[k] = float((a - b).abs().max()) / (float(a.abs().max()) + 1e-12)
-    out = {"case": name, "W": W, "H": H, "n": CASES[name]["n"],
+    out = {"case": name, "W": W, "H": H, "n": n,
            "power_mxu": power_mxu, "budget": budget, **chunk_stats(bins),
            "max_abs_dimg": float((img_k - img_p).detach().abs().max()),
            "rel_dgrad": rel}
@@ -238,7 +342,7 @@ def run_case(name: str, device, power_mxu: bool = False) -> dict:
     return out
 
 
-def run_all(device, names=tuple(CASES), modes=(False,)
+def run_all(device, names=tuple(CASES) + (GATHER,), modes=(False,)
             ) -> tuple[list, bool]:
     """Every case in order, in each of `modes` (power_mxu) in turn; (the
     records, whether all held)."""

@@ -89,7 +89,14 @@ def frame(device="cuda", n: int = N, width: int = W, height: int = H,
     bins = bin_gaussians(pg, width, height, slot_budget(demand))
     if bool(bins.overflowed):
         raise AssertionError("the frame overflowed its budget")
-    feat = gauss_features(pg)
+    return _with_walk(gauss_features(pg), bins, width, height)
+
+
+def _with_walk(feat, bins, width: int, height: int) -> dict:
+    """A frame's dict: feat and bins with bg 0, the forward's final log T
+    and per-pixel walk (K1 on the card, the plain blend on the CPU) and
+    d(loss)/d(raw colour) = ones."""
+    device = feat.device
     bg = torch.zeros(3, device=device)
     fwd = (feat, bins.gauss_id, bins.starts, bins.ends, bg, width, height)
     if feat.device.type == "cuda":
@@ -100,6 +107,35 @@ def frame(device="cuda", n: int = N, width: int = W, height: int = H,
     return dict(feat=feat, bins=bins, bg=bg, log_t=log_t, n_walked=n_walked,
                 grad=torch.ones((3, height, width), device=device),
                 width=width, height=height)
+
+
+def training_frame(device="cuda", n: int = N, width: int = W,
+                   height: int = H, seed: int = 0,
+                   capacity: int = 65_536, noise: float = 0.02) -> dict:
+    """chip_smoke.py's training frame (phase 3b's step 0, the one phase 3k
+    holds the POWER_MXU kernels on): bench_scene's means moved by
+    N(0, noise^2) (seed + 3) as a point cloud, create_from_pcd with grey
+    colours at `capacity` (kNN scales, opacity 0.1), the camera at the
+    origin; bins at 15 % over the slot demand. Returns frame()'s keys
+    (bg 0, d(loss)/d(raw colour) = ones)."""
+    from hugs_tpu_torch.models.scene_gs import create_from_pcd, scene_forward
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(-2.0, 2.0, (n, 3)).astype(np.float32)
+    means[:, 2] = means[:, 2] * 1.5 + 5.0
+    pcd = means + np.random.default_rng(seed + 3).normal(
+        scale=noise, size=means.shape).astype(np.float32)
+    gs = create_from_pcd(pcd, np.full((n, 3), 0.5, np.float32), capacity,
+                         device=device)
+    cam = make_camera(np.eye(3), np.zeros(3), 0.9, 0.55, device=device)
+    with torch.no_grad():
+        a = scene_forward(gs)
+        pg = project_gaussians(a["xyz"], a["scales"], a["rotq"],
+                               a["opacity"], a["shs"], cam, width, height,
+                               a["active_sh_degree"], alive=a["alive"])
+        demand = int(bin_gaussians(pg, width, height, 4 * capacity).n_slots)
+        bins = bin_gaussians(pg, width, height, slot_budget(demand))
+        feat = gauss_features(pg)
+    return _with_walk(feat, bins, width, height)
 
 
 def plain_variant(mode: str, feat, gauss_id, starts, ends, bg, width,

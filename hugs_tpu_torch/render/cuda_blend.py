@@ -29,11 +29,13 @@ The TPU kernels' POWER_MXU mode (pallas_blend.py:63-188: the Gaussian
 exponent as one matrix product of a recentred pixel basis and per-
 instance coefficients, off by default) is the kernels' second mode here,
 `power_mxu=True`: K1 and K2 evaluate the exponent on the tensor cores
-(mma.sync, blend_common.cuh::mxu_powers, one routine for both, so they
-agree on every alpha), the rest of each kernel unchanged; the plain
-version is render/blend.py's mode. The mode's launches count apart
-(MXU_LAUNCHES, K2_MXU_LAUNCHES). POWER_MXU, read from HUGS_POWER_MXU as
-pallas_blend.py:106 reads it, is render()'s default (renderer.py).
+(mma.sync, blend_common.cuh::mxu_product, one routine for both, on each
+warp's groups of 8 kept instances; a pair's power does not depend on its
+group, so the two agree on every alpha), the rest of each kernel the
+exact mode's math; the plain version is render/blend.py's mode. The
+mode's launches count apart (MXU_LAUNCHES, K2_MXU_LAUNCHES). POWER_MXU,
+read from HUGS_POWER_MXU as pallas_blend.py:106 reads it, is render()'s
+default (renderer.py).
 """
 from __future__ import annotations
 

@@ -18,8 +18,9 @@ scripts/kernel_parity_tpu.py, on the CPU.
   exact plain blend, at the script's bars: image max |d| < 5e-5,
   gradients max |d| / max |g| < 5e-4 (kernel_parity_tpu.py:132-133).
 - The entry point on the CPU: one JSON line per case in the script's
-  keys, the four exact cases then the four in the mode, PASS, exit 0 and
-  the record written; 2 without a card.
+  keys, the four scenes and the gather scene (a feature table built by
+  hand, gradients with respect to it) exact, then the five in the mode,
+  PASS, exit 0 and the record written; 2 without a card.
 """
 import functools
 import json
@@ -115,8 +116,8 @@ def test_entry_point_on_cpu(tmp_path, capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[-1] == "PASS"
     cases = [json.loads(line) for line in lines[:-1]]
-    assert [c["case"] for c in cases] == 2 * list(kp.CASES)
-    assert [c["power_mxu"] for c in cases] == [False] * 4 + [True] * 4
+    assert [c["case"] for c in cases] == 2 * (list(kp.CASES) + [kp.GATHER])
+    assert [c["power_mxu"] for c in cases] == [False] * 5 + [True] * 5
     for c in cases:
         assert {"case", "W", "H", "n", "n_instances", "max_chunks_per_tile",
                 "max_abs_dimg", "rel_dgrad", "power_mxu"} <= set(c)

@@ -24,10 +24,19 @@ render/blend.py's `grid_basis`, `mxu_coefficients`, `power_mxu` and
   1e-4 max|g|, which they are also held to. The plain mode's derivative
   is the mode's K2's (alpha_mxu): autograd through the bf16 split, or
   through min(power, 0), fails these tests.
+- micro/kernel_parity.py's gather scene (a feature table and lists built
+  by hand) holds what it is for: warps keeping every third slot, groups
+  of 8 kept instances across 32-slot windows and over all four grid
+  points, means outside the tile, pixels that saturate part-way through
+  a group as K1 and K2 group their kept instances; the plain mode on it
+  against hugs_tpu's blend_tiles_pallas(power_mxu=True) in interpret mode
+  (the image at 2e-5, the gradients with respect to the feature table at
+  atol 1e-6 + rtol 1e-4).
 - On the card (marked cuda): K1 and K2 in the mode against the plain
-  mode at chip_smoke.py phase 3k (a)'s bars, and K1 and K2 agreeing on
-  every alpha: K2 rebuilds each pixel's first transmittance T_0 from
-  K1's final log T and its own alphas, which must give 1.
+  mode at chip_smoke.py phase 3k (a)'s bars, on a rendered scene and on
+  the gather scene, and K1 and K2 agreeing on every alpha: K2 rebuilds
+  each pixel's first transmittance T_0 from K1's final log T and its own
+  alphas, which must give 1.
 JAX's interpret-mode results are computed once per module.
 """
 import functools
@@ -40,6 +49,7 @@ import torch
 
 from hugs_tpu.render import pallas_blend as jpb
 from hugs_tpu.render import render as jax_render
+from hugs_tpu_torch.micro import kernel_parity as kp
 from hugs_tpu_torch.render import cuda_blend, render
 from hugs_tpu_torch.render.blend import (
     POW_EPS, alpha_mxu, gauss_features, grid_basis, mxu_coefficients,
@@ -268,16 +278,165 @@ def _bins_and_grad(device, seed=2, w=W, h=H):
             torch.as_tensor(g, device=device))
 
 
-@pytest.mark.cuda
-def test_mxu_kernels_match_plain_mode_on_card(cuda_device):
-    """K1 and K2 in the mode against the plain mode: K1's raw image on at
-    least 99.99 % of pixels within 2e-5; K2 per column on at least 99.9 %
-    of entries within 1e-5 + 1e-3 |g| with ||d|| / ||g|| <= 1e-4, grad_bg
-    within the mode's relative gradient bar 5e-4 (a pixel where a pair at
-    the 1/255 cutoff flips moves its T_fin by 1/255); each launch counted
-    as the mode's."""
-    feat, bins, bg, g = _bins_and_grad(cuda_device)
-    args = (feat, bins.gauss_id, bins.starts, bins.ends, bg, W, H)
+def _gather(device):
+    """kernel_parity's gather scene on `device`: feat (N, 10), its bins,
+    the background and the loss's target."""
+    inp = kp.gather_inputs()
+    return (torch.as_tensor(inp["feat"], device=device),
+            kp.gather_bins(inp, device),
+            torch.as_tensor(inp["bg"], device=device),
+            torch.as_tensor(inp["target"], device=device))
+
+
+def _groups(kept, batch, back, walk):
+    """The mode's groups of one warp, as its kernel forms them: its kept
+    slots of each batch of `batch` below `walk`, in list order (back to
+    front with `back`), cut into runs of 8."""
+    out = []
+    for b0 in range(0, walk, batch):
+        ks = [i for i in kept if b0 <= i < min(b0 + batch, walk)]
+        ks = ks[::-1] if back else ks
+        out += [ks[i:i + 8] for i in range(0, len(ks), 8)]
+    return out
+
+
+def test_gather_scene_stresses_the_grouping():
+    """The gather scene, per tile and warp (the warp cull's own keep on
+    the CPU): warps 0, 3 and 6 keep every third of slots 0-383; in K1's
+    groups (batches of 256, front to back) and K2's (batches of 128 below
+    the warp's walk, back to front) some group spans two 32-slot windows
+    and some all four grid points; some mean lies outside the tile on
+    each side; some pixel saturates at an instance that is neither the
+    last of its K1 group nor of its K2 group; most pixels stay
+    unsaturated (the alpha agreement test reads those)."""
+    feat, bins, bg, _ = _gather("cpu")
+    w, h = kp.GATHER_W, kp.GATHER_H
+    _, log_t, pairs = plain_blend(feat, bins.gauss_id, bins.starts,
+                                  bins.ends, bg, w, h, power_mxu=True)
+    assert float((log_t >= LOG_TEPS).float().mean()) > 0.8
+    n = kp.GATHER_LIST
+    for t in range(2):
+        f = feat[bins.gauss_id[t * n:(t + 1) * n].long()]
+        tx0 = 16.0 * t
+        grid = (torch.clamp(torch.floor(f[:, 5] / 8), 0, 1) * 2
+                + torch.clamp(torch.floor((f[:, 4] - tx0) / 8), 0, 1))
+        for side in (f[:, 4] < tx0, f[:, 4] >= tx0 + 16, f[:, 5] < 0,
+                     f[:, 5] >= 16):
+            assert int(side.sum()) > 0
+        found = {"straddle": 0, "four": 0, "mid": 0}
+        for warp in range(8):
+            keep = cuda_blend.warp_cull(
+                feat, bins.gauss_id[t * n:(t + 1) * n],
+                torch.full((n,), t, dtype=torch.int32),
+                torch.full((n,), warp, dtype=torch.int32))
+            kept = torch.nonzero(keep)[:, 0].tolist()
+            if warp in (0, 3, 6):
+                assert keep[:384].tolist() == [
+                    i % 3 == warp // 3 for i in range(384)], warp
+            rows = slice(2 * warp, 2 * warp + 2)
+            cols = slice(16 * t, 16 * t + 16)
+            walked = pairs[0][rows, cols].reshape(-1)
+            saturated = (log_t[rows, cols] < LOG_TEPS).reshape(-1)
+            sat_at = set((walked[saturated] - 1).tolist())
+            mid = {0: set(), 1: set()}
+            for k, (batch, back) in enumerate(((256, False), (128, True))):
+                for g in _groups(kept, batch, back, int(walked.max())):
+                    found["straddle"] += len({i // 32 for i in g}) > 1
+                    found["four"] += len({int(grid[i]) for i in g}) == 4
+                    mid[k] |= set(g[:-1]) & sat_at
+            found["mid"] += len(mid[0] & mid[1])
+        assert all(v > 0 for v in found.values()), (t, found)
+
+
+def test_mxu_groups_counts_the_kernels_groups():
+    """micro.mxu_groups on the gather scene against the groups written
+    out per tile and warp: K1's of each 256-slot batch its warp enters,
+    front to back, run while their first instance lies within the warp's
+    walk; K2's of each 128-slot batch below the walk, back to front;
+    each 12 mma; the columns filled; the groups within one row of grid
+    points."""
+    from hugs_tpu_torch.micro import mxu_groups
+    feat, bins, bg, _ = _gather("cpu")
+    w, h = kp.GATHER_W, kp.GATHER_H
+    pairs = plain_blend(feat, bins.gauss_id, bins.starts, bins.ends, bg, w,
+                        h, power_mxu=True)[2]
+    got = mxu_groups(feat, bins, pairs[0].to(torch.int32), w, h)
+    n = kp.GATHER_LIST
+    want = {k: [] for k in ("K1", "K2")}
+    for t in range(2):
+        gid = bins.gauss_id[t * n:(t + 1) * n]
+        row = torch.clamp(torch.floor(feat[gid.long(), 5] / 8), 0, 1)
+        for warp in range(8):
+            kept = torch.nonzero(cuda_blend.warp_cull(
+                feat, gid, torch.full((n,), t, dtype=torch.int32),
+                torch.full((n,), warp, dtype=torch.int32)))[:, 0].tolist()
+            walk = int(pairs[0][2 * warp:2 * warp + 2,
+                                16 * t:16 * t + 16].max())
+            # each group as (its size, whether one row of grid points
+            # holds it)
+            for k, groups in (
+                    ("K1", [g for g in _groups(kept, 256, False, n)
+                            if g[0] < walk]),
+                    ("K2", _groups(kept, 128, True, walk))):
+                want[k] += [(len(g), len({int(row[i]) for i in g}) == 1)
+                            for g in groups]
+    for k, groups in want.items():
+        assert got[k] == len(groups) > 0
+        assert got[k + "_mma"] == 12 * len(groups)
+        assert got[k + "_fill"] == pytest.approx(
+            sum(m for m, _ in groups) / (8 * len(groups)))
+        assert got[k + "_one_step"] == pytest.approx(
+            sum(one for _, one in groups) / len(groups))
+    assert got["K1_staged"] == got["K2_staged"] == 2 * n
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_gather():
+    """hugs_tpu's Pallas blend in the mode (interpret mode) on the gather
+    scene: the image and the gradient of the L1 loss with respect to the
+    feature table (10, N)."""
+    from hugs_tpu.render.project import ProjectedGaussians
+    from hugs_tpu.render.tiles import TileBins
+    inp = kp.gather_inputs()
+    n = inp["feat"].shape[0]
+    total = jnp.int32(n)
+    bins = TileBins(jnp.asarray(inp["gauss_id"]), jnp.asarray(inp["starts"]),
+                    jnp.asarray(inp["ends"]), total, total, jnp.bool_(False),
+                    total)
+    target = jnp.asarray(inp["target"])
+
+    def loss(ft):
+        pg = ProjectedGaussians(
+            mean2d=ft[4:6].T, conic=ft[6:9].T, depth=jnp.zeros(n),
+            radius=ft[9], rgb=ft[0:3].T, opacity=ft[3],
+            mask=jnp.ones(n, bool), feat=ft)
+        img = jpb.blend_tiles_pallas(pg, bins, inp["W"], inp["H"],
+                                     jnp.asarray(inp["bg"]), tile=16,
+                                     power_mxu=True)
+        return jnp.mean(jnp.abs(img - target)), img
+
+    (_, img), g = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        jnp.asarray(inp["feat"].T))
+    return np.asarray(img), np.asarray(g).T
+
+
+def test_gather_scene_matches_jax_mode():
+    feat, bins, bg, target = _gather("cpu")
+    feat = feat.requires_grad_(True)
+    img = cuda_blend.blend_feat(feat, bins.gauss_id, bins.starts, bins.ends,
+                                bg, kp.GATHER_W, kp.GATHER_H, power_mxu=True)
+    (g,) = torch.autograd.grad(torch.mean(torch.abs(img - target)), feat)
+    want_img, want_g = _jax_gather()
+    np.testing.assert_allclose(np_of(img), want_img, atol=IMG_ATOL)
+    assert np.abs(want_g[:, :9]).max() > 0
+    np.testing.assert_allclose(np_of(g)[:, :9], want_g[:, :9],
+                               atol=GRAD_ATOL, rtol=GRAD_RTOL)
+
+
+def _hold_mxu_kernels(feat, bins, bg, g, w, h):
+    """K1 and K2 in the mode against the plain mode at phase 3k (a)'s
+    bars, each launch counted as the mode's."""
+    args = (feat, bins.gauss_id, bins.starts, bins.ends, bg, w, h)
     before = (cuda_blend.LAUNCHES, cuda_blend.MXU_LAUNCHES,
               cuda_blend.K2_LAUNCHES, cuda_blend.K2_MXU_LAUNCHES)
     img, log_t, n_walked, _ = cuda_blend.blend_fwd(*args, power_mxu=True)
@@ -301,29 +460,58 @@ def test_mxu_kernels_match_plain_mode_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_mxu_kernels_match_plain_mode_on_gather_scene_on_card(cuda_device):
+    """_hold_mxu_kernels on the gather scene, g uniform from a seed."""
+    feat, bins, bg, _ = _gather(cuda_device)
+    g = torch.as_tensor(np.random.default_rng(11).uniform(
+        -1, 1, (3, kp.GATHER_H, kp.GATHER_W)).astype(np.float32),
+        device=cuda_device)
+    _hold_mxu_kernels(feat, bins, bg, g, kp.GATHER_W, kp.GATHER_H)
+
+
+@pytest.mark.cuda
+def test_mxu_kernels_match_plain_mode_on_card(cuda_device):
+    """K1 and K2 in the mode against the plain mode: K1's raw image on at
+    least 99.99 % of pixels within 2e-5; K2 per column on at least 99.9 %
+    of entries within 1e-5 + 1e-3 |g| with ||d|| / ||g|| <= 1e-4, grad_bg
+    within the mode's relative gradient bar 5e-4 (a pixel where a pair at
+    the 1/255 cutoff flips moves its T_fin by 1/255); each launch counted
+    as the mode's."""
+    feat, bins, bg, g = _bins_and_grad(cuda_device)
+    _hold_mxu_kernels(feat, bins, bg, g, W, H)
+
+
+@pytest.mark.cuda
 def test_mxu_k1_and_k2_agree_on_alpha_on_card(cuda_device):
     """On a 32x32 frame with colours (1, 0, 0), a zero background and g
     one-hot at one pixel p (red), K2's colour gradient sums to sum_i
     alpha_i T_i = T_0 - T_fin at an unsaturated p, with T_i rebuilt from
     K1's final log T and K2's own alphas: T_0 is 1 only where K2's alphas
     are K1's (a pair at a cutoff that one kernel kept and the other
-    dropped moves it by 1/255 or more). Both modes."""
+    dropped moves it by 1/255 or more). Both modes, on a rendered scene
+    and on the gather scene (K1 and K2 group the kept instances of a
+    warp differently there: front to back in batches of 256, back to
+    front in batches of 128)."""
     w = h = 32
     feat, bins, _, _ = _bins_and_grad(cuda_device, seed=4, w=w, h=h)
-    feat[:, 0:3] = torch.tensor([1.0, 0.0, 0.0], device=cuda_device)
-    bg = torch.zeros(3, device=cuda_device)
-    args = (feat, bins.gauss_id, bins.starts, bins.ends, bg, w, h)
-    for mode in (False, True):
-        _, log_t, n_walked, _ = cuda_blend.blend_fwd(*args, power_mxu=mode)
-        live = log_t >= LOG_TEPS
-        assert int(live.sum()) > h * w // 2
-        t0 = torch.empty((h, w), device=cuda_device)
-        for p in range(h * w):
-            g = torch.zeros((3, h, w), device=cuda_device)
-            g[0].view(-1)[p] = 1.0
-            gf, _ = cuda_blend.blend_bwd(*args, g, log_t, n_walked,
-                                         power_mxu=mode)
-            t0.view(-1)[p] = gf[:, 0].sum()
-        t0 = t0 + torch.exp(log_t)
-        torch.cuda.synchronize()
-        assert float((t0 - 1.0)[live].abs().max()) <= 1e-5, mode
+    scenes = [(feat, bins, w, h),
+              (*_gather(cuda_device)[:2], kp.GATHER_W, kp.GATHER_H)]
+    for feat, bins, w, h in scenes:
+        feat[:, 0:3] = torch.tensor([1.0, 0.0, 0.0], device=cuda_device)
+        bg = torch.zeros(3, device=cuda_device)
+        args = (feat, bins.gauss_id, bins.starts, bins.ends, bg, w, h)
+        for mode in (False, True):
+            _, log_t, n_walked, _ = cuda_blend.blend_fwd(*args,
+                                                         power_mxu=mode)
+            live = log_t >= LOG_TEPS
+            assert int(live.sum()) > h * w // 2
+            t0 = torch.empty((h, w), device=cuda_device)
+            for p in range(h * w):
+                g = torch.zeros((3, h, w), device=cuda_device)
+                g[0].view(-1)[p] = 1.0
+                gf, _ = cuda_blend.blend_bwd(*args, g, log_t, n_walked,
+                                             power_mxu=mode)
+                t0.view(-1)[p] = gf[:, 0].sum()
+            t0 = t0 + torch.exp(log_t)
+            torch.cuda.synchronize()
+            assert float((t0 - 1.0)[live].abs().max()) <= 1e-5, (w, mode)
