@@ -5,9 +5,10 @@ human + scene training through the port's CLI, the evaluation of its
 output (validate, animate, the turntable, the inference fast path), its
 scale-out (image bands, batched animate, the batched joint step
 through torch.distributed), the Gaussian-sharded renderer and scene
-step, and the convergence recipes (cut) with the blend kernels' edge
-scenes on one NVIDIA GPU (and on several, where the machine has them,
-for one data x tile step).
+step, the convergence recipes (cut) with the blend kernels' edge
+scenes, the blend kernels' POWER_MXU mode, and the scaling harness and
+fragment-packet sizing on one NVIDIA GPU (and on several, where the
+machine has them, for one data x tile step and the scaling runs).
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It builds the CUDA kernels (K1, the forward blend; K2, its backward,
@@ -65,7 +66,10 @@ source, all together, then:
      variants, K2 and K1 + K2 timed, each variant at K2's resident
      blocks per SM (checked); then each kernel against its plain
      version (S2 at grid 16, S1 at r 256 and K 2 from a linspace start,
-     S3 on the whole frame), each variant's bound, and K1's and K2's
+     S3 on the whole frame), each variant's bound, S2's and S1's bounds
+     per pipe (each mode's loop in the SASS counted by pipe, FP32 at 128
+     lanes per SM per clock, MUFU at 16, the ALU at 64, issue at 128, at
+     the SM clock nvidia-smi reads while the mode runs), and K1's and K2's
      operation counts over S2's blendmix rate (`ms_at_s2_blendmix_rate`:
      a second reading beside the bound, not a bound: the counts weigh a
      culled pair's 91 cheap operations as blendmix's mix, so a kernel
@@ -217,6 +221,18 @@ source, all together, then:
      same steps in the exact mode, the losses within MXU_LOSS_RTOL, the
      launches counted per mode; (e) micro/kernel_parity.py's five
      scenes in both modes at the script's bars;
+  3l. the scaling harness and the fragment-packet sizing (after 3k):
+     (a) hugs_tpu_torch.scaling_bench's worker at world 1 in a one-rank
+     NCCL group of its own process (parallel/launch.py::run_ranks) at
+     full width (SCALING_FULL: 960x540, synthetic_smpl(288), human and
+     scene capacity 524,288, a 256^2 triplane of 32 features, the band
+     budget from a binning-only probe, 5 timed steps), its JSON line,
+     one K1 and one K2 launch a step, no overflow, a finite loss; (b)
+     its frame through K1 and K2 against their plain versions (K2 in
+     float64 too); (c) hugs_tpu_torch.gauss_frag_sizing at D = 1 (the
+     script's 65,536-point scene, 6 cameras at 480x272), its JSON line,
+     6 K1 launches; (d) its camera 0's packet against the frame's kept
+     instances, K1 against plain there;
   4. times on the card (CUDA events, median of 20 after warm-up): one
      request split into project / bin / blend, one training step split
      into forward / loss / backward / Adam + stats, one densify step,
@@ -241,7 +257,10 @@ result.
 alone, on phase 3f's sequence trained for 2 steps, then with
 GAUSS_SCALE_OUT cards tpu.gauss_shard=GAUSS_SCALE_OUT on as many NCCL
 ranks (val frame 0 and the gauss steps with a densify against world 1)
-and dryrun_multichip(GAUSS_SCALE_OUT): the paths a machine with several
+and dryrun_multichip(GAUSS_SCALE_OUT), then scaling_bench's launcher
+over 1, 2 and 4 cards at phase 3l's size (each run's state digests
+equal across its ranks) and the sizing on SIZING_RANKS NCCL ranks
+against as many gloo ranks of the CPU: the paths a machine with several
 cards exists for (on one card each says it did not run).
 """
 import json
@@ -441,6 +460,20 @@ MMA_FLOPS = 2 * 16 * 8 * 16   # one mma.sync m16n8k16
 PEAK_BF16_TC = 989e12
 MXU_STEPS = 10            # phase 3k (d): scene_train_step calls per mode
 MXU_LOSS_RTOL = 1e-3
+# phase 3l: hugs_tpu_torch.scaling_bench's worker at full width (960x540,
+# synthetic_smpl(288), human and scene capacity 524,288, a 256^2 triplane
+# of 32 features: HumanGSConfig's widths; the band budget from a
+# binning-only probe; 5 timed steps) and the fragment-packet sizing;
+# --scale-out's launcher over SCALING_PROCS cards and the sizing on
+# SIZING_RANKS NCCL ranks against as many gloo ranks, each frag_counts
+# entry within SIZING_RTOL
+SCALING_FULL = dict(width=W, height=H, capacity=HUMAN_CAPACITY, budget=0,
+                    n_tile=1, iters=5, verts_per_bone=AVATAR_VPB,
+                    triplane_res=256, n_features=32, device="cuda")
+SCALING_PROCS = (1, 2, 4)
+SCALING_TIMEOUT = 900.0
+SIZING_RANKS = 4
+SIZING_RTOL = 1e-3
 
 
 class SceneLR:
@@ -3661,6 +3694,8 @@ def micro_benchmarks(dev, smi, cull_counts):
                     c, *a, S1_CHECK_R), reps=3, warmup=1))
     for op in micro_bf16.OPS:
         print(f"#   S1 {op}: bf16 / f32 = {s1[f'{op}_bf16_speedup']:.3f}")
+    # the bounds per pipe, at the SM clock each mode runs at
+    pipe_bounds(dev, smi, s2_modes, s1_modes)
 
     # ---- S3: K2's skeleton variants on bench.py's frame
     cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
@@ -3760,7 +3795,8 @@ def micro_benchmarks(dev, smi, cull_counts):
         "plain_ms": s2_modes["blendmix"]["plain_ms"],
         "plain_size": f"grid {S2_CHECK_GRID} (the kernel there: check_ms)",
         "bound_ms": s2_modes["blendmix"]["bound_ms"],
-        "bound_by": "operations", "library_ms": None,
+        "bound_by": "operations",
+        "bound_pipe": s2_modes["blendmix"]["bound_pipe"], "library_ms": None,
         "modes": s2_modes, "ffma_per_step": ffma,
         "held_to": "vpu_peak.plain_call", "ok": True,
     }, {
@@ -3772,7 +3808,9 @@ def micro_benchmarks(dev, smi, cull_counts):
         "plain_ms": s1_modes["madd_bfloat16"]["plain_ms"],
         "plain_size": f"r {S1_CHECK_R} (the kernel there: check_ms)",
         "bound_ms": s1_modes["madd_bfloat16"]["bound_ms"],
-        "bound_by": "operations", "library_ms": None,
+        "bound_by": "operations",
+        "bound_pipe": s1_modes["madd_bfloat16"]["bound_pipe"],
+        "library_ms": None,
         "modes": s1_modes,
         "bf16_speedup": {op: s1[f"{op}_bf16_speedup"]
                          for op in micro_bf16.OPS},
@@ -3793,6 +3831,307 @@ def micro_benchmarks(dev, smi, cull_counts):
         "held_to": "micro_bwd.plain_variant", "ok": True,
     }]
     return entries, s3_launches, blendmix_rate
+
+
+def pipe_bounds(dev, smi, s2_modes, s1_modes):
+    """Phase 3d's bounds of S2 and S1 per pipe: each mode's loop in the
+    kernel's SASS (cuobjdump) counted by pipe (micro.pipe_counts: FP32 at
+    128 lanes per SM per clock, MUFU at 16, the ALU at 64, issue at 128),
+    per pass of a thread, times the passes of a call over every SM's
+    lanes at the SM clock nvidia-smi reads while the mode runs back to
+    back; the fullest pipe bounds the call. S2's loop is one grid step
+    (INNER steps or pairs, the grid loop not unrolled); S1's an unrolled
+    run of passes, counted by its one FFMA (float32 madd), HMUL2 (bf16
+    madd) or MUFU.EX2 per element (exp). Adds the bound and its pipe, the
+    counts, the clock and the share of the measured time to each mode's
+    entry; the count at 67 T stays as bound_ms_67t."""
+    from hugs_tpu_torch import build
+    from hugs_tpu_torch.micro import (
+        loop_opcodes, micro_bf16, pipe_bound_ms, pipe_counts, sass_listing,
+        sm_clock_mhz, vpu_peak,
+    )
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    libs = build.build([vpu_peak.SOURCE, micro_bf16.SOURCE])
+    index = dev.index or 0
+
+    def record(entry, name, loop, passes, threads, clock):
+        per = {p: n / passes for p, n in pipe_counts(loop).items()}
+        ms, pipe = pipe_bound_ms(per, threads, clock, sms)
+        entry.update(bound_ms_67t=entry["bound_ms"], bound_ms=ms,
+                     bound_pipe=pipe, pipes_per_pass=per,
+                     loop_passes=passes, sm_clock_mhz=clock,
+                     share_of_bound=ms / entry["ms"])
+        print(f"#   {name}: SASS per pass of a thread " + ", ".join(
+            f"{p} {n:g}" for p, n in per.items())
+            + f" ({len(loop)} instructions in the loop, {passes:g} passes);"
+            f" SM clock {clock:.0f} MHz x {sms} SMs: bound {ms:.5f} ms by "
+            f"{pipe}, {ms / entry['ms'] * 100:.1f}% of its {entry['ms']:.4f}"
+            f" ms (at 67 T: {entry['bound_ms_67t']:.5f})  [{smi}]")
+
+    x = vpu_peak.start_block(dev)
+    for i, mode in enumerate(vpu_peak.MODES):
+        loop = loop_opcodes(sass_listing(
+            libs[vpu_peak.SOURCE], f"vpu_peak_kernelILi{i}ELi{vpu_peak.INNER}E"))
+        clock = sm_clock_mhz(lambda m=mode: vpu_peak.run(x, m), index=index)
+        # one pass is a grid step: INNER steps of the four chains, 4 INNER
+        # of the serial one, or INNER blend pairs
+        record(s2_modes[mode], f"S2 {mode}", loop, 1,
+               x.numel() * vpu_peak.GRID, clock)
+    c = torch.tensor([[micro_bf16.C_VALUE]], device=dev)
+    r = micro_bf16.RS[-1]
+    for j, op in enumerate(micro_bf16.OPS):
+        for name, dtype in micro_bf16.DTYPES.items():
+            bf16 = name == "bfloat16"
+            loop = loop_opcodes(sass_listing(
+                libs[micro_bf16.SOURCE],
+                f"passes_{'bf16' if bf16 else 'f32'}ILi{j}E"))
+            bases = [o.split(".")[0] for o in loop]
+            if op == "exp":
+                passes = loop.count("MUFU.EX2") / (2 if bf16 else 1)
+            elif bf16:
+                passes = bases.count("HMUL2") + bases.count("HFMA2")
+            else:
+                passes = bases.count("FFMA")
+            if not passes:
+                raise AssertionError(f"S1 {op}_{name}: no pass in its loop's "
+                                     f"SASS {loop}")
+            xs = torch.full((micro_bf16.P, micro_bf16.C), micro_bf16.START,
+                            dtype=dtype, device=dev)
+            clock = sm_clock_mhz(lambda: micro_bf16.passes(c, xs, op, r),
+                                 index=index)
+            record(s1_modes[f"{op}_{name}"], f"S1 {op}_{name}", loop, passes,
+                   xs.numel() // (2 if bf16 else 1) * r, clock)
+
+
+def check_scaling(rec, procs):
+    """Raises unless a scaling_bench record of `procs` ranks stepped
+    without overflow to a finite loss, launched K1 and K2 once a frame of
+    each step on its rank, and left every rank in the same state."""
+    if rec["procs"] != procs or rec["overflowed"]:
+        raise AssertionError(f"scaling_bench on {procs} ranks: procs "
+                             f"{rec['procs']}, overflowed {rec['overflowed']}")
+    if not math.isfinite(rec["loss"]):
+        raise AssertionError(f"scaling_bench loss {rec['loss']}")
+    if rec["k1_per_step"] != 1 or rec["k2_per_step"] != 1:
+        raise AssertionError(f"scaling_bench launched K1 {rec['k1_launches']}"
+                             f" and K2 {rec['k2_launches']} in "
+                             f"{rec['iters']} steps")
+    if len(set(rec["state_digests"])) != 1:
+        raise AssertionError(f"the ranks' states differ after the steps: "
+                             f"{rec['state_digests']}")
+
+
+def scaling_line(rec, smi):
+    prof = rec["device_profile"] or {}
+    idle = prof.get("idle_share")
+    ev = rec["step_ms_events_median"]
+    print(f"# scaling_bench, {rec['procs']} rank(s), mesh {rec['mesh']}: "
+          f"step {rec['step_ms']:.4f} ms (host clock, mean of "
+          f"{rec['iters']}; CUDA events median "
+          + (f"{ev:.4f}" if ev is not None else "not measured")
+          + f"), {rec['px_per_s']:.1f} px/s,"
+          f" grad all-reduce {rec['grad_allreduce_ms']:.4f} ms of "
+          f"{rec['grad_payload_mb']} MB, comm_fraction "
+          f"{rec['comm_fraction']:.5f}; device idle "
+          + (f"{idle * 100:.1f}%, NCCL {prof['nccl_share'] * 100:.1f}% of "
+             f"the traced step" if idle is not None else "not measured")
+          + f"; loss {rec['loss']:.7f}; budget {rec['budget']}; K1 / K2 "
+          f"{rec['k1_launches']} / {rec['k2_launches']} in {rec['iters']} "
+          f"steps on rank 0  [{rec['card'] or smi}]")
+
+
+def scaling_frame_check(dev, smi, budget):
+    """Phase 3l (b): scaling_bench's world-1 frame at full width (its
+    models from the same seed, the step's initial state) through K1 and K2
+    against their plain versions (K2 in float64 too) at the step's band
+    budget. Returns the largest differences."""
+    from hugs_tpu_torch import scaling_bench as sb
+    from hugs_tpu_torch.models import human_gs as hgs
+    from hugs_tpu_torch.models import scene_gs as sgs
+    from hugs_tpu_torch.parallel.shard import band_height
+    from hugs_tpu_torch.render import cuda_blend
+    from hugs_tpu_torch.render.blend import (
+        gauss_features, plain_blend, plain_blend_bwd,
+    )
+    from hugs_tpu_torch.render.project import project_gaussians
+    from hugs_tpu_torch.render.tiles import bin_gaussians
+
+    cfg, fixed, js, _ = sb.build_models(SCALING_FULL, 1, dev)
+    fr = sb.whole_batch(1, W, H, dev)[0]
+    band_h = band_height(H, 1)
+    with torch.no_grad():
+        h_out = hgs.human_forward(js.human.params, js.human.state, fixed,
+                                  cfg, smpl_scale=fr["smpl_scale"],
+                                  dataset_idx=0, compute_gt_lbs=False)
+        s_out = sgs.scene_forward(js.scene.gs)
+        a = {k: torch.cat([h_out[k], s_out[k]]) for k in
+             ("xyz", "scales", "rotq", "opacity", "shs", "alive")}
+        pg = project_gaussians(a["xyz"], a["scales"], a["rotq"],
+                               a["opacity"], a["shs"], fr["camera"], W, H,
+                               h_out["active_sh_degree"], alive=a["alive"])
+        bins = bin_gaussians(pg, W, band_h, budget)
+        if bool(bins.overflowed):
+            raise AssertionError(f"scaling_bench's frame overflowed {budget}")
+        feat = gauss_features(pg)
+        args = (feat, bins.gauss_id, bins.starts, bins.ends, fr["bg"], W,
+                band_h)
+        raw, logt, nwalk, _ = cuda_blend.blend_fwd(*args)
+        raw_p, _, _ = plain_blend(*args)
+        k1_err = held(f"(b) K1 raw image vs plain, scaling_bench's frame "
+                      f"({a['xyz'].shape[0]} rows, {int(bins.n_instances)} "
+                      f"instances)", raw, raw_p)
+        g = torch.Generator(device=dev).manual_seed(SEED + 53)
+        gr = torch.rand((3, band_h, W), generator=g, device=dev)
+        gf_k, _ = cuda_blend.blend_bwd(*args, gr, logt, nwalk)
+        gf_p, _ = plain_blend_bwd(*args, gr)
+        gf_64, _ = plain_blend_bwd(feat.double(), *args[1:4],
+                                   fr["bg"].double(), W, band_h,
+                                   gr.double())
+        k2_err = held_grad("(b) K2 grad_feat vs plain, scaling_bench's "
+                           "frame", gf_k[:, :9], gf_p[:, :9], gf_64[:, :9])
+    print(f"# (b) scaling_bench's frame at budget {budget}: K1 max |d| "
+          f"{k1_err:.3e}, K2 max |d| {k2_err:.3e}  [{smi}]")
+    return {"k1_err": k1_err, "k2_err": k2_err,
+            "instances": int(bins.n_instances)}
+
+
+def sizing_frame_check(dev, smi, sizing):
+    """Phase 3l (d): the sizing's camera 0 at D = 1 on the card: its one
+    packet holds every instance the whole frame's binning keeps at the
+    same budget, and K1 on those bins equals its plain version."""
+    from hugs_tpu_torch import gauss_frag_sizing as gfs
+    from hugs_tpu_torch.render import cuda_blend
+    from hugs_tpu_torch.render.blend import gauss_features, plain_blend
+    from hugs_tpu_torch.render.project import project_gaussians
+    from hugs_tpu_torch.render.tiles import bin_gaussians
+
+    s = {k: torch.tensor(v, device=dev) for k, v in
+         sizing["scene"].items()}
+    cam = gfs.camera_frames(device=dev)[0]["camera"]
+    with torch.no_grad():
+        pg = project_gaussians(s["means"], s["scales"], s["rotq"],
+                               s["opacity"], s["shs"], cam, gfs.W, gfs.H, 3)
+        bins = bin_gaussians(pg, gfs.W, gfs.H, sizing["local_budget_default"])
+        kept = int((bins.ends - bins.starts).sum())
+        got = sizing["frag_counts_per_camera"][0][0][0]
+        print(f"# (d) the sizing's camera 0 at D = 1: {got} fragments, the "
+              f"frame's bins keep {kept}  [{smi}]")
+        if got != kept or bool(bins.overflowed):
+            raise AssertionError("the sizing's packet is not the frame's "
+                                 "kept instances")
+        black = torch.zeros(3, device=dev)
+        args = (gauss_features(pg), bins.gauss_id, bins.starts, bins.ends,
+                black, gfs.W, gfs.H)
+        raw = cuda_blend.blend_fwd(*args)[0]
+        return held("(d) K1 raw image vs plain, the sizing's camera 0", raw,
+                    plain_blend(*args)[0])
+
+
+def scaling_phase(dev, smi):
+    """Phase 3l, the scaling harness and the fragment-packet sizing on one
+    card (see the module docstring). Raises if a check fails; returns its
+    numbers."""
+    from hugs_tpu_torch import gauss_frag_sizing as gfs
+    from hugs_tpu_torch import scaling_bench as sb
+    from hugs_tpu_torch.parallel.launch import run_ranks
+    from hugs_tpu_torch.render import cuda_blend
+
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    # (a) the worker at world 1 in a one-rank NCCL group, a process of
+    # its own on this card
+    t0 = time.time()
+    rec = run_ranks(sb.worker_rank, 1, (SCALING_FULL, "cuda"),
+                    backend="nccl", timeout=SCALING_TIMEOUT)[0]
+    worker_s = time.time() - t0
+    print(json.dumps({"scaling_bench": rec}))
+    scaling_line(rec, smi)
+    print(f"# (a) the worker took {worker_s:.1f} s (host clock), spawn and "
+          f"models included")
+    check_scaling(rec, 1)
+    frame = scaling_frame_check(dev, smi, rec["budget"])
+    torch.cuda.empty_cache()
+    # (c) the sizing at D = 1, in this process
+    scene = gfs.sizing_scene(gfs.N, dev)
+    cuda_blend.LAUNCHES = 0
+    t0 = time.time()
+    sizing = gfs.measure("cuda", 1, scene=scene)
+    sizing_s = time.time() - t0
+    k1 = cuda_blend.LAUNCHES
+    sizing["card"] = smi
+    print(json.dumps({"gauss_frag_sizing": sizing}))
+    print(f"# (c) the sizing at D = 1: per-pair max "
+          f"{sizing['measured_per_pair_max']}, per-band max "
+          f"{sizing['measured_per_band_max']}, frag_cap recommended "
+          f"{sizing['frag_cap_recommended']} of {sizing['frag_cap_default']};"
+          f" {k1} K1 launches for {gfs.N_CAMS} cameras; {sizing_s:.1f} s "
+          f"(host clock)  [{smi}]")
+    if k1 != gfs.N_CAMS:
+        raise AssertionError(f"the sizing launched K1 {k1} times")
+    sizing_err = sizing_frame_check(dev, smi, dict(sizing, scene=scene))
+    out = {"scaling": rec, "frame": frame, "sizing": sizing,
+           "sizing_k1": k1, "sizing_err": sizing_err, "worker_s": worker_s,
+           "phase_s": time.time() - t_phase}
+    print(f"# phase 3l: {out['phase_s']:.1f} s (host clock)  [{smi}]")
+    return out
+
+
+def scaling_cards(smi, out_dir):
+    """--scale-out's scaling runs: hugs_tpu_torch.scaling_bench's launcher
+    over SCALING_PROCS (those the cards allow) at phase 3l's size, each
+    checked as there; then the sizing on SIZING_RANKS NCCL ranks held to
+    the same scene on as many gloo ranks of the CPU, each entry within
+    SIZING_RTOL. Returns its numbers, or None (and says so) with fewer
+    cards than two."""
+    from hugs_tpu_torch import gauss_frag_sizing as gfs
+    from hugs_tpu_torch import scaling_bench as sb
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"# scaling over cards: not run, torch.cuda.device_count() = "
+              f"{n_cards}")
+        return None
+    procs = [p for p in SCALING_PROCS if p <= n_cards]
+    t0 = time.time()
+    recs = sb.launch(dict(SCALING_FULL, procs=procs, out=out_dir))
+    launch_s = time.time() - t0
+    for p, rec in zip(procs, recs):
+        scaling_line(rec, smi)
+        check_scaling(rec, p)
+    out = {"scaling": recs, "launch_s": launch_s}
+    print(f"# scaling_bench launcher, procs {procs}: {launch_s:.1f} s (host "
+          f"clock)")
+    if n_cards < SIZING_RANKS:
+        print(f"# the sizing at D = {SIZING_RANKS}: not run, "
+              f"{n_cards} cards")
+        return out
+    scene = gfs.sizing_scene(gfs.N, "cuda")
+    t0 = time.time()
+    card_rec = gfs.measure("cuda", SIZING_RANKS, scene=scene)
+    card_s = time.time() - t0
+    t0 = time.time()
+    cpu_rec = gfs.measure("cpu", SIZING_RANKS, scene=scene)
+    cpu_s = time.time() - t0
+    a = np.asarray(card_rec["frag_counts_per_camera"])
+    b = np.asarray(cpu_rec["frag_counts_per_camera"])
+    d = np.abs(a - b)
+    print(json.dumps({"gauss_frag_sizing": dict(card_rec, card=smi)}))
+    print(f"# the sizing at D = {SIZING_RANKS}: cards (NCCL, {card_s:.1f} s)"
+          f" vs CPU (gloo, {cpu_s:.1f} s): {int((d > 0).sum())} of {d.size}"
+          f" entries differ, by up to {int(d.max())} "
+          f"({float((d / np.maximum(b, 1)).max()) * 100:.4f}%); per-pair max"
+          f" {card_rec['measured_per_pair_max']} / "
+          f"{cpu_rec['measured_per_pair_max']}, per-band max "
+          f"{card_rec['measured_per_band_max']} / "
+          f"{cpu_rec['measured_per_band_max']}, frag_cap "
+          f"{card_rec['frag_cap_recommended']} / "
+          f"{cpu_rec['frag_cap_recommended']}; K1 per rank "
+          f"{card_rec['k1_launches']}  [{smi}]")
+    if not bool((d <= SIZING_RTOL * b).all()):
+        raise AssertionError("the cards' frag_counts are not the CPU's")
+    out.update(sizing=card_rec, sizing_cpu=cpu_rec, sizing_s=card_s,
+               sizing_cpu_s=cpu_s, sizing_entries_differ=int((d > 0).sum()))
+    return out
 
 
 def main():
@@ -4407,6 +4746,11 @@ def main():
                   "budget": train_budget0}}, blendmix_rate)
     mxf = mxu["frames"]
     mxu_parity = [c for c in mxu["kernel_parity"] if c["power_mxu"]]
+    # ---- 3l. the scaling harness and the fragment-packet sizing, after 3k
+    print(f"# phase 3l starts at {time.time() - t_start:.1f} s (host "
+          f"clock)")
+    scaling = scaling_phase(dev, smi)
+    sc = scaling["scaling"]
 
     # K1 and K2 against the rate S2 measured on the blend's mix
     at_s2 = {
@@ -4451,7 +4795,8 @@ def main():
         + human["k1_launches"] + joint["k1_launches"]
         + joint["k1_after_train"] + evaln["k1_launches"]
         + evaln["fast_launches"] + sum(BANDS) + scale["anim_k1"]
-        + scale["dp_k1"] + gauss_k1 + sum(recipe_by_path["K1"].values()),
+        + scale["dp_k1"] + gauss_k1 + sum(recipe_by_path["K1"].values())
+        + sc["k1_launches"] + scaling["sizing_k1"],
         "launches_by_path": {"serving": launches, "training": k1_train,
                              "avatar": avatar["launches"],
                              "human_training": human["k1_launches"],
@@ -4466,6 +4811,8 @@ def main():
                              "batched_joint_step": scale["dp_k1"],
                              **gauss_by_path["K1"],
                              **recipe_by_path["K1"],
+                             "scaling_bench_steps": sc["k1_launches"],
+                             "gauss_frag_sizing": scaling["sizing_k1"],
                              "micro_bwd": s3_launches["K1"]},
         "max_abs_err": max(max_err, avatar["max_abs_err"], human["k1_err"],
                            joint["k1_err"], evaln["k1_err"],
@@ -4476,7 +4823,8 @@ def main():
                                "human_avatar", "joint_scene",
                                "surface_scene")),
                            *(c["k1"]["max_abs"]
-                             for c in recipes["kernel_parity"])),
+                             for c in recipes["kernel_parity"]),
+                           scaling["frame"]["k1_err"], scaling["sizing_err"]),
         "frame": "serving (phase 2)",
         "ms": serve_t["k1"], "call_ms": serve_t["k1_call"],
         "plain_ms": serve_t["plain"], "bound_ms": serve_t["k1_bound"],
@@ -4528,6 +4876,13 @@ def main():
         "gauss_main": {k: gauss["main"][k] for k in (
             "main_s", "k1", "render_frame_max_abs")},
         "graft_entry": gauss["graft_entry"],
+        "scaling_bench": {k: sc[k] for k in (
+            "procs", "mesh", "step_ms", "step_ms_events_median", "px_per_s",
+            "grad_allreduce_ms", "grad_payload_mb", "comm_fraction",
+            "budget", "device_profile", "k1_launches", "k2_launches")},
+        "gauss_frag_sizing": {k: scaling["sizing"][k] for k in (
+            "ranks", "measured_per_pair_max", "measured_per_band_max",
+            "frag_cap_recommended", "k1_launches")},
         "pergs_frame": gauss["pergs"],
         "batched_animate_ms_per_frame": scale["anim_ms"],
         "ms_at_s2_blendmix_rate": at_s2["K1"],
@@ -4560,7 +4915,7 @@ def main():
         "replaces": "hugs_tpu/render/pallas_blend.py:486",
         "launches": k2_train + human["k2_launches"] + joint["k2_launches"]
         + sum(BANDS) + scale["dp_k2"] + gauss_k2
-        + sum(recipe_by_path["K2"].values()),
+        + sum(recipe_by_path["K2"].values()) + sc["k2_launches"],
         "launches_by_path": {"serving": k2_serve, "training": k2_train,
                              "avatar": avatar["k2_launches"],
                              "human_training": human["k2_launches"],
@@ -4570,8 +4925,10 @@ def main():
                              "batched_joint_step": scale["dp_k2"],
                              **gauss_by_path["K2"],
                              **recipe_by_path["K2"],
+                             "scaling_bench_steps": sc["k2_launches"],
                              "micro_bwd": s3_launches["K2"]},
         "max_abs_err": max(k2_err, human["k2_err"], joint["k2_err"],
+                           scaling["frame"]["k2_err"],
                            *(scale["bands"][n]["grad_max_abs"]
                              for n in BANDS),
                            gauss["frame"]["grad_max_abs"],
@@ -4822,8 +5179,10 @@ def scale_out_cards():
     """`python3 chip_smoke.py --scale-out`: phase 3h's checks (c) and (d)
     alone, for a machine with several cards (the data x tile step on up
     to DP_RANKS_MAX of them against the batched step at world size 1),
-    on phase 3f's sequence trained with SCALE_OUT_CUTS. Prints one JSON
-    line of its numbers last; raises if a check fails."""
+    on phase 3f's sequence trained with SCALE_OUT_CUTS; the
+    Gaussian-sharded check; then scaling_cards (the scaling harness at 1,
+    2 and 4 cards, the sizing on 4). Prints one JSON line of its numbers
+    last; raises if a check fails."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -4852,11 +5211,14 @@ def scale_out_cards():
         multi = multi_card_check(smi, dcfg, step["dp_loss"])
         torch.cuda.empty_cache()
         gauss = gauss_cards_check(smi, root)
+        torch.cuda.empty_cache()
+        scaling = scaling_cards(smi, os.path.join(root, "scaling_bench"))
     print(f"# --scale-out: {time.time() - t0:.1f} s (host clock)  [{smi}]")
     print(json.dumps({"scale_out": {
         "device": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(), "card": smi,
-        "batched_step": step, "multi_rank": multi, "gauss_shard": gauss}}))
+        "batched_step": step, "multi_rank": multi, "gauss_shard": gauss,
+        "scaling": scaling}}))
     return 0
 
 

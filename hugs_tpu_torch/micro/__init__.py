@@ -29,6 +29,7 @@ import math
 import re
 import statistics
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -305,30 +306,149 @@ def parse_args(description: str, argv=None, **extra) -> argparse.Namespace:
     return args
 
 
-_SASS_LINE = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)")
+_SASS_LINE = re.compile(
+    r"^\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)([^;]*);")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_BRA_TARGET = re.compile(r"(0x[0-9a-f]+)|`\((\.L_x_\d+)\)")
+
+# Lanes per SM per clock of the Hopper (sm_90) pipes a loop of S1 or S2
+# issues to (NVIDIA H100 architecture white paper: 128 FP32 lanes, 64
+# INT32 lanes and 16 special-function units per SM, 4 schedulers issuing
+# one warp instruction each per clock): `fp32` the FFMA / FADD / FMUL and
+# packed-16-bit HFMA2 / HADD2 / HMUL2 instructions; `mufu` the special
+# functions and conversions; `alu` compares, selects, min / max, integer
+# and logic instructions; `issue` every instruction but the control
+# flow's and the uniform datapath's.
+PIPE_LANES = {"fp32": 128, "mufu": 16, "alu": 64, "issue": 128}
+_FP32 = ("FFMA", "FADD", "FMUL", "HFMA2", "HADD2", "HMUL2")
+_MUFU = ("MUFU", "F2F", "I2F", "F2I", "FRND")
+_NOT_ISSUED_WORK = ("BRA", "EXIT", "NOP", "BSSY", "BSYNC", "WARPSYNC",
+                    "RET", "CALL", "BAR")
+
+
+def sass_text(lib: Path) -> str:
+    """cuobjdump -sass of library `lib`, from the cuobjdump beside nvcc."""
+    from hugs_tpu_torch import build
+    tool = Path(build.nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        raise RuntimeError(f"no cuobjdump beside nvcc ({tool})")
+    return subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+
+
+def sass_listing(lib: Path, function: str) -> list[tuple[int, str, str]]:
+    """(address, opcode, operands) of each instruction, in order, of the
+    function whose name contains `function` in the SASS of `lib`; a
+    branch's label operand is replaced by the label's address."""
+    out, labels, inside, found = [], {}, False, False
+    pending = []
+    for line in sass_text(lib).splitlines():
+        if "Function :" in line:
+            inside = function in line
+            found = found or inside
+            continue
+        if not inside:
+            continue
+        lab = _SASS_LABEL.match(line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = _SASS_LINE.match(line)
+        if m:
+            addr = int(m.group(1), 16)
+            for name in pending:
+                labels[name] = addr
+            pending = []
+            out.append((addr, m.group(2), m.group(3).strip()))
+    if not found:
+        raise RuntimeError(f"no function {function} in the SASS of {lib}")
+    for i, (addr, op, args) in enumerate(out):
+        t = _BRA_TARGET.search(args) if op.startswith("BRA") else None
+        if t and t.group(2) in labels:
+            out[i] = (addr, op, hex(labels[t.group(2)]))
+    return out
 
 
 def sass_opcodes(lib: Path, function: str) -> list[str]:
     """The opcodes, in order, of the function whose name contains
     `function` in the SASS of library `lib`, from cuobjdump beside nvcc."""
-    from hugs_tpu_torch import build
-    tool = Path(build.nvcc()).parent / "cuobjdump"
-    if not tool.is_file():
-        raise RuntimeError(f"no cuobjdump beside nvcc ({tool})")
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-    ops, inside, found = [], False, False
-    for line in sass.splitlines():
-        if "Function :" in line:
-            inside = function in line
-            found = found or inside
-        elif inside:
-            m = _SASS_LINE.match(line)
-            if m:
-                ops.append(m.group(1))
-    if not found:
-        raise RuntimeError(f"no function {function} in the SASS of {lib}")
-    return ops
+    return [op for _, op, _ in sass_listing(lib, function)]
+
+
+def loop_opcodes(listing: list[tuple[int, str, str]]) -> list[str]:
+    """The opcodes of the widest loop of a sass_listing: from a backward
+    branch's target through the branch."""
+    best = None
+    for addr, op, args in listing:
+        t = _BRA_TARGET.search(args) if op.startswith("BRA") else None
+        if t and t.group(1) and int(t.group(1), 16) < addr:
+            span = (int(t.group(1), 16), addr)
+            if best is None or span[1] - span[0] > best[1] - best[0]:
+                best = span
+    if best is None:
+        raise RuntimeError("no backward branch: the function has no loop")
+    return [op for addr, op, _ in listing if best[0] <= addr <= best[1]]
+
+
+def pipe_counts(opcodes: list[str]) -> dict:
+    """Instructions per PIPE_LANES pipe (`issue` counts every one but the
+    control flow and the uniform datapath's)."""
+    n = dict.fromkeys(PIPE_LANES, 0)
+    for op in opcodes:
+        base = op.split(".")[0]
+        if base in _NOT_ISSUED_WORK or base.startswith("U"):
+            continue
+        n["issue"] += 1
+        if base in _FP32:
+            n["fp32"] += 1
+        elif base in _MUFU:
+            n["mufu"] += 1
+        elif not base.startswith(("LD", "ST", "S2R", "CS2R", "RED", "ATOM")):
+            n["alu"] += 1
+    return n
+
+
+def pipe_bound_ms(per_thread: dict, threads: int, clock_mhz: float,
+                  sms: int) -> tuple[float, str]:
+    """The least ms `threads` threads take that each issue `per_thread`
+    instructions per pipe (pipe_counts' keys), every SM's pipes full at
+    clock_mhz: (the largest pipe's ms, that pipe)."""
+    ms = {p: per_thread[p] * threads / (PIPE_LANES[p] * sms * clock_mhz
+                                        * 1e6) * 1e3
+          for p in PIPE_LANES}
+    pipe = max(ms, key=ms.get)
+    return ms[pipe], pipe
+
+
+def sm_clock_mhz(fn, seconds: float = 1.0, index: int = 0) -> float:
+    """The SM clock (MHz) nvidia-smi reads while fn() runs back to back
+    for about `seconds`: the median of its samples."""
+    import threading
+    samples, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            out = subprocess.run(
+                ["nvidia-smi", "-i", str(index), "--query-gpu=clocks.sm",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, timeout=60)
+            if out.returncode == 0 and out.stdout.strip():
+                samples.append(float(out.stdout.split()[0]))
+
+    fn()
+    torch.cuda.synchronize()
+    t = threading.Thread(target=poll, daemon=True)
+    end = time.monotonic() + seconds
+    t.start()
+    while time.monotonic() < end or (not samples and time.monotonic()
+                                     < end + 30.0):
+        fn()
+        torch.cuda.synchronize()
+    stop.set()
+    t.join()
+    if not samples:
+        raise RuntimeError("nvidia-smi read no SM clock")
+    return statistics.median(samples)
 
 
 def emit(result: dict, out: str | None) -> None:

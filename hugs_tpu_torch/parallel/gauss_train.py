@@ -22,7 +22,7 @@ counterpart of hugs_tpu/parallel/gauss_train.py).
     parameters, both moments and the statistics, (59 x 3 + 3) float32
     and one bool a row at SH degree 3, 721 B a row (1.51 GB at
     2,097,152 rows). A densify on the owner's rows alone is later work
-    (ROADMAP Queue 4).
+    (ROADMAP's Performance item 3(c)).
 """
 from __future__ import annotations
 

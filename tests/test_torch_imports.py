@@ -143,6 +143,16 @@ def test_convergence_modules_are_among_the_checked():
             path, "__init__.py") in sources, name
 
 
+def test_scaling_modules_are_among_the_checked():
+    """The scaling harness and the fragment-packet sizing stand alone
+    like the rest: the checks around this one walk them."""
+    modules = _port_modules()
+    sources = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for name in ("scaling_bench", "gauss_frag_sizing"):
+        assert f"hugs_tpu_torch.{name}" in modules, name
+        assert os.path.join("hugs_tpu_torch", name + ".py") in sources, name
+
+
 def _chip_smoke(cwd, code=None):
     """chip_smoke.py run in a fresh interpreter from `cwd` (or `code`, a
     program that runs it), the repository off the path unless cwd is it."""

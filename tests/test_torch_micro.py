@@ -171,6 +171,48 @@ def test_sass_opcodes_reads_one_function(tmp_path, monkeypatch):
         micro.sass_opcodes(tmp_path / "lib.so", "c_kernel")
 
 
+
+def test_loop_pipes_of_the_widest_loop(tmp_path, monkeypatch):
+    """The widest loop (a backward branch's target through the branch,
+    by address or by label) and its instructions per pipe; the bound of
+    the fullest pipe at a clock."""
+    from hugs_tpu_torch import build
+    from hugs_tpu_torch import micro
+    (tmp_path / "nvcc").write_text("")
+    (tmp_path / "cuobjdump").write_text("")
+    sass = "\n".join([
+        "\t\tFunction : _ZN4a_kernelILi0EEEvPf",
+        "        /*0000*/                   MOV R1, c[0x0][0x28] ;",
+        "        /*0010*/                   FFMA R2, R2, R3, R4 ;",
+        "        /*0020*/                   MUFU.EX2 R2, R2 ;",
+        "        /*0030*/                   FSETP.GT.AND P0, PT, R2, R3, PT ;",
+        "        /*0040*/                   ISETP.NE.AND P1, PT, R5, RZ, PT ;",
+        "        /*0050*/               @P1 BRA 0x10 ;",
+        "        /*0060*/                   FADD R2, R2, R3 ;",
+        "        /*0070*/                   BRA 0x60 ;",
+        "\t\tFunction : _ZN4b_kernelEv",
+        ".L_x_1:",
+        "        /*0000*/                   HMUL2.BF16_V2 R2, R2, R3 ;",
+        "        /*0010*/                   ULDC UR4, c[0x0][0x0] ;",
+        "        /*0020*/               @P0 BRA `(.L_x_1) ;",
+    ])
+    monkeypatch.setattr(build, "nvcc", lambda: str(tmp_path / "nvcc"))
+    monkeypatch.setattr(micro.subprocess, "run", lambda *a, **k: type(
+        "Done", (), {"stdout": sass})())
+    ops = micro.loop_opcodes(micro.sass_listing(tmp_path / "lib.so",
+                                                "a_kernel"))
+    assert ops == ["FFMA", "MUFU.EX2", "FSETP.GT.AND", "ISETP.NE.AND",
+                   "BRA"]
+    n = micro.pipe_counts(ops)
+    assert n == {"fp32": 1, "mufu": 1, "alu": 2, "issue": 4}
+    b = micro.loop_opcodes(micro.sass_listing(tmp_path / "lib.so",
+                                              "b_kernel"))
+    assert micro.pipe_counts(b) == {"fp32": 1, "mufu": 0, "alu": 0,
+                                    "issue": 1}
+    # 16 x 132 x 1000 MHz threads a ms on the special-function units
+    ms, pipe = micro.pipe_bound_ms(n, 16 * 132 * 10**6, 1000.0, 132)
+    assert pipe == "mufu" and ms == pytest.approx(1.0)
+
 # ---- S1
 
 def _bf16_ulp(v):
