@@ -69,7 +69,13 @@ source, all together, then:
      S3 on the whole frame), each variant's bound, S2's and S1's bounds
      per pipe (each mode's loop in the SASS counted by pipe, FP32 at 128
      lanes per SM per clock, MUFU at 16, the ALU at 64, issue at 128, at
-     the SM clock nvidia-smi reads while the mode runs), and K1's and K2's
+     the SM clock nvidia-smi reads while the mode runs, per element pass
+     whatever elements a thread the design runs), each mode's chain floor
+     (its chain probe on at most two warps a scheduler: the latency in
+     clocks, the floor at the full run's clock, and the share of the
+     larger of floor and issue bound), the design of S2 serial and S1
+     bfloat16 madd (elements or pairs a thread, threads a block,
+     registers), and K1's and K2's
      operation counts over S2's blendmix rate (`ms_at_s2_blendmix_rate`:
      a second reading beside the bound, not a bound: the counts weigh a
      culled pair's 91 cheap operations as blendmix's mix, so a kernel
@@ -3594,6 +3600,11 @@ def micro_benchmarks(dev, smi, cull_counts):
           f"{s2['grid']}, inner {s2['inner']}, reps {s2['reps']}; "
           f"{s2_launches} launches; FFMA in fma's SASS per grid step "
           f"{ffma['fma']} (INNER x 4 = {ffma['expected']})  [{smi}]")
+    s2_design = dict(vpu_peak.SERIAL_DESIGN, **build.kernel_resources(
+        build.build_logs[vpu_peak.SOURCE], vpu_peak.kernel_name("serial")))
+    print(f"#   S2 serial's design: {s2_design['chains']} elements a thread,"
+          f" {s2_design['threads']} threads a block, "
+          f"{s2_design['registers']} registers")
     for mode in vpu_peak.MODES:
         r = s2[mode]
         print(f"#   S2 {mode}: {r['s_per_rep'] * 1e3:.4f} ms per call, "
@@ -3640,6 +3651,12 @@ def micro_benchmarks(dev, smi, cull_counts):
     s1_launches = micro_bf16.LAUNCHES
     print(f"# S1 micro_bf16: ({micro_bf16.P}, {micro_bf16.C}), K "
           f"{s1['K']}, r {s1['rs']}; {s1_launches} launches  [{smi}]")
+    s1_design = dict(pairs=1, threads=256, **build.kernel_resources(
+        build.build_logs[micro_bf16.SOURCE],
+        micro_bf16.kernel_name("madd", "bfloat16")))
+    print(f"#   S1 madd_bfloat16's design: {s1_design['pairs']} bf16x2 pair "
+          f"a thread, {s1_design['threads']} threads a block, a pass HMUL2 "
+          f"+ HADD2, {s1_design['registers']} registers")
     c = torch.tensor([[micro_bf16.C_VALUE]], device=dev)
     x1 = torch.linspace(-2.0, 3.0, micro_bf16.P * micro_bf16.C,
                         device=dev).reshape(micro_bf16.P, micro_bf16.C)
@@ -3798,6 +3815,7 @@ def micro_benchmarks(dev, smi, cull_counts):
         "bound_by": "operations",
         "bound_pipe": s2_modes["blendmix"]["bound_pipe"], "library_ms": None,
         "modes": s2_modes, "ffma_per_step": ffma,
+        "design": {"serial": s2_design},
         "held_to": "vpu_peak.plain_call", "ok": True,
     }, {
         "name": "S1 micro_bf16", "route": "cuda",
@@ -3811,7 +3829,7 @@ def micro_benchmarks(dev, smi, cull_counts):
         "bound_by": "operations",
         "bound_pipe": s1_modes["madd_bfloat16"]["bound_pipe"],
         "library_ms": None,
-        "modes": s1_modes,
+        "modes": s1_modes, "design": {"madd_bfloat16": s1_design},
         "bf16_speedup": {op: s1[f"{op}_bf16_speedup"]
                          for op in micro_bf16.OPS},
         "held_to": "micro_bf16.plain_passes", "ok": True,
@@ -3837,70 +3855,114 @@ def pipe_bounds(dev, smi, s2_modes, s1_modes):
     """Phase 3d's bounds of S2 and S1 per pipe: each mode's loop in the
     kernel's SASS (cuobjdump) counted by pipe (micro.pipe_counts: FP32 at
     128 lanes per SM per clock, MUFU at 16, the ALU at 64, issue at 128),
-    per pass of a thread, times the passes of a call over every SM's
-    lanes at the SM clock nvidia-smi reads while the mode runs back to
-    back; the fullest pipe bounds the call. S2's loop is one grid step
-    (INNER steps or pairs, the grid loop not unrolled); S1's an unrolled
-    run of passes, counted by its one FFMA (float32 madd), HMUL2 (bf16
-    madd) or MUFU.EX2 per element (exp). Adds the bound and its pipe, the
-    counts, the clock and the share of the measured time to each mode's
-    entry; the count at 67 T stays as bound_ms_67t."""
+    per element pass (micro.pass_bound: the loop's counts over the passes
+    it holds, whatever the design's elements a thread or unrolling), times
+    the element passes of a call over every SM's lanes at the SM clock
+    nvidia-smi reads while the mode runs back to back; the fullest pipe
+    bounds the call. S2's loop is the grid loop (not unrolled), its
+    passes counted by fma's and serial's 4 INNER FFMA per element, one
+    for blendmix (one element a thread); S1's an unrolled run of passes,
+    counted by its one FFMA (float32 madd), HMUL2 and HADD2 (bf16 madd,
+    a pair's pass) or MUFU.EX2 per element (exp). Then
+    each mode's chain floor (chain_floors). Adds the bound and its pipe,
+    the counts, the clock and the share of the measured time to each
+    mode's entry; the count at 67 T stays as bound_ms_67t."""
     from hugs_tpu_torch import build
     from hugs_tpu_torch.micro import (
-        loop_opcodes, micro_bf16, pipe_bound_ms, pipe_counts, sass_listing,
+        loop_opcodes, loop_passes, micro_bf16, pass_bound, sass_listing,
         sm_clock_mhz, vpu_peak,
     )
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     libs = build.build([vpu_peak.SOURCE, micro_bf16.SOURCE])
     index = dev.index or 0
 
-    def record(entry, name, loop, passes, threads, clock):
-        per = {p: n / passes for p, n in pipe_counts(loop).items()}
-        ms, pipe = pipe_bound_ms(per, threads, clock, sms)
+    def record(entry, name, loop, passes, element_passes, clock):
+        if not passes:
+            raise AssertionError(f"{name}: no pass in its loop's SASS "
+                                 f"{loop}")
+        b = pass_bound(loop, passes, element_passes, clock, sms)
+        ms, pipe = b["bound_ms"], b["bound_pipe"]
         entry.update(bound_ms_67t=entry["bound_ms"], bound_ms=ms,
-                     bound_pipe=pipe, pipes_per_pass=per,
+                     bound_pipe=pipe, pipes_per_pass=b["pipes_per_pass"],
                      loop_passes=passes, sm_clock_mhz=clock,
                      share_of_bound=ms / entry["ms"])
-        print(f"#   {name}: SASS per pass of a thread " + ", ".join(
-            f"{p} {n:g}" for p, n in per.items())
+        print(f"#   {name}: SASS per element pass " + ", ".join(
+            f"{p} {n:g}" for p, n in b["pipes_per_pass"].items())
             + f" ({len(loop)} instructions in the loop, {passes:g} passes);"
             f" SM clock {clock:.0f} MHz x {sms} SMs: bound {ms:.5f} ms by "
             f"{pipe}, {ms / entry['ms'] * 100:.1f}% of its {entry['ms']:.4f}"
             f" ms (at 67 T: {entry['bound_ms_67t']:.5f})  [{smi}]")
 
     x = vpu_peak.start_block(dev)
-    for i, mode in enumerate(vpu_peak.MODES):
-        loop = loop_opcodes(sass_listing(
-            libs[vpu_peak.SOURCE], f"vpu_peak_kernelILi{i}ELi{vpu_peak.INNER}E"))
+    for mode in vpu_peak.MODES:
+        loop = loop_opcodes(sass_listing(libs[vpu_peak.SOURCE],
+                                         vpu_peak.kernel_name(mode)))
+        passes = 1 if mode == "blendmix" else loop_passes(
+            loop, ("FFMA",), 4 * vpu_peak.INNER)
         clock = sm_clock_mhz(lambda m=mode: vpu_peak.run(x, m), index=index)
-        # one pass is a grid step: INNER steps of the four chains, 4 INNER
-        # of the serial one, or INNER blend pairs
-        record(s2_modes[mode], f"S2 {mode}", loop, 1,
+        record(s2_modes[mode], f"S2 {mode}", loop, passes,
                x.numel() * vpu_peak.GRID, clock)
     c = torch.tensor([[micro_bf16.C_VALUE]], device=dev)
     r = micro_bf16.RS[-1]
-    for j, op in enumerate(micro_bf16.OPS):
+    marks = {("madd", "float32"): (("FFMA",), 1),
+             ("madd", "bfloat16"): (("HMUL2", "HADD2"), 2),
+             ("exp", "float32"): (("MUFU.EX2",), 1),
+             ("exp", "bfloat16"): (("MUFU.EX2",), 2)}
+    for op in micro_bf16.OPS:
         for name, dtype in micro_bf16.DTYPES.items():
-            bf16 = name == "bfloat16"
             loop = loop_opcodes(sass_listing(
-                libs[micro_bf16.SOURCE],
-                f"passes_{'bf16' if bf16 else 'f32'}ILi{j}E"))
-            bases = [o.split(".")[0] for o in loop]
-            if op == "exp":
-                passes = loop.count("MUFU.EX2") / (2 if bf16 else 1)
-            elif bf16:
-                passes = bases.count("HMUL2") + bases.count("HFMA2")
-            else:
-                passes = bases.count("FFMA")
-            if not passes:
-                raise AssertionError(f"S1 {op}_{name}: no pass in its loop's "
-                                     f"SASS {loop}")
+                libs[micro_bf16.SOURCE], micro_bf16.kernel_name(op, name)))
             xs = torch.full((micro_bf16.P, micro_bf16.C), micro_bf16.START,
                             dtype=dtype, device=dev)
             clock = sm_clock_mhz(lambda: micro_bf16.passes(c, xs, op, r),
                                  index=index)
-            record(s1_modes[f"{op}_{name}"], f"S1 {op}_{name}", loop, passes,
-                   xs.numel() // (2 if bf16 else 1) * r, clock)
+            record(s1_modes[f"{op}_{name}"], f"S1 {op}_{name}", loop,
+                   loop_passes(loop, *marks[op, name]),
+                   xs.numel() // (2 if name == "bfloat16" else 1) * r,
+                   clock)
+    chain_floors(dev, smi, s2_modes, s1_modes)
+
+
+def chain_floors(dev, smi, s2_modes, s1_modes):
+    """Phase 3d's chain floors of S2's and S1's modes: each mode through
+    its chain probe (vpu_peak.measure_chain, micro_bf16.measure_chain:
+    S2 serial at one element a thread, the other modes as they run) on
+    256 elements (S1 bf16: pairs) a thread
+    block per SM, at most two warps a scheduler, so each chain runs near
+    alone; its time at the SM clock read meanwhile gives the chain's
+    latency (clocks a dependent instruction for S2 serial, its FMUL, FADD,
+    FFMA and FADD, and for S1 bf16 madd, its HMUL2 and HADD2; clocks a
+    pass for the others, whose threads may hold several chains, so theirs
+    is an upper bound), and micro.chain_floor_ms that latency at the
+    clock of the mode's full run. A mode's least time is the larger of
+    its issue bound (pipe_bounds) and its floor; adds both readings and
+    the share of the least time to each mode's entry."""
+    from hugs_tpu_torch.micro import chain_floor_ms, micro_bf16, vpu_peak
+    rows = [(f"S2 {mode}", s2_modes[mode], r)
+            for mode, r in vpu_peak.measure_chain(dev).items()]
+    rows += [(f"S1 {key}", s1_modes[key], r)
+             for key, r in micro_bf16.measure_chain(dev).items()]
+    for label, entry, r in rows:
+        clock, latency, depth = (r["sm_clock_mhz"], r["latency_clocks"],
+                                 r["depth"])
+        floor = chain_floor_ms(depth, latency, entry["sm_clock_mhz"])
+        least = max(floor, entry["bound_ms"])
+        entry.update(chain_ms=r["ms"], chain_elements=r["elements"],
+                     chain_sm_clock_mhz=clock, chain_depth=depth,
+                     latency_clocks=latency, chain_floor_ms=floor,
+                     least_ms=least,
+                     least_by="chain" if floor > entry["bound_ms"]
+                     else "issue",
+                     share_of_least=least / entry["ms"])
+        unit = "a dependent instruction" if label in (
+            "S2 serial", "S1 madd_bfloat16") else "a pass"
+        print(f"#   {label}: chain probe on {r['elements']} elements "
+              f"{r['ms']:.5f} ms at {clock:.0f} MHz = {latency:.3f} clocks "
+              f"{unit} ({depth} in a chain); floor {floor:.5f} ms at "
+              f"{entry['sm_clock_mhz']:.0f} MHz, issue bound "
+              f"{entry['bound_ms']:.5f}: least {least:.5f} by "
+              f"{entry['least_by']}, {least / entry['ms'] * 100:.1f}% of its "
+              f"{entry['ms']:.4f} ms  [{smi}]")
 
 
 def check_scaling(rec, procs):

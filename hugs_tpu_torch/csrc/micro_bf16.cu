@@ -24,6 +24,11 @@
 // ex2.approx.f32 on it (cuda_bf16.hpp), so it would only swap expf for
 // the approximate exponent. Every pass stays in registers.
 //
+// bfloat16 `madd` keeps one pair a thread in blocks of 256: on the H100
+// no trial of 1, 2 or 4 pairs a thread, blocks of 128 or 256, or each
+// pass as two HFMA2 ran faster (PERF.md). sm_90a compiles __hmul2 and
+// __hadd2 on bf16 as one HMUL2.BF16_V2 and one HADD2.BF16_V2.
+//
 // Bound on the H100: operations (the block is 512 KB in and out, once).
 
 #include <cuda_bf16.h>

@@ -420,6 +420,44 @@ def pipe_bound_ms(per_thread: dict, threads: int, clock_mhz: float,
     return ms[pipe], pipe
 
 
+def loop_passes(loop: list[str], opcodes: tuple[str, ...],
+                per_pass: float) -> float:
+    """The element passes a loop's opcodes hold: its instructions whose
+    opcode, or the opcode's base before the first dot, is one of
+    `opcodes`, over the `per_pass` such instructions one element's pass
+    issues. A design that runs C elements (or pairs) a thread, or unrolls
+    U passes, holds C or U times one pass's marks in its loop."""
+    n = sum(op in opcodes or op.split(".")[0] in opcodes for op in loop)
+    return n / per_pass
+
+
+def pass_bound(loop: list[str], passes: float, element_passes: float,
+               clock_mhz: float, sms: int) -> dict:
+    """The issue bound of a call from its loop's SASS, reckoned per
+    element pass whatever the design: the loop's instructions per pipe
+    over the `passes` it holds (loop_passes), times the call's
+    `element_passes` (elements, or bf16x2 pairs, times their passes),
+    over every SM's lanes at clock_mhz. Returns {"pipes_per_pass",
+    "bound_ms", "bound_pipe"}."""
+    per = {p: n / passes for p, n in pipe_counts(loop).items()}
+    ms, pipe = pipe_bound_ms(per, element_passes, clock_mhz, sms)
+    return {"pipes_per_pass": per, "bound_ms": ms, "bound_pipe": pipe}
+
+
+def chain_latency(ms: float, depth: float, clock_mhz: float) -> float:
+    """Clocks per dependent instruction of a chain `depth` instructions
+    long that took `ms` alone (its scheduler holding too few warps to
+    hide the latency)."""
+    return ms * 1e-3 * clock_mhz * 1e6 / depth
+
+
+def chain_floor_ms(depth: float, latency: float, clock_mhz: float) -> float:
+    """The least ms one chain of `depth` dependent instructions takes, at
+    `latency` clocks each and clock_mhz: no design of a mode whose every
+    element is such a chain runs faster."""
+    return depth * latency / (clock_mhz * 1e6) * 1e3
+
+
 def sm_clock_mhz(fn, seconds: float = 1.0, index: int = 0) -> float:
     """The SM clock (MHz) nvidia-smi reads while fn() runs back to back
     for about `seconds`: the median of its samples."""

@@ -29,7 +29,9 @@ import ctypes
 import torch
 
 from hugs_tpu_torch import build
-from hugs_tpu_torch.micro import card, device_ms, emit, parse_args
+from hugs_tpu_torch.micro import (
+    card, chain_latency, device_ms, emit, parse_args, sm_clock_mhz,
+)
 
 P, C = 1024, 128
 K = 20              # chained calls per timed block
@@ -101,6 +103,13 @@ def passes(c: torch.Tensor, x: torch.Tensor, op: str, r: int) -> torch.Tensor:
     return out
 
 
+def kernel_name(op: str, dtype: str) -> str:
+    """The kernel of (op, dtype name) in the library's SASS (a part of its
+    mangled name)."""
+    kind = "bf16" if dtype == "bfloat16" else "f32"
+    return f"passes_{kind}ILi{OPS.index(op)}E"
+
+
 def block(c: torch.Tensor, x: torch.Tensor, op: str, r: int,
           k: int = K) -> torch.Tensor:
     """k chained calls, as the script's jitted fori_loop (:62-64)."""
@@ -137,6 +146,42 @@ def measure(device="cuda", rs=RS, k: int = K, timed: int = 5) -> dict:
         for op in OPS:
             out[f"{op}_bf16_speedup"] = (out[f"{op}_bfloat16"]["gop_s"]
                                          / out[f"{op}_float32"]["gop_s"])
+    return out
+
+
+def chain_depth(op: str, dtype: str, r: int = RS[-1]) -> int:
+    """Dependent instructions of one chain in a call: for bfloat16 madd
+    its HMUL2 and HADD2 a pass; for the other kernels a pass counts one
+    (their chain latency is then read in clocks a pass)."""
+    return r * (2 if (op, dtype) == ("madd", "bfloat16") else 1)
+
+
+def measure_chain(device, r: int = RS[-1], timed: int = 20) -> dict:
+    """Each op and type through `passes` (one element, or bf16x2 pair, a
+    thread) on 256 threads' elements per SM, so that each scheduler holds
+    at most two warps and a chain runs near alone: {"op_dtype":
+    {"elements", "ms", "sm_clock_mhz", "depth", "latency_clocks"}}, ms a
+    call (median of `timed` spans of 10 calls), the SM clock nvidia-smi
+    reads while it runs, chain_depth and the clocks per dependent
+    instruction (per pass but for bfloat16 madd)."""
+    dev = torch.device(device)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    c = torch.tensor([[C_VALUE]], dtype=torch.float32, device=dev)
+    out = {}
+    for op in OPS:
+        for name, dtype in DTYPES.items():
+            n = 256 * sms * (2 if name == "bfloat16" else 1)
+            x = torch.linspace(-2.0, 3.0, n, device=dev).to(dtype)
+
+            def probe(a=x, o=op):
+                return passes(c, a, o, r)
+            ms = device_ms(probe, reps=timed, inner=10, warmup=1)
+            clock = sm_clock_mhz(probe, index=dev.index or 0)
+            depth = chain_depth(op, name, r)
+            out[f"{op}_{name}"] = {
+                "elements": n, "ms": ms, "sm_clock_mhz": clock,
+                "depth": depth,
+                "latency_clocks": chain_latency(ms, depth, clock)}
     return out
 
 

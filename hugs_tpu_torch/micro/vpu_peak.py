@@ -13,6 +13,8 @@ each fed the last one's output. f is one of
 The kernel is csrc/vpu_peak.cu (CUDA tensors); `plain_call` is the same
 function in plain PyTorch (CPU tensors, and the reference on the card).
 The rate divides those operation counts by the device time of a call.
+`serial` runs SERIAL_DESIGN's elements a thread; `chain_call` launches
+it at one a thread, the probe that reads its chain's latency.
 
 Run: `python -m hugs_tpu_torch.micro.vpu_peak [--device cpu] [--out F]`;
 on the CPU, at the script's smoke size (its VPU_SMOKE: GRID 8, INNER 4,
@@ -26,7 +28,8 @@ import torch
 
 from hugs_tpu_torch import build
 from hugs_tpu_torch.micro import (
-    card, device_ms, emit, parse_args, sass_opcodes,
+    card, chain_latency, device_ms, emit, parse_args, sass_opcodes,
+    sm_clock_mhz,
 )
 from hugs_tpu_torch.micro.micro_bf16 import fma
 
@@ -39,6 +42,9 @@ CARRY, OUT_SCALE = 1e-20, 1e-6
 # counts a fused multiply-add as two operations
 PEAK_FP32 = 67e12
 SOURCE = "vpu_peak"
+# `serial`'s elements a thread and threads a block, as csrc/vpu_peak.cu
+# builds it (kSerialChains, kSerialThreads)
+SERIAL_DESIGN = {"chains": 4, "threads": 128}
 LAUNCHES = 0    # kernel launches since the count was last set to 0
 
 # the script's constants (vpu_peak.py:64-78), rounded to float32: the
@@ -105,25 +111,41 @@ def vpu_call(x: torch.Tensor, mode: str, grid: int = GRID,
              inner: int = INNER) -> torch.Tensor:
     """One call: the kernel for a CUDA tensor, plain_call for a CPU one.
     x: float32, contiguous; on the card inner is INNER, the kernel's."""
-    global LAUNCHES
     if x.device.type == "cpu":
         return plain_call(x, mode, grid, inner)
-    if mode not in MODES or inner != INNER:
-        raise ValueError(f"the kernel takes mode in {MODES} and inner "
-                         f"{INNER}, not {mode!r}, {inner}")
+    if mode not in MODES:
+        raise ValueError(f"the kernel takes mode in {MODES}, not {mode!r}")
+    return _launch("hugs_vpu_peak", (MODES.index(mode),), x, grid, inner)
+
+
+def chain_call(x: torch.Tensor, grid: int = GRID,
+               inner: int = INNER) -> torch.Tensor:
+    """One `serial` call on the card at one element a thread: vpu_call's
+    output; launched on few elements, it reads the chain's latency."""
+    if x.device.type == "cpu":
+        raise ValueError("chain_call runs on CUDA tensors only")
+    return _launch("hugs_vpu_serial_chain", (), x, grid, inner)
+
+
+def _launch(entry: str, head: tuple, x: torch.Tensor, grid: int,
+            inner: int) -> torch.Tensor:
+    """The library's function `entry` on x (its arguments `head`, then
+    those of hugs_vpu_peak from inner on), counted in LAUNCHES."""
+    global LAUNCHES
+    if inner != INNER:
+        raise ValueError(f"the kernel takes inner {INNER}, not {inner}")
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("x must be contiguous float32")
     dev = x.device
     if dev not in _consts:
         _consts[dev] = CONSTS.to(dev)
     out = torch.empty_like(x)
-    lib = build.load(SOURCE)
-    if lib.hugs_vpu_peak.argtypes is None:
-        lib.hugs_vpu_peak.argtypes = _ARGS
-        lib.hugs_vpu_peak.restype = ctypes.c_int
+    fn = getattr(build.load(SOURCE), entry)
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = _ARGS if head else _ARGS[1:], ctypes.c_int
     with torch.cuda.device(dev):
-        err = lib.hugs_vpu_peak(
-            MODES.index(mode), inner, x.data_ptr(), out.data_ptr(),
+        err = fn(
+            *head, inner, x.data_ptr(), out.data_ptr(),
             _consts[dev].data_ptr(), x.numel(), grid, CARRY, OUT_SCALE,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -146,12 +168,20 @@ def start_block(device) -> torch.Tensor:
         P, CHUNK)
 
 
-def sass_ffma(mode: str = "fma", inner: int = INNER) -> int:
-    """FFMA instructions in the SASS of the kernel for (mode, inner), from
-    cuobjdump beside nvcc: the grid loop is not unrolled, so for fma this
-    is the count per grid step, 4 inner if nothing was folded."""
-    ops = sass_opcodes(build.build([SOURCE])[SOURCE],
-                       f"vpu_peak_kernelILi{MODES.index(mode)}ELi{inner}E")
+def kernel_name(mode: str) -> str:
+    """The kernel of `mode` in the library's SASS (a part of its mangled
+    name)."""
+    if mode == "serial":
+        return (f"vpu_serial_kernelILi{INNER}ELi{SERIAL_DESIGN['chains']}"
+                f"ELi{SERIAL_DESIGN['threads']}E")
+    return f"vpu_peak_kernelILi{MODES.index(mode)}ELi{INNER}E"
+
+
+def sass_ffma(mode: str = "fma") -> int:
+    """FFMA instructions in the SASS of mode's kernel, from cuobjdump
+    beside nvcc: the grid loop is not unrolled, so for fma this is the
+    count per grid step, 4 INNER if nothing was folded."""
+    ops = sass_opcodes(build.build([SOURCE])[SOURCE], kernel_name(mode))
     return sum(op.split(".")[0] == "FFMA" for op in ops)
 
 
@@ -177,8 +207,40 @@ def measure(device="cuda", grid: int = GRID, inner: int = INNER,
                        share_of_peak_fp32=rate / PEAK_FP32)
         out[mode] = res
     if on_card:
-        out["ffma_per_step"] = {"fma": sass_ffma("fma", inner),
+        out["ffma_per_step"] = {"fma": sass_ffma("fma"),
                                 "expected": 4 * inner}
+    return out
+
+
+def chain_depth(mode: str, grid: int = GRID, inner: int = INNER) -> int:
+    """Dependent instructions of one element's chain in a call: for
+    `serial` a step's FMUL and FADD of v, its 4 inner FFMA and the FADD
+    into o; for the other modes a grid step counts one (their chain
+    latency is then read in clocks a step)."""
+    return grid * (4 * inner + 3 if mode == "serial" else 1)
+
+
+def measure_chain(device, timed: int = 20) -> dict:
+    """Each mode on 256 elements per SM, so that each scheduler holds at
+    most two warps (`serial` through chain_call, one element a thread;
+    the others through vpu_call): {mode: {"elements", "ms",
+    "sm_clock_mhz", "depth", "latency_clocks"}}, ms a call (median of
+    `timed` spans of 10 calls), the SM clock nvidia-smi reads while it
+    runs, chain_depth and the clocks per dependent instruction (per grid
+    step but for `serial`)."""
+    dev = torch.device(device)
+    n = 256 * torch.cuda.get_device_properties(dev).multi_processor_count
+    x = torch.linspace(0.0, 1.0, n, device=dev)
+    out = {}
+    for mode in MODES:
+        def probe(m=mode):
+            return chain_call(x) if m == "serial" else vpu_call(x, m)
+        ms = device_ms(probe, reps=timed, inner=10, warmup=1)
+        clock = sm_clock_mhz(probe, index=dev.index or 0)
+        depth = chain_depth(mode)
+        out[mode] = {"elements": n, "ms": ms, "sm_clock_mhz": clock,
+                     "depth": depth,
+                     "latency_clocks": chain_latency(ms, depth, clock)}
     return out
 
 

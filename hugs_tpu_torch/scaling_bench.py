@@ -46,7 +46,10 @@ cpu), K1 and K2 take 16x16 tiles and truncate nothing, and the route
 follows the device (the CUDA kernels on the card, the plain versions on
 the CPU; `backend` in the JSON says which). A worker without a card
 exits 2 unless --device cpu; the launcher refuses an N above the cards
-(two ranks never share a card).
+(two ranks never share a card). With --device cpu the launcher gives its
+ranks RANK_THREADS CPU threads each (OMP_NUM_THREADS, unless the caller
+set it), as parallel/launch.py's ranks run: N ranks share one machine's
+cores, and torchrun itself leaves one rank at every core.
 """
 from __future__ import annotations
 
@@ -70,6 +73,7 @@ from hugs_tpu_torch.micro import card, device_kernels
 from hugs_tpu_torch.models import human_gs as hgs
 from hugs_tpu_torch.models import scene_gs as sgs
 from hugs_tpu_torch.parallel.collectives import pmax
+from hugs_tpu_torch.parallel.launch import RANK_THREADS
 from hugs_tpu_torch.parallel.mesh import Mesh, init_distributed
 from hugs_tpu_torch.parallel.multihost import (
     global_batch, make_hybrid_mesh, sync_hosts,
@@ -397,6 +401,8 @@ def launch(opts: dict, log=print) -> list[dict]:
         env = dict(os.environ)
         env["PYTHONPATH"] = os.pathsep.join(
             [REPO] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+        if opts["device"] == "cpu":
+            env.setdefault("OMP_NUM_THREADS", str(RANK_THREADS))
         try:
             p = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
                                text=True, timeout=TIMEOUT)

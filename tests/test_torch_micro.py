@@ -213,6 +213,125 @@ def test_loop_pipes_of_the_widest_loop(tmp_path, monkeypatch):
     ms, pipe = micro.pipe_bound_ms(n, 16 * 132 * 10**6, 1000.0, 132)
     assert pipe == "mufu" and ms == pytest.approx(1.0)
 
+def _sass_text(name, body, before=("MOV R1, c[0x0][0x28]",)):
+    """A cuobjdump listing of function `name`: `before`, then `body` as a
+    loop closed by a backward branch, then EXIT."""
+    lines = [f"\t\tFunction : _ZN10hugs_micro{name}EvPKfPfS2_iiff"]
+    ops = list(before) + list(body)
+    for i, op in enumerate(ops):
+        lines.append(f"        /*{16 * i:04x}*/                   {op} ;")
+    n, top = len(ops), 16 * len(before)
+    lines.append(f"        /*{16 * n:04x}*/               @P0 BRA {top:#x} ;")
+    lines.append(f"        /*{16 * (n + 1):04x}*/                   EXIT ;")
+    return "\n".join(lines)
+
+
+def _serial_step(chains, loop_alu):
+    """S2 serial's grid step for `chains` elements a thread, as sm_90a
+    compiles it: each chain's FMUL and FADD of v, the 4 INNER FFMA of the
+    chains interleaved (k0 and b0 reused), each FADD into o, and
+    `loop_alu` ISETP."""
+    body = []
+    for j in range(chains):
+        body += [f"FMUL R{20 + j}, R{10 + j}, c[0x0][0x190]",
+                 f"FADD R{20 + j}, R{30 + j}, R{20 + j}"]
+    for _ in range(4 * vpu_peak.INNER):
+        body += [f"FFMA R{20 + j}, R{20 + j}, R2.reuse, R3.reuse"
+                 for j in range(chains)]
+    body += [f"FADD R{10 + j}, R{10 + j}, R{20 + j}" for j in range(chains)]
+    return body + ["ISETP.NE.AND P0, PT, R8, RZ, PT"] * loop_alu
+
+
+def test_bound_counts_each_element_pass(tmp_path, monkeypatch):
+    """micro.pass_bound over micro.loop_passes reckons the same work
+    whatever the design: a loop of four chains with four times one
+    chain's instructions gives the one-chain loop's bound; with one loop
+    test for the four, the FP32 count a pass stays 259. S2 serial's
+    one-chain loop and S1 bf16 madd's loop of 8 passes give the counts
+    and bounds of the one-element designs (259 FP32 + 1 ALU a step,
+    0.52156 ms; HMUL2 + HADD2 + 0.125 ALU a pass, 0.13641 ms; at 1,980
+    MHz on 132 SMs)."""
+    from hugs_tpu_torch import build
+    from hugs_tpu_torch import micro
+    (tmp_path / "nvcc").write_text("")
+    (tmp_path / "cuobjdump").write_text("")
+    funcs = {
+        "serial_one_chain": _serial_step(1, 1),
+        "serial_four_chains": _serial_step(4, 4),
+        vpu_peak.kernel_name("serial"): _serial_step(4, 1),
+        micro_bf16.kernel_name("madd", "bfloat16"): [
+            "HMUL2.BF16_V2 R5, R5, R2.H0_H0",
+            "HADD2.BF16_V2 R5, R5, R3.H0_H0"] * 8
+        + ["IADD3 R8, R8, -0x8, RZ"],
+        "madd_bf16_two_pairs": ["HMUL2.BF16_V2 R5, R5, R2.H0_H0",
+                                "HMUL2.BF16_V2 R6, R6, R2.H0_H0",
+                                "HADD2.BF16_V2 R5, R5, R3.H0_H0",
+                                "HADD2.BF16_V2 R6, R6, R3.H0_H0"] * 8
+        + ["IADD3 R8, R8, -0x8, RZ"]}
+    sass = "\n".join(_sass_text(k, v) for k, v in funcs.items())
+    monkeypatch.setattr(build, "nvcc", lambda: str(tmp_path / "nvcc"))
+    monkeypatch.setattr(micro.subprocess, "run", lambda *a, **k: type(
+        "Done", (), {"stdout": sass})())
+
+    def bound(name, marks, element_passes):
+        loop = micro.loop_opcodes(micro.sass_listing(tmp_path / "lib.so",
+                                                     name))
+        passes = micro.loop_passes(loop, *marks)
+        return passes, micro.pass_bound(loop, passes, element_passes,
+                                        1980.0, 132)
+
+    s2 = vpu_peak.P * vpu_peak.CHUNK * vpu_peak.GRID
+    ffma = (("FFMA",), 4 * vpu_peak.INNER)
+    one, b1 = bound("serial_one_chain", ffma, s2)
+    four, b4 = bound("serial_four_chains", ffma, s2)
+    real, br = bound(vpu_peak.kernel_name("serial"), ffma, s2)
+    assert (one, four, real) == (1, 4, 4)
+    assert b1["pipes_per_pass"] == {"fp32": 259, "mufu": 0, "alu": 1,
+                                    "issue": 260}
+    assert b4 == b1
+    assert br["pipes_per_pass"]["fp32"] == 259
+    assert br["pipes_per_pass"]["alu"] == 0.25
+    assert b1["bound_pipe"] == "issue"
+    assert b1["bound_ms"] == pytest.approx(0.52156, abs=5e-6)
+    assert br["bound_ms"] == pytest.approx(b1["bound_ms"] * 259.25 / 260)
+    s1 = micro_bf16.P * micro_bf16.C // 2 * micro_bf16.RS[-1]
+    marks = (("HMUL2", "HADD2"), 2)
+    p1, m1 = bound(micro_bf16.kernel_name("madd", "bfloat16"), marks, s1)
+    p2, m2 = bound("madd_bf16_two_pairs", marks, s1)
+    assert (p1, p2) == (8, 16)
+    assert m1["pipes_per_pass"] == {"fp32": 2, "mufu": 0, "alu": 0.125,
+                                    "issue": 2.125}
+    assert m1["bound_ms"] == pytest.approx(0.13641, abs=5e-6)
+    assert m2["pipes_per_pass"]["fp32"] == 2
+    assert m2["pipes_per_pass"]["alu"] == 0.0625
+
+
+def test_chain_floor_by_hand():
+    """65,536 dependent instructions at 8 clocks and 2,000 MHz take
+    0.262144 ms; S2 serial's chain (512 steps of 259) at 4 clocks and
+    1,980 MHz 0.267895 ms; chain_latency inverts chain_floor_ms."""
+    from hugs_tpu_torch.micro import chain_floor_ms, chain_latency
+    assert chain_floor_ms(65_536, 8.0, 2000.0) == pytest.approx(0.262144)
+    depth = vpu_peak.chain_depth("serial")
+    assert depth == 512 * 259 == 132_608
+    assert micro_bf16.chain_depth("madd", "bfloat16") == 65_536
+    assert micro_bf16.chain_depth("exp", "float32") == 32_768
+    assert vpu_peak.chain_depth("fma") == 512
+    assert chain_floor_ms(depth, 4.0, 1980.0) == pytest.approx(
+        132_608 * 4 / 1.98e6, rel=1e-12)
+    assert chain_floor_ms(depth, 4.0, 1980.0) == pytest.approx(0.267895,
+                                                               abs=5e-7)
+    assert chain_latency(0.262144, 65_536, 2000.0) == pytest.approx(8.0)
+
+
+def test_chain_probe_refuses_cpu_tensors():
+    """S2's chain probe runs the kernel only: no plain version stands in."""
+    before = vpu_peak.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        vpu_peak.chain_call(vpu_peak.start_block("cpu"))
+    assert vpu_peak.LAUNCHES == before
+
+
 # ---- S1
 
 def _bf16_ulp(v):
@@ -467,6 +586,45 @@ def test_micro_bf16_kernel_matches_plain_on_card(cuda_device, op, dtype):
     else:
         ulp = torch.as_tensor(_bf16_ulp(np_of(want)), device=cuda_device)
         assert bool(((got - want).abs() <= ulp).all())
+
+
+# the check sizes of chip_smoke.py's phase 3d: S2 at grid 16 and its REPS
+# chained calls, S1 at 256 passes and 2 calls; a ragged count that fills
+# neither the designs' threads nor their blocks
+S2_CHECK_GRID, S1_CHECK_R, S1_CHECK_K = 16, 256, 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [vpu_peak.P * vpu_peak.CHUNK, 1000])
+@pytest.mark.parametrize("probe", [False, True])
+def test_serial_designs_match_plain_on_card(cuda_device, probe, n):
+    """S2 serial at the design's elements a thread (vpu_call) and at one
+    (chain_call) against plain_call."""
+    x = torch.linspace(0.0, 1.0, n, device=cuda_device)
+    got = want = x
+    for _ in range(vpu_peak.REPS):
+        got = vpu_peak.chain_call(got, S2_CHECK_GRID) if probe \
+            else vpu_peak.vpu_call(got, "serial", S2_CHECK_GRID)
+        want = vpu_peak.plain_call(want, "serial", S2_CHECK_GRID)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [micro_bf16.P * micro_bf16.C, 2 * 1001])
+def test_madd_bf16_design_matches_plain_on_card(cuda_device, n):
+    """S1 bfloat16 madd (one bf16x2 pair a thread) against plain_passes,
+    within one bf16 ulp."""
+    c = torch.tensor([[micro_bf16.C_VALUE]], device=cuda_device)
+    x = torch.linspace(-2.0, 3.0, n, device=cuda_device).to(torch.bfloat16)
+    got = want = x
+    for _ in range(S1_CHECK_K):
+        got = micro_bf16.passes(c, got, "madd", S1_CHECK_R)
+        want = micro_bf16.plain_passes(c, want, "madd", S1_CHECK_R)
+    got, want = got.float(), want.float()
+    assert float((want - x.float()).abs().max()) > 1e-3
+    ulp = torch.as_tensor(_bf16_ulp(np_of(want)), device=cuda_device)
+    assert bool(((got - want).abs() <= ulp).all())
 
 
 @pytest.mark.cuda

@@ -17,9 +17,10 @@ holds more than the cap.
   test_torch_parallel.py's LOSS_TOL; grad_payload_mb = the script's
   n_grad formula on the JAX models; the JSON keys include the script's;
   both ranks end in the same state.
-- (b) The launcher (its runs cut at 60 s here): one CPU process end to
-  end (scaling.json written); a failing worker, an N above the cards and
-  no card each exit non-zero with no JSON line.
+- (b) The launcher (its runs cut at 60 s here; the one-process run at
+  ONE_PROCESS_TIMEOUT): one CPU process end to end (scaling.json
+  written, its rank at RANK_THREADS threads); a failing worker, an N
+  above the cards and no card each exit non-zero with no JSON line.
 """
 import ast
 import functools
@@ -44,6 +45,14 @@ BUDGET = 8192
 ITERS = 1
 WORLD = 2
 TIMEOUT = 60.0
+# The one-process launcher run starts three interpreters (this test's
+# launcher, torchrun's agent, the worker), each importing torch, and
+# takes one step: 8 s on an idle 8-core machine, 9-29 s beside busy
+# processes, 15 s under the suite's 6-worker command; 60 s once expired
+# under that command on a more loaded machine. The cut only stops a run
+# that hangs: about 4 times the 29 s worst seen, and short enough that a
+# hang fails this test inside the suite's time limit.
+ONE_PROCESS_TIMEOUT = 120.0
 LOSS_TOL = dict(atol=2e-5, rtol=2e-6)
 OPTS = dict(width=W, height=H, capacity=CAPACITY, budget=BUDGET, n_tile=1,
             iters=ITERS, verts_per_bone=VPB, triplane_res=32, n_features=8,
@@ -184,9 +193,19 @@ def test_worker_frames_follow_the_ranks():
 
 
 def test_launcher_one_process(tmp_path, capsys, monkeypatch):
-    monkeypatch.setattr(sb, "TIMEOUT", TIMEOUT)
+    monkeypatch.setattr(sb, "TIMEOUT", ONE_PROCESS_TIMEOUT)
+    monkeypatch.delenv("OMP_NUM_THREADS", raising=False)
+    envs = []
+    run = sb.subprocess.run
+
+    def recorded(cmd, **kw):
+        envs.append(kw["env"])
+        return run(cmd, **kw)
+
+    monkeypatch.setattr(sb.subprocess, "run", recorded)
     assert sb.main(["launcher", "--procs", "1", "--out", str(tmp_path)]
                    + CLI) == 0
+    assert [e["OMP_NUM_THREADS"] for e in envs] == [str(RANK_THREADS)]
     lines = [ln for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("{")]
     with open(tmp_path / "scaling.json") as f:
