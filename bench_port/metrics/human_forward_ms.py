@@ -1,0 +1,7 @@
+"""human_forward_ms: the human_forward stage's device ms, the mean over the staged steps
+(CUDA events between the benchmark's calls into the trainer's stage
+functions)."""
+
+
+def read(rec: dict, cell: dict):
+    return rec.get("stage_ms", {}).get("human_forward")

@@ -1,0 +1,102 @@
+"""Scene-only 3DGS training step (vanilla 3DGS on a SceneGS): forward
+render -> L1 + SSIM loss -> gradients -> group-Adam update ->
+densification statistics, in place on the model and the optimizer
+state. The screen-space gradient the statistics read is the gradient
+of a zero `mean2d_grad_hook` added to the projected means.
+
+The stages of a step are separate functions (`scene_render`,
+`scene_loss`, `scene_grads`, `scene_update`), run in order by the
+caller.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from bench_port.reference.plain.losses.basic import l1_loss, ssim
+from bench_port.reference.plain.models import scene_gs as sgs
+from bench_port.reference.plain.render.camera import Camera
+from bench_port.reference.plain.render.renderer import render
+from bench_port.reference.plain.train.optim import (
+    GroupAdamState, expon_lr, group_adam_init, group_adam_update,
+)
+
+
+class SceneTrainState(NamedTuple):
+    gs: sgs.SceneGS
+    opt: GroupAdamState
+
+
+def make_scene_lrs(cfg_lr, spatial_lr_scale: float):
+    """Per-group learning rates of 3DGS from any object with the
+    attributes position_init, position_final, position_delay_mult,
+    position_max_steps, feature, opacity, scaling and rotation. Returns
+    (dict of the fixed rates, the xyz schedule: step -> lr)."""
+    sched = expon_lr(
+        lr_init=cfg_lr.position_init * spatial_lr_scale,
+        lr_final=cfg_lr.position_final * spatial_lr_scale,
+        lr_delay_mult=cfg_lr.position_delay_mult,
+        max_steps=cfg_lr.position_max_steps,
+    )
+    static = {
+        "features_dc": cfg_lr.feature,
+        "features_rest": cfg_lr.feature / 20.0,
+        "opacity": cfg_lr.opacity,
+        "scaling": cfg_lr.scaling,
+        "rotation": cfg_lr.rotation,
+    }
+    return static, sched
+
+
+def init_scene_train_state(gs: sgs.SceneGS) -> SceneTrainState:
+    return SceneTrainState(gs=gs, opt=group_adam_init(sgs.params_of(gs)))
+
+
+def scene_render(gs: sgs.SceneGS, camera: Camera, bg: torch.Tensor,
+                 hook: torch.Tensor, *, width: int, height: int,
+                 instance_budget: int = 0) -> dict:
+    """The forward: activation, projection, binning and blend, with the
+    mean2d hook; the budget defaults to 4x the capacity."""
+    out = sgs.scene_forward(gs)
+    return render(out["xyz"], out["scales"], out["rotq"], out["opacity"],
+                  out["shs"], camera, width, height, bg=bg,
+                  active_sh_degree=out["active_sh_degree"],
+                  alive=out["alive"], mean2d_grad_hook=hook,
+                  instance_budget=instance_budget or 4 * gs.capacity)
+
+
+def scene_loss(img: torch.Tensor, gt_image: torch.Tensor, l1_w: float = 0.8,
+               ssim_w: float = 0.2) -> torch.Tensor:
+    """l1_w * L1 + ssim_w * (1 - SSIM) over the whole image (unmasked)."""
+    return l1_w * l1_loss(img, gt_image) + ssim_w * (1.0 - ssim(img,
+                                                                gt_image))
+
+
+def scene_grads(loss: torch.Tensor, gs: sgs.SceneGS, hook: torch.Tensor):
+    """d(loss)/d(each parameter) and d(loss)/d(hook), the pixel-space
+    mean2d gradient. A parameter the loss does not reach gets zeros."""
+    params = sgs.params_of(gs)
+    got = torch.autograd.grad(loss, list(params.values()) + [hook],
+                              allow_unused=True)
+    grads = {k: torch.zeros_like(p) if g is None else g
+             for (k, p), g in zip(params.items(), got[:-1])}
+    return grads, got[-1]
+
+
+@torch.no_grad()
+def scene_update(state: SceneTrainState, grads: dict,
+                 hook_grad: torch.Tensor, pkg: dict, xyz_lr, static_lrs: dict,
+                 *, width: int, height: int) -> SceneTrainState:
+    """Adam on the parameters, then the densification statistics."""
+    gs = state.gs
+    group_adam_update(grads, state.opt, sgs.params_of(gs),
+                      dict(static_lrs, xyz=xyz_lr))
+    # The hook's gradient is d(loss)/d(pixel-space mean2d); 3DGS's CUDA
+    # backward returns viewspace gradients scaled by 0.5 W (0.5 H for y),
+    # and densify_grad_threshold is calibrated to those units.
+    scale = torch.tensor([0.5 * width, 0.5 * height],
+                         device=hook_grad.device)
+    sgs.add_densification_stats(gs, hook_grad * scale, pkg["radii"],
+                                pkg["visibility_filter"])
+    return state
