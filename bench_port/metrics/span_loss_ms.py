@@ -1,0 +1,7 @@
+"""span_loss_ms: the device ms of the program's `step.loss` span(s),
+summed in each step, the mean over the traced window's steps."""
+from bench_port.spans import device_ms
+
+
+def read(rec: dict, cell: dict):
+    return device_ms(rec, "step.loss")

@@ -52,6 +52,7 @@ from hugs_tpu_torch.ops.rotations import (
     quat_multiply, rotation_6d_to_axis_angle, rotation_6d_to_matrix,
     rotation_matrix_from_vectors,
 )
+from hugs_tpu_torch.utils import profiling
 
 SCALE_Z = 1e-5
 STATE_ROW_FIELDS = ("scaling_multiplier", "max_radii2d",
@@ -439,18 +440,20 @@ def human_forward(
             canon_out["lbs_weights"], s_out.full_pose,
             disable_posedirs=cfg.disable_posedirs)
         if compute_gt_lbs:
-            _, gt_lbs_weights = smpl_lbsweight_top_k(
-                fixed.smpl.lbs_weights, gs_xyz.detach(),
-                fixed.vitruvian_verts)
+            with profiling.span("human.knn_targets", device=True):
+                _, gt_lbs_weights = smpl_lbsweight_top_k(
+                    fixed.smpl.lbs_weights, gs_xyz.detach(),
+                    fixed.vitruvian_verts)
             gt_lbs_weights = gt_lbs_weights.detach()
     else:
         curr_offsets = s_out.shape_offsets + s_out.pose_offsets
         T_v2t = fixed.inv_T_t2vitruvian.clone()
         T_v2t[..., :3, 3] += fixed.canonical_offsets - curr_offsets
         T_vitruvian2pose = torch.matmul(s_out.T, T_v2t)
-        _, lbs_T = smpl_lbsmap_top_k(
-            fixed.smpl.lbs_weights, T_vitruvian2pose, gs_xyz,
-            fixed.vitruvian_verts, K=6)
+        with profiling.span("human.knn_targets", device=True):
+            _, lbs_T = smpl_lbsmap_top_k(
+                fixed.smpl.lbs_weights, T_vitruvian2pose, gs_xyz,
+                fixed.vitruvian_verts, K=6)
         hom = torch.cat([gs_xyz, torch.ones_like(gs_xyz[:, :1])], dim=-1)
         deformed_xyz = torch.einsum("nab,nb->na", lbs_T, hom)[:, :3]
 

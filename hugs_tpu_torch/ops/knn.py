@@ -11,14 +11,18 @@ from __future__ import annotations
 
 import torch
 
+from hugs_tpu_torch.utils import profiling
+
 
 def knn(query: torch.Tensor, ref: torch.Tensor, k: int,
         chunk: int = 4096) -> tuple[torch.Tensor, torch.Tensor]:
     """k nearest refs for each query point.
 
     Returns (sq_dists (M, k), indices (M, k)), ascending by distance;
-    among equal distances the lower index comes first.
+    among equal distances the lower index comes first. Counts its chunks
+    in the open step's `knn_chunks` (utils/profiling.py).
     """
+    profiling.count("knn_chunks", -(-query.shape[0] // chunk))
     # centre on the reference cloud, as the JAX package does
     mu = torch.mean(ref, dim=0, keepdim=True)
     query = query - mu

@@ -27,6 +27,7 @@ from hugs_tpu_torch.render.camera import Camera
 from hugs_tpu_torch.render.oracle import render_oracle
 from hugs_tpu_torch.render.project import project_gaussians, update_mean2d
 from hugs_tpu_torch.render.tiles import TILE, bin_gaussians
+from hugs_tpu_torch.utils import profiling
 
 
 def render(
@@ -101,7 +102,8 @@ def render(
         overflowed = torch.zeros((), dtype=torch.bool, device=dev)
     elif backend == "tiled":
         budget = instance_budget or max(4 * means3d.shape[0], 1 << 16)
-        bins = bin_gaussians(pg, width, height, budget, TILE)
+        with profiling.span("render.bin", device=True):
+            bins = bin_gaussians(pg, width, height, budget, TILE)
         mxu = cuda_blend.POWER_MXU if power_mxu is None else power_mxu
         img = None if bin_only else cuda_blend.blend_tiles(
             pg, bins, width, height, bg, bool(mxu))

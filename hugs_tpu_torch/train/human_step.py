@@ -33,6 +33,7 @@ from hugs_tpu_torch.train.optim import (
     GroupAdamState, expon_lr, group_adam_init, group_adam_update, leaves,
     pack,
 )
+from hugs_tpu_torch.utils import profiling
 
 # ReduceLROnPlateau of the distillation (init_opt.py)
 PLATEAU_THRESHOLD = 1e-9
@@ -195,15 +196,18 @@ def human_render(tstate: HumanTrainState, fixed: hgs.HumanGSFixed,
     mean2d hook; the budget defaults to 4x the capacity. `between`, where
     given, is called with no arguments after human_forward (a timing
     mark). Returns (the render's dict, human_forward's dict)."""
-    out = hgs.human_forward(tstate.params, tstate.state, fixed, cfg,
-                            smpl_scale=smpl_scale, dataset_idx=dataset_idx)
+    with profiling.span("step.human_forward", device=True):
+        out = hgs.human_forward(tstate.params, tstate.state, fixed, cfg,
+                                smpl_scale=smpl_scale,
+                                dataset_idx=dataset_idx)
     if between is not None:
         between()
-    pkg = render(out["xyz"], out["scales"], out["rotq"], out["opacity"],
-                 out["shs"], camera, width, height, bg=bg,
-                 active_sh_degree=out["active_sh_degree"],
-                 alive=out["alive"], mean2d_grad_hook=hook,
-                 instance_budget=instance_budget or 4 * hook.shape[0])
+    with profiling.span("step.render", device=True):
+        pkg = render(out["xyz"], out["scales"], out["rotq"], out["opacity"],
+                     out["shs"], camera, width, height, bg=bg,
+                     active_sh_degree=out["active_sh_degree"],
+                     alive=out["alive"], mean2d_grad_hook=hook,
+                     instance_budget=instance_budget or 4 * hook.shape[0])
     return pkg, out
 
 

@@ -30,6 +30,7 @@ from hugs_tpu_torch.train.budget import fit_budget
 from hugs_tpu_torch.train.human_step import HumanTrainState
 from hugs_tpu_torch.train.optim import group_adam_update, leaves, pack
 from hugs_tpu_torch.train.scene_step import SceneTrainState
+from hugs_tpu_torch.utils import profiling
 
 
 class JointTrainState(NamedTuple):
@@ -48,17 +49,21 @@ def joint_render(jstate: JointTrainState, fixed: hgs.HumanGSFixed,
     human alone on human_bg (half the budget); the budget defaults to 4x
     both capacities. `between`, where given, is called after
     human_forward (a timing mark). Returns (pkg, human_forward's dict)."""
-    h_out = hgs.human_forward(jstate.human.params, jstate.human.state, fixed,
-                              cfg, smpl_scale=smpl_scale,
-                              dataset_idx=dataset_idx)
+    with profiling.span("step.human_forward", device=True):
+        h_out = hgs.human_forward(jstate.human.params, jstate.human.state,
+                                  fixed, cfg, smpl_scale=smpl_scale,
+                                  dataset_idx=dataset_idx)
     if between is not None:
         between()
-    s_out = sgs.scene_forward(jstate.scene.gs)
-    pkg = render_human_scene(
-        {"camera": camera, "width": width, "height": height}, h_out, s_out,
-        bg_color=bg, human_bg_color=human_bg, render_mode="human_scene",
-        render_human_separate=render_human_separate, mean2d_grad_hook=hook,
-        instance_budget=instance_budget or 4 * hook.shape[0])
+    with profiling.span("step.render", device=True):
+        s_out = sgs.scene_forward(jstate.scene.gs)
+        pkg = render_human_scene(
+            {"camera": camera, "width": width, "height": height}, h_out,
+            s_out, bg_color=bg, human_bg_color=human_bg,
+            render_mode="human_scene",
+            render_human_separate=render_human_separate,
+            mean2d_grad_hook=hook,
+            instance_budget=instance_budget or 4 * hook.shape[0])
     return pkg, h_out
 
 

@@ -29,6 +29,7 @@ from hugs_tpu_torch.render.renderer import render
 from hugs_tpu_torch.train.optim import (
     GroupAdamState, expon_lr, group_adam_init, group_adam_update,
 )
+from hugs_tpu_torch.utils import profiling
 
 
 class SceneTrainState(NamedTuple):
@@ -66,12 +67,13 @@ def scene_render(gs: sgs.SceneGS, camera: Camera, bg: torch.Tensor,
                  instance_budget: int = 0) -> dict:
     """The forward: activation, projection, binning and blend, with the
     mean2d hook; the budget defaults to 4x the capacity."""
-    out = sgs.scene_forward(gs)
-    return render(out["xyz"], out["scales"], out["rotq"], out["opacity"],
-                  out["shs"], camera, width, height, bg=bg,
-                  active_sh_degree=out["active_sh_degree"],
-                  alive=out["alive"], mean2d_grad_hook=hook,
-                  instance_budget=instance_budget or 4 * gs.capacity)
+    with profiling.span("step.render", device=True):
+        out = sgs.scene_forward(gs)
+        return render(out["xyz"], out["scales"], out["rotq"], out["opacity"],
+                      out["shs"], camera, width, height, bg=bg,
+                      active_sh_degree=out["active_sh_degree"],
+                      alive=out["alive"], mean2d_grad_hook=hook,
+                      instance_budget=instance_budget or 4 * gs.capacity)
 
 
 def scene_loss(img: torch.Tensor, gt_image: torch.Tensor, l1_w: float = 0.8,

@@ -89,6 +89,7 @@ from hugs_tpu_torch.parallel.shard import batch_render_sharded
 from hugs_tpu_torch.parallel.train_dp_tile import (
     dp_aux, make_dp_tile_train_step,
 )
+from hugs_tpu_torch.render import cuda_blend
 from hugs_tpu_torch.render.renderer import render_human_scene
 from hugs_tpu_torch.train import checkpoint as ckpt_io
 from hugs_tpu_torch.train import human_step as hst
@@ -97,6 +98,7 @@ from hugs_tpu_torch.train import scene_step as sst
 from hugs_tpu_torch.train.budget import (
     budget_bucket, fit_budget, grown_budget,
 )
+from hugs_tpu_torch.utils import profiling
 from hugs_tpu_torch.utils.image import create_video, save_image_grid, save_png
 from hugs_tpu_torch.utils.ply import save_gaussian_ply
 
@@ -326,8 +328,9 @@ class GaussianTrainer:
         self._scene_stale = True
         vals = None
         if sync:
-            loss, over = torch.stack([aux["loss"].double(),
-                                      aux["overflowed"].double()]).tolist()
+            with profiling.span("step.sync_readback"):
+                loss, over = torch.stack([aux["loss"].double(),
+                                          aux["overflowed"].double()]).tolist()
             vals = (loss, 0, bool(over), 0)
             if vals[2]:
                 print(f"WARNING: Gaussian-sharded instance budget overflow "
@@ -458,7 +461,8 @@ class GaussianTrainer:
             pkg = sst.scene_render(self.scene.gs, cam, bg, hook, width=W,
                                    height=H, instance_budget=budget)
             l = self.cfg.scene.loss
-            loss = sst.scene_loss(pkg["render"], gt, l.l1_w, l.ssim_w)
+            with profiling.span("step.loss", device=True):
+                loss = sst.scene_loss(pkg["render"], gt, l.l1_w, l.ssim_w)
             return loss, dict(pkg=pkg, hook=hook, loss_dict={})
         if mode == "human":
             hook = torch.zeros((self._h_cap, 2), device=self.device,
@@ -466,8 +470,9 @@ class GaussianTrainer:
             pkg, out = hst.human_render(
                 self.human, self.fixed, cam, bg, hook, scale, idx,
                 cfg=self.human_cfg, width=W, height=H, instance_budget=budget)
-            loss, loss_dict = hst.human_loss(self.loss_fn, draws, gt, mask,
-                                             bg, pkg, out, lpips)
+            with profiling.span("step.loss", device=True):
+                loss, loss_dict = hst.human_loss(self.loss_fn, draws, gt,
+                                                 mask, bg, pkg, out, lpips)
             return loss, dict(pkg=pkg, hook=hook, out=out,
                               loss_dict=loss_dict)
         jstate = jst.JointTrainState(human=self.human, scene=self.scene)
@@ -477,8 +482,9 @@ class GaussianTrainer:
             jstate, self.fixed, cam, bg, human_bg, hook, scale, idx,
             cfg=self.human_cfg, width=W, height=H, instance_budget=budget,
             render_human_separate=self.loss_fn.l_humansep_w > 0)
-        loss, loss_dict = jst.joint_loss(self.loss_fn, draws, gt, mask, bg,
-                                         human_bg, pkg, out, lpips)
+        with profiling.span("step.loss", device=True):
+            loss, loss_dict = jst.joint_loss(self.loss_fn, draws, gt, mask,
+                                             bg, human_bg, pkg, out, lpips)
         return loss, dict(pkg=pkg, hook=hook, out=out, loss_dict=loss_dict)
 
     def _train_step(self, t_iter, idx, data, sync: bool):
@@ -486,6 +492,21 @@ class GaussianTrainer:
         a sync step overflowed), gradients, Adam and statistics, then the
         densify where due. Returns (aux, the sync step's (loss, slots,
         overflowed, instances) or None)."""
+        with profiling.span("train.step", step=t_iter, device=True,
+                            counters=self._counters):
+            return self._one_step(t_iter, idx, data, sync)
+
+    def _counters(self) -> dict:
+        """The counts whose change over a step its record takes: the
+        blend kernels' launches and the budget's retries."""
+        return {"launches": cuda_blend.LAUNCHES,
+                "k2_launches": cuda_blend.K2_LAUNCHES,
+                "mxu_launches": cuda_blend.MXU_LAUNCHES,
+                "k2_mxu_launches": cuda_blend.K2_MXU_LAUNCHES,
+                "retries": self.retries,
+                "overflow_persisted": self.overflow_persisted}
+
+    def _one_step(self, t_iter, idx, data, sync: bool):
         cfg = self.cfg
         mode = self._mode(t_iter)
         if mode == "scene" and self._gauss_n():
@@ -495,50 +516,67 @@ class GaussianTrainer:
         vals = None
         for attempt in range(3):
             self.retries += attempt > 0
+            budget = self._ibudget
             loss, fw = self._forward(mode, t_iter, idx, data, bg, human_bg,
                                      draws)
             if not sync:
                 break
             pkg = fw["pkg"]
-            v = torch.stack([loss.detach().double()] + [
-                pkg[k].double() for k in ("n_slots", "overflowed",
-                                          "n_instances")]).tolist()
-            vals = (v[0], int(v[1]), bool(v[2]), int(v[3]))
-            if not self._check_budget(vals[1], vals[2], vals[3]):
+            with profiling.span("step.sync_readback"):
+                v = torch.stack([loss.detach().double()] + [
+                    pkg[k].double() for k in ("n_slots", "overflowed",
+                                              "n_instances")]).tolist()
+                vals = (v[0], int(v[1]), bool(v[2]), int(v[3]))
+                over = self._check_budget(vals[1], vals[2], vals[3])
+            if not over:
                 break
         else:
             self.overflow_persisted += 1
             print(f"WARNING: tile-instance budget overflow persists at iter "
                   f"{t_iter} (budget={self._ibudget})")
         pkg, hook = fw["pkg"], fw["hook"]
+        # every step the forward's slot demand (a 0-d tensor of its own,
+        # read at the drain) and budget; the instances where read back
+        # (their tensor is a view that holds the binning's cumsum)
+        profiling.count("n_slots", pkg["n_slots"])
+        profiling.count("budget", budget)
+        if vals is not None:
+            profiling.count("n_instances", vals[3])
         if mode == "scene":
-            grads, hook_grad = sst.scene_grads(loss, self.scene.gs, hook)
-            sst.scene_update(self.scene, grads, hook_grad, pkg,
-                             self.s_xyz_sched(t_iter), self.s_static_lrs,
-                             width=W, height=H)
-            aux = {"loss": loss.detach(), "overflowed": pkg["overflowed"],
-                   "n_instances": pkg["n_instances"],
-                   "n_slots": pkg["n_slots"]}
-            self._maybe_densify_scene(t_iter)
+            with profiling.span("step.backward", device=True):
+                grads, hook_grad = sst.scene_grads(loss, self.scene.gs, hook)
+            with profiling.span("step.optim", device=True):
+                sst.scene_update(self.scene, grads, hook_grad, pkg,
+                                 self.s_xyz_sched(t_iter), self.s_static_lrs,
+                                 width=W, height=H)
+                aux = {"loss": loss.detach(), "overflowed": pkg["overflowed"],
+                       "n_instances": pkg["n_instances"],
+                       "n_slots": pkg["n_slots"]}
+                self._maybe_densify_scene(t_iter)
         elif mode == "human":
-            grads, hook_grad = hst.human_grads(loss, self.human.params, hook)
-            hst.human_update(self.human, grads, hook_grad, pkg,
-                             self.h_xyz_sched(t_iter), self.h_static_lrs,
-                             width=W, height=H)
-            aux = jst.step_aux(loss, fw["loss_dict"], pkg, fw["out"])
-            self._maybe_densify_human(t_iter, aux)
+            with profiling.span("step.backward", device=True):
+                grads, hook_grad = hst.human_grads(loss, self.human.params,
+                                                   hook)
+            with profiling.span("step.optim", device=True):
+                hst.human_update(self.human, grads, hook_grad, pkg,
+                                 self.h_xyz_sched(t_iter), self.h_static_lrs,
+                                 width=W, height=H)
+                aux = jst.step_aux(loss, fw["loss_dict"], pkg, fw["out"])
+                self._maybe_densify_human(t_iter, aux)
         else:
             jstate = jst.JointTrainState(human=self.human, scene=self.scene)
-            h_grads, s_grads, hook_grad = jst.joint_grads(
-                loss, jstate, hook, cfg.train.optim_scene)
-            jst.joint_update(
-                jstate, h_grads, s_grads, hook_grad, pkg,
-                self.h_xyz_sched(t_iter), self.h_static_lrs,
-                self.s_xyz_sched(t_iter), self.s_static_lrs, width=W,
-                height=H)
-            aux = jst.step_aux(loss, fw["loss_dict"], pkg, fw["out"])
-            self._maybe_densify_human(t_iter, aux)
-            self._maybe_densify_scene(t_iter)
+            with profiling.span("step.backward", device=True):
+                h_grads, s_grads, hook_grad = jst.joint_grads(
+                    loss, jstate, hook, cfg.train.optim_scene)
+            with profiling.span("step.optim", device=True):
+                jst.joint_update(
+                    jstate, h_grads, s_grads, hook_grad, pkg,
+                    self.h_xyz_sched(t_iter), self.h_static_lrs,
+                    self.s_xyz_sched(t_iter), self.s_static_lrs, width=W,
+                    height=H)
+                aux = jst.step_aux(loss, fw["loss_dict"], pkg, fw["out"])
+                self._maybe_densify_human(t_iter, aux)
+                self._maybe_densify_scene(t_iter)
         return aux, vals
 
     # ---------------------------------------------------- batched training
@@ -608,6 +646,11 @@ class GaussianTrainer:
         if a sync step overflowed on any rank), then Adam and the
         statistics, then the densify where due. Returns _train_step's
         (aux, vals)."""
+        with profiling.span("train.step", step=t_iter, device=True,
+                            counters=self._counters):
+            return self._one_batch(t_iter, idxs, sync)
+
+    def _one_batch(self, t_iter: int, idxs: list, sync: bool):
         mode = self._mode(t_iter)
         frames = self._batch_frames(t_iter, idxs)
         d0 = self.train_dataset[idxs[0]]
@@ -619,11 +662,13 @@ class GaussianTrainer:
             g = step.grads(jstate, frames, self._ibudget)
             if not sync:
                 break
-            v = torch.stack([g.loss.double()] + [
-                x.double() for x in (g.n_slots, g.overflowed,
-                                     g.n_instances)]).tolist()
-            vals = (v[0], int(v[1]), bool(v[2]), int(v[3]))
-            if not self._check_budget(vals[1], vals[2], vals[3]):
+            with profiling.span("step.sync_readback"):
+                v = torch.stack([g.loss.double()] + [
+                    x.double() for x in (g.n_slots, g.overflowed,
+                                         g.n_instances)]).tolist()
+                vals = (v[0], int(v[1]), bool(v[2]), int(v[3]))
+                over = self._check_budget(vals[1], vals[2], vals[3])
+            if not over:
                 break
         else:
             print(f"WARNING: tile-instance budget overflow persists at iter "
@@ -705,21 +750,24 @@ class GaussianTrainer:
         no mesh), while the others wait at a barrier; where the
         evaluation renders exchange fragments (gauss_collective) every
         rank renders and rank 0 alone writes."""
-        cfg = self.cfg
-        if t_iter % 1000 == 0 and t_iter > 0:
-            if self.human is not None:
-                hgs.one_up_sh_degree(self.human.state, cfg.human.sh_degree)
-            if self.scene is not None:
-                sgs.one_up_sh_degree(self.scene.gs, cfg.scene.sh_degree)
-            if self._gscene is not None:
-                sgs.one_up_sh_degree(self._gscene.gs, cfg.scene.sh_degree)
-        if not cfg.logdir:
-            return
-        if self._writes_due(t_iter):
-            self._sync_scene()
-        if self.mesh.is_writer or self.gauss_collective:
-            self._write_periodic(t_iter, data)
-        self.mesh.barrier()
+        with profiling.span("train.periodic", step=t_iter):
+            cfg = self.cfg
+            if t_iter % 1000 == 0 and t_iter > 0:
+                if self.human is not None:
+                    hgs.one_up_sh_degree(self.human.state,
+                                         cfg.human.sh_degree)
+                if self.scene is not None:
+                    sgs.one_up_sh_degree(self.scene.gs, cfg.scene.sh_degree)
+                if self._gscene is not None:
+                    sgs.one_up_sh_degree(self._gscene.gs,
+                                         cfg.scene.sh_degree)
+            if not cfg.logdir:
+                return
+            if self._writes_due(t_iter):
+                self._sync_scene()
+            if self.mesh.is_writer or self.gauss_collective:
+                self._write_periodic(t_iter, data)
+            self.mesh.barrier()
 
     def _write_periodic(self, t_iter: int, data):
         cfg = self.cfg

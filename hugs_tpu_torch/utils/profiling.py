@@ -1,55 +1,265 @@
 """Tracing and debugging hooks (the reference has none; its
 cfg.detect_anomaly is declared and never read, hugs/cfg/config.py:16).
 
-- `StepTimer`: wall-clock time per step, as an exponential moving
-  average; time a step on the card with `block` inside the span.
-- `trace`: a torch.profiler trace of the host and the card, written to a
-  directory as a Chrome / Perfetto trace.
+- `span`, `count` and `drain`: the program's spans and counters, kept in
+  memory while the recorder is on and handed over by `drain`.
+- `trace`: a torch.profiler trace of the card's operations with the
+  program's spans on one timeline, written to a directory as a Chrome /
+  Perfetto trace, with the card's idle time put down to the spans
+  (`idle_by_span`).
 - `enable_debug_nans`: autograd's anomaly detection, which names the
   forward operation behind a NaN in the backward.
 - `block`: waits for the card's queued work on the tensors given.
+
+The recorder. `with span("name"):` records the span's name, its parent
+(the span open around it), its step (the training iteration given to
+the root span, `train.step` or `train.periodic`, which every span inside
+it shares), its host start and end and, with `device=True` once the
+process has used CUDA, its device time between two CUDA events recorded
+on the current stream at its edges (None otherwise). `count(name, n)`
+adds n to the open step's counters, n an int or a 0-d tensor, which is
+kept as it is and read at the drain; a root span given `counters` (a
+function returning named counts) adds each count's change over the span
+to its step's counters. One thread records: the trainer's.
+
+The recorder is on while `enable(True)` says so and, by default
+(`enable(None)`), while a torch.profiler session runs, so that every
+profiled window carries the program's spans; `enable(False)` keeps it
+off under a profiler too. Off, `span` returns one shared no-op context
+and `count` returns at once: no clock is read, no event recorded and no
+record allocated. Nothing synchronises inside a step to read a span:
+`drain()` synchronises once, returns the records and clears them.
+
+The clock. Host times are `time.time_ns()`, the Unix clock in
+nanoseconds, which is the clock torch.profiler stamps the card's
+activity with: a device operation of `prof.events()` starts at
+`prof.profiler.kineto_results.trace_start_ns() + 1000 *
+time_range.start` (`device_intervals`), comparable with a span's
+`start_ns` and `end_ns` (tests/test_torch_profiling.py's card test holds
+it).
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
+import json
 import os
 import time
+from typing import NamedTuple
 
 import torch
 
+# torch.autograd.profiler._is_profiler_enabled is True while a
+# torch.profiler session runs
+_PROFILER = torch.autograd.profiler
+OUTSIDE = "outside_spans"
 
-class StepTimer:
-    def __init__(self, ema: float = 0.9):
-        self.ema = ema
-        self.avg_s = None
-        self._t0 = None
+
+class Span(NamedTuple):
+    name: str
+    parent: int | None       # index of the enclosing span in the drained list
+    step: int | None         # the root span's training iteration
+    start_ns: int            # host, time.time_ns()
+    end_ns: int
+    device_ms: float | None  # between the CUDA events at its edges
+
+    @property
+    def host_ms(self) -> float:
+        return (self.end_ns - self.start_ns) * 1e-6
+
+
+class Records(NamedTuple):
+    spans: list[Span]                  # in the order they opened
+    steps: dict[int, dict[str, int]]   # step -> counter -> count
+
+
+class _Recorder:
+    def __init__(self):
+        self.on = None    # None: while a torch.profiler session runs
+        # [name, parent, step, start_ns, end_ns, start event, end event]
+        self.spans = []
+        self.open = []    # indices of the open spans, innermost last
+        self.counts = []  # (step, name, int or 0-d tensor)
+
+
+_REC = _Recorder()
+_OFF = contextlib.nullcontext()
+
+
+def enable(on: bool | None) -> None:
+    """True: record; False: do not, under a profiler either; None (the
+    default): record while a torch.profiler session runs."""
+    _REC.on = on
+
+
+class _Span:
+    __slots__ = ("name", "step", "device", "counters", "i", "before")
+
+    def __init__(self, name, step, device, counters):
+        self.name, self.step, self.device = name, step, device
+        self.counters = counters
 
     def __enter__(self):
-        self._t0 = time.time()
+        rec = _REC
+        t = time.time_ns()
+        parent = rec.open[-1] if rec.open else None
+        step = self.step
+        if step is None and parent is not None:
+            step = rec.spans[parent][2]
+        ev = None
+        if self.device and torch.cuda.is_initialized():
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+        if self.counters is not None:
+            self.before = self.counters()
+        self.i = len(rec.spans)
+        rec.spans.append([self.name, parent, step, t, None, ev, None])
+        rec.open.append(self.i)
         return self
 
     def __exit__(self, *exc):
-        dt = time.time() - self._t0
-        self.avg_s = dt if self.avg_s is None else \
-            self.ema * self.avg_s + (1 - self.ema) * dt
+        rec = _REC
+        r = rec.spans[self.i]
+        if r[5] is not None:
+            r[6] = torch.cuda.Event(enable_timing=True)
+            r[6].record()
+        r[4] = time.time_ns()
+        rec.open.pop()
+        if self.counters is not None and r[2] is not None:
+            rec.counts += [(r[2], k, v - self.before[k])
+                           for k, v in self.counters().items()]
+        return False
 
-    @property
-    def steps_per_s(self) -> float:
-        return 1.0 / self.avg_s if self.avg_s else 0.0
+
+def span(name: str, *, step: int | None = None, device: bool = False,
+         counters=None):
+    """`with span(name):` records a span while the recorder is on (see
+    the module's docstring); `step` on a root span, `device` for a
+    device interval, `counters` (a function returning {name: count}) on
+    a root span for its step's deltas."""
+    on = _REC.on
+    if not (on or (on is None and _PROFILER._is_profiler_enabled)):
+        return _OFF
+    return _Span(name, step, device, counters)
+
+
+def count(name: str, n=1) -> None:
+    """Adds n (an int, or a 0-d tensor read at the drain: no read-back in
+    the step) to the open step's counter `name` while the recorder is on;
+    outside a step nothing is counted."""
+    rec = _REC
+    on = rec.on
+    if not (on or (on is None and _PROFILER._is_profiler_enabled)) \
+            or not rec.open:
+        return
+    step = rec.spans[rec.open[-1]][2]
+    if step is not None:
+        rec.counts.append((step, name, n))
+
+
+def drain() -> Records:
+    """The records since the last drain, after one synchronisation where
+    the process has used CUDA; clears them. Not inside a span."""
+    rec = _REC
+    if rec.open:
+        raise RuntimeError("drain() inside an open span")
+    if (rec.spans or rec.counts) and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    spans = [Span(n, p, s, t0, t1, None if e0 is None else e0.elapsed_time(e1))
+             for n, p, s, t0, t1, e0, e1 in rec.spans]
+    steps: dict[int, dict[str, int]] = {}
+    for step, name, n in rec.counts:
+        c = steps.setdefault(step, {})
+        c[name] = c.get(name, 0) + int(n)
+    rec.spans, rec.counts = [], []
+    return Records(spans, steps)
+
+
+def device_intervals(prof) -> list[tuple[int, int, str]]:
+    """The device operations of a finished torch.profiler session as
+    (start_ns, end_ns, name) on the spans' clock, by start."""
+    from torch.autograd import DeviceType
+    t0 = prof.profiler.kineto_results.trace_start_ns()
+    return sorted((t0 + round(e.time_range.start * 1000),
+                   t0 + round(e.time_range.end * 1000), e.name)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def idle_by_span(intervals, spans: list[Span], t0: int | None = None,
+                 t1: int | None = None) -> dict[str, float]:
+    """The device's idle seconds by the innermost span open on the host
+    at each gap's start (OUTSIDE where none is): the gaps between the
+    union of `intervals` ((start_ns, end_ns, ...) by start) and, where t0
+    and t1 are given, those from t0 to the first operation and from the
+    last to t1."""
+    gaps, end = [], t0
+    for s, e, *_ in intervals:
+        if end is not None and s > end:
+            gaps.append((end, s))
+        end = e if end is None else max(end, e)
+    if t1 is not None and end is not None and t1 > end:
+        gaps.append((end, t1))
+    order = sorted(spans, key=lambda s: s.start_ns)
+    starts = [s.start_ns for s in order]
+    out: dict[str, float] = {}
+    for g0, g1 in gaps:
+        name = OUTSIDE
+        i = bisect.bisect_right(starts, g0) - 1
+        while i >= 0:
+            s = order[i]
+            if s.end_ns > g0:
+                name = s.name
+                break
+            if s.parent is None:      # every earlier span ended before it
+                break
+            i -= 1
+        out[name] = out.get(name, 0.0) + (g1 - g0) * 1e-9
+    return out
 
 
 @contextlib.contextmanager
 def trace(logdir: str):
-    """`with trace(dir): step(...)` writes dir/trace.json: the host's
-    operations and, where a card is present, its kernels."""
+    """`with trace(dir): step(...)` writes dir/trace.json: the card's
+    operations (CUDA activity only, so that tracing does not slow the
+    host; without a card, the host's operations) and the program's spans
+    (process "spans", recorded by default under the profiler; each
+    `train.step` with its step's counters) on one timeline; with a card
+    also dir/idle.json: the window's seconds, its steps and the card's
+    idle seconds by span (idle_by_span)."""
     from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
+    cuda = torch.cuda.is_available()
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=acts) as prof:
+    if cuda:
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA if cuda
+                             else ProfilerActivity.CPU]) as prof:
+        t0 = time.time_ns()
         yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+        if cuda:
+            torch.cuda.synchronize()
+        t1 = time.time_ns()
+    rec = drain()
+    path = os.path.join(logdir, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        doc = json.load(f)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    for s in rec.spans:
+        args = {"step": s.step, "device_ms": s.device_ms}
+        if s.name == "train.step":
+            args.update(rec.steps.get(s.step, {}))
+        doc["traceEvents"].append({
+            "ph": "X", "cat": "span", "name": s.name, "pid": "spans",
+            "tid": 0, "ts": (s.start_ns - base) / 1e3,
+            "dur": (s.end_ns - s.start_ns) / 1e3, "args": args})
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    if cuda:
+        steps = {s.step for s in rec.spans if s.name == "train.step"}
+        with open(os.path.join(logdir, "idle.json"), "w") as f:
+            json.dump({"window_s": (t1 - t0) * 1e-9, "steps": len(steps),
+                       "idle_s": idle_by_span(device_intervals(prof),
+                                              rec.spans, t0, t1)}, f)
 
 
 def enable_debug_nans(on: bool = True) -> None:

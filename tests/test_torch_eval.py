@@ -154,11 +154,9 @@ def test_evaluate_refuses_a_missing_card(monkeypatch, tmp_path):
 # --------------------------------------------------- tracing, vis
 
 def test_step_timer_and_block():
-    t = profiling.StepTimer(ema=0.5)
-    for _ in range(2):
-        with t:
-            profiling.block({"a": [torch.ones(3)], "b": (torch.zeros(2),)})
-    assert t.avg_s is not None and t.avg_s >= 0 and t.steps_per_s >= 0
+    """block returns the tree it was given (no card here to wait for)."""
+    tree = {"a": [torch.ones(3)], "b": (torch.zeros(2),)}
+    assert profiling.block(tree) is tree
 
 
 def test_debug_nans_and_trace(tmp_path):
@@ -169,9 +167,14 @@ def test_debug_nans_and_trace(tmp_path):
         profiling.enable_debug_nans(False)
     assert not torch.is_anomaly_enabled()
     with profiling.trace(str(tmp_path / "prof")):
-        (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
+        with profiling.span("test.matmul", step=3):
+            (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
     with open(tmp_path / "prof" / "trace.json") as f:
-        assert "traceEvents" in json.load(f)
+        doc = json.load(f)
+    spans = [e for e in doc["traceEvents"] if e.get("cat") == "span"]
+    assert [(e["name"], e["args"]["step"]) for e in spans] == [
+        ("test.matmul", 3)]
+    assert spans[0]["dur"] >= 0
 
 
 def test_obj_writers_as_jax(tmp_path):
