@@ -13,9 +13,9 @@ machine has them, for one data x tile step and the scaling runs).
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It builds the CUDA kernels (K1, the forward blend; K2, its backward,
 which also adds each instance's gradient onto its Gaussian, and S3, K2's
-skeleton variants, in the same source; S2, the elementwise rate probe;
-S1, the bf16 probe) from the sources in the checkout, one nvcc per
-source, all together, then:
+skeleton variants, in the same source; K3, the kNN; S2, the elementwise
+rate probe; S1, the bf16 probe) from the sources in the checkout, one
+nvcc per source, all together, then:
 
   1. setup: TF32 off, the card's name and power limit, the build time,
      each kernel's registers, static shared memory, spills and resident
@@ -29,6 +29,10 @@ source, all together, then:
      K1's outputs, with a random d(loss)/d(image) drawn from a seed;
      the share of the (warp, instance) pairs K1 and K2 cull that the
      warp cull drops;
+  2c. K3 (ops/knn.py::knn on the card) against plain_knn, distances and
+     indices equal bit for bit, on the scene set-up's self-kNN (k = 4)
+     over clouds of KNN_CLOUDS points, with K3's and plain's device ms
+     and K3's bound by issue (its 3e check (g) at the skinning targets);
   3. the serving path through the user's entry points: a PLY of that
      scene -> create_from_ply -> compact -> scene_forward ->
      render_human_scene(render_mode="scene") for 4 camera views;
@@ -97,10 +101,14 @@ source, all together, then:
      and K2 against their plain versions on step 0's whole frame, K2 fed
      that step's d(loss)/d(raw colour) (float64 fallback), (c) every
      loss, parameter, moment and gradient finite on the live rows, (d)
-     no overflow, (e) one K1 and one K2 launch per step, (f) step 0's
-     frame and draws give a lower L1 + SSIM + patch LPIPS after the run
-     (the LBS term, which does not depend on the frame, printed beside
-     it); then a step's stage times (the patch LPIPS alone beside them),
+     no overflow, (e) one K1, one K2 and one K3 launch per step, (f)
+     step 0's frame and draws give a lower L1 + SSIM + patch LPIPS after
+     the run (the LBS term, which does not depend on the frame, printed
+     beside it), (g) K3 against plain_knn, bit for bit, on the trained
+     avatar's skinning targets (its 524,288 canonical points, the dead
+     rows among them, against the 6,912 vitruvian vertices, k = 6), with
+     both times and K3's bound; then a step's stage times (the patch
+     LPIPS alone beside them),
      a distillation step, the densify, the device kernels and idle share
      of a step, and K1's and K2's times and bounds on step 0's frame;
   3f. the joint training path (config[3], cfg_files/neuman/hugs_human_
@@ -126,9 +134,10 @@ source, all together, then:
      terms (humansep's included) after the run, every parameter and
      moment finite on the live rows, (d) a new trainer resumes the final
      checkpoint bit for bit, (e) validate's metrics finite under
-     hugs_tpu's keys, (f) two K2 launches per step and two K1 per render
-     of a step, one K1 per frame of iteration 0's turntable, and after
-     train() one K1 per validated, animated and turntable frame; then a
+     hugs_tpu's keys, (f) two K2 launches per step and two K1 and one
+     K3 per render of a step, one K1 per frame of iteration 0's
+     turntable, and after train() one K1 per validated, animated and
+     turntable frame, one K3 per profiled step; then a
      step through the trainer and by stage, a distillation step, each
      densify, the device kernels and idle share of a step, and K1's and
      K2's times and bounds on the merged frame;
@@ -251,7 +260,8 @@ source, all together, then:
      bound at the first kernels' operation count, the yardstick that
      compares designs);
   5. one JSON line of the kernels (K1 and K2 in the POWER_MXU mode
-     among them); 6. the device line, last.
+     among them, and K3 with its times at each shape); 6. the device
+     line, last.
 
 Any failed phase raises and the script exits non-zero (1, the
 exception's traceback on stderr). Without a CUDA device it exits 2;
@@ -269,6 +279,7 @@ equal across its ranks) and the sizing on SIZING_RANKS NCCL ranks
 against as many gloo ranks of the CPU: the paths a machine with several
 cards exists for (on one card each says it did not run).
 """
+import importlib
 import json
 import math
 import os
@@ -319,6 +330,14 @@ OPS_BWD_BLENDED_FIRST = 57
 # most 0.99 * 1e-4 times its colour
 PIXEL_ATOL = 2e-5
 MIN_SHARE = 0.9999
+# K3, the kNN kernel: the scene set-up's self-kNN (mean_sq_dist_to_knn,
+# k = 3 + 1) over the scene cell's 524,288 points and over a count no
+# tile of the kernel divides; the issue bound's FP32 lane instructions a
+# (query, reference) pair (3 subtracts, 3 multiplies, 2 adds, a compare)
+# over 128 lanes an SM
+KNN_CLOUDS = (524_288, 100_003)
+KNN_OPS_PER_PAIR = 9
+LANES_PER_SM = 128
 MAX_ABS = 1e-3
 # K2 holds to its plain version per feature column: the sums run in
 # another order, K2's atomics add in an order that is not fixed, and a
@@ -891,6 +910,59 @@ def gt_poses(f, n):
     return pose, orient
 
 
+def knn_check(smi, cases):
+    """K3 (ops/knn.py::knn on card tensors) against its plain version
+    plain_knn on each case, name -> (query, ref, k, reps, plain_reps):
+    the distances and the indices equal bit for bit (torch.equal), or it
+    raises; then K3's device ms (median of `reps` spans of one call after
+    warm-up), the plain version's (`plain_reps` calls, in the same
+    process) and K3's bound by issue, KNN_OPS_PER_PAIR FP32 lane
+    instructions a (query, reference) pair over the card's SMs x
+    LANES_PER_SM lanes at the SM clock nvidia-smi reads while K3 runs on
+    the first case. Prints them and returns {name: numbers}."""
+    from hugs_tpu_torch.micro import sm_clock_mhz
+    from hugs_tpu_torch.ops.knn import knn, plain_knn
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    first = next(iter(cases.values()))
+    clock = sm_clock_mhz(lambda: knn(*first[:3]))
+    rows = {}
+    for name, (query, ref, k, reps, plain_reps) in cases.items():
+        got = knn(query, ref, k)
+        want = plain_knn(query, ref, k)
+        if not (torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])):
+            bad = int((got[1] != want[1]).any(1).sum())
+            raise AssertionError(f"K3 differs from plain_knn on {name}: "
+                                 f"{bad} rows' indices differ")
+        del got, want
+        pairs = query.shape[0] * ref.shape[0]
+        bound = pairs * KNN_OPS_PER_PAIR / (sms * LANES_PER_SM * clock * 1e3)
+        ms = device_ms(lambda: knn(query, ref, k), reps=reps, warmup=2)
+        plain = device_ms(lambda: plain_knn(query, ref, k), reps=plain_reps,
+                          warmup=min(1, plain_reps - 1))
+        rows[name] = {"M": query.shape[0], "N": ref.shape[0], "k": k,
+                      "equal": True, "k3_ms": ms, "plain_ms": plain,
+                      "bound_ms": bound, "bound_share": bound / ms,
+                      "sm_clock_mhz": clock}
+        print(f"# K3 on {name}: {query.shape[0]} x {ref.shape[0]}, k = {k}, "
+              f"distances and indices equal to plain_knn's bit for bit; "
+              f"{ms:.4f} ms (median of {reps}), plain {plain:.4f} ms; bound "
+              f"{pairs:.4e} pairs x {KNN_OPS_PER_PAIR} / ({sms} SMs x "
+              f"{LANES_PER_SM} lanes at {clock:.0f} MHz) = {bound:.5f} ms "
+              f"({bound / ms * 100:.1f}% of its time)  [{smi}]")
+        torch.cuda.empty_cache()
+    return rows
+
+
+def knn_cloud(n, seed, dev):
+    """n points of a normal cloud (scale 0.5) away from the origin, from
+    seed: the scene set-up's self-kNN."""
+    g = torch.Generator().manual_seed(seed)
+    pts = torch.randn((n, 3), generator=g) * 0.5 + torch.tensor(
+        [0.3, 1.2, -0.4])
+    return pts.to(dev)
+
+
 def human_step_card_vs_cpu(dev):
     """Check (b) of phase 3e: one human_train_step's loss, terms and
     gradients on the card (K1, K2) against the same step on the CPU (the
@@ -931,6 +1003,8 @@ def human_training(dev, smi, project, slot_budget, cull_counts,
     from hugs_tpu_torch.train import human_step as hst
     from hugs_tpu_torch.train.optim import group_adam_init, leaves
 
+    # the module: hugs_tpu_torch.ops exports the function `knn` under its name
+    knn_ops = importlib.import_module("hugs_tpu_torch.ops.knn")
     worst_b = human_step_card_vs_cpu(dev)
 
     # ---- the ground truth: striped splats on the posed body
@@ -1112,15 +1186,17 @@ def human_training(dev, smi, project, slot_budget, cull_counts,
           f"VGG16), lbs {HUMAN_LOSS['l_lbs_w']}; white background")
 
     slots = []
-    cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
+    cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = knn_ops.LAUNCHES = 0
     t0 = time.time()
     losses, terms, draws0, info = run(tstate, budget, slots)
     torch.cuda.synchronize()
     train_s = time.time() - t0
     k1_n, k2_n = cuda_blend.LAUNCHES, cuda_blend.K2_LAUNCHES
+    knn_n = knn_ops.LAUNCHES
     print(f"# human training: {HUMAN_STEPS} steps in {train_s:.3f} s (host "
           f"clock, the densify included), K1 launches {k1_n}, K2 launches "
-          f"{k2_n}; densify at step {HUMAN_DENSIFY_AT}: {info}")
+          f"{k2_n}, K3 launches {knn_n}; densify at step "
+          f"{HUMAN_DENSIFY_AT}: {info}")
     print("# human loss by step: " + " ".join(f"{v:.5f}" for v in losses))
     for k in terms[0]:
         print(f"#   {k} by step: " + " ".join(f"{t[k]:.5f}" for t in terms))
@@ -1128,6 +1204,9 @@ def human_training(dev, smi, project, slot_budget, cull_counts,
     if k1_n != HUMAN_STEPS or k2_n != HUMAN_STEPS:       # (e)
         raise AssertionError(f"K1 launched {k1_n} and K2 {k2_n} times for "
                              f"{HUMAN_STEPS} human training steps")
+    if knn_n != HUMAN_STEPS:          # one kNN of the skinning targets a step
+        raise AssertionError(f"K3 launched {knn_n} times for {HUMAN_STEPS} "
+                             f"human training steps")
     # (c) every loss finite, and every gradient: a non-finite gradient
     # would stay in its Adam moments
     live = tstate.state.alive
@@ -1172,6 +1251,20 @@ def human_training(dev, smi, project, slot_budget, cull_counts,
           f"{losses[0]:.6f}, {float(after):.6f}")
     if not photo < photo0:
         raise AssertionError("the loss of step 0's frame did not fall")
+
+    # (g) K3 against plain on the trained avatar's skinning targets, as
+    # human_forward hands them to smpl_lbsweight_top_k: the canonical
+    # points of every row of the capacity, the dead rows among them,
+    # against the vitruvian vertices, k = 6
+    o = forward(0)
+    n_dead = int((~o["alive"]).sum())
+    print(f"# (g) the skinning targets' kNN: {HUMAN_CAPACITY} canonical "
+          f"points ({n_dead} dead rows) against "
+          f"{fixed.vitruvian_verts.shape[0]} vitruvian vertices")
+    knn_lbs = knn_check(smi, {"lbs_targets": (
+        o["xyz_canon"], fixed.vitruvian_verts, 6, 20, 3)})["lbs_targets"]
+    knn_lbs["dead_rows"] = n_dead
+    del o
 
     # (a) K1 and K2 against plain on step 0's frame, K2 fed that step's
     # d(loss)/d(raw colour) (the clip's 0.5 at the bounds included)
@@ -1308,7 +1401,8 @@ def human_training(dev, smi, project, slot_budget, cull_counts,
     t = kernel_times("human step 0's frame", feat0, bins0, white, g0, logt0,
                      nwalk0, pairs0, cull, plain_reps=1)
     return {
-        "k1_launches": k1_n, "k2_launches": k2_n, "k1_err": k1_err,
+        "k1_launches": k1_n, "k2_launches": k2_n, "knn_launches": knn_n,
+        "knn": knn_lbs, "k1_err": k1_err,
         "k2_err": k2_err, "times": t, "cull": cull, "stage_ms": stage_ms,
         "instances_frame0": int(counts0.sum()),
         "pairs_frame0": [int(x) for x in pairs0.sum(dim=(1, 2))],
@@ -1515,6 +1609,7 @@ def joint_training(dev, smi, project, slot_budget, cull_counts,
     from hugs_tpu_torch.train.optim import group_adam_init, leaves
     from hugs_tpu_torch.train.trainer import GaussianTrainer
 
+    knn_ops = importlib.import_module("hugs_tpu_torch.ops.knn")
     t_phase = time.time()
     worst_b = joint_step_card_vs_cpu(dev)
     probe = {}
@@ -1571,11 +1666,13 @@ def joint_training(dev, smi, project, slot_budget, cull_counts,
                                  int(s_out["alive"].sum())))
             del pkg, out, s_out, a
             cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
+            knn_ops.LAUNCHES = 0
             t0 = time.time()
             log = super().train()
             torch.cuda.synchronize()
             probe.update(train_s=time.time() - t0, k1=cuda_blend.LAUNCHES,
-                         k2=cuda_blend.K2_LAUNCHES, retries=self.retries)
+                         k2=cuda_blend.K2_LAUNCHES, knn=knn_ops.LAUNCHES,
+                         retries=self.retries)
             return log
 
     t0 = time.time()
@@ -1607,6 +1704,7 @@ def joint_training(dev, smi, project, slot_budget, cull_counts,
     n_anim = len(tr.anim_dataset) if tr.anim_dataset is not None else 0
     n_canon = int(cfg.human.canon_nframes)
     k1_n, k2_n, retries = probe["k1"], probe["k2"], probe["retries"]
+    knn_n = probe["knn"]
     steps = JOINT_STEPS + 1
     print(f"# joint training: main() {main_s:.1f} s (host clock; train "
           f"{probe['train_s']:.1f} s for {steps} steps, distillation "
@@ -1615,7 +1713,8 @@ def joint_training(dev, smi, project, slot_budget, cull_counts,
           f"({int(tr.human.state.alive.sum())}, "
           f"{int(tr.scene.gs.alive.sum())}); budget {probe['budget0']} "
           f"-> {tr._ibudget}, {retries} steps rendered again; K1 "
-          f"launches {k1_n}, K2 launches {k2_n} in train()")
+          f"launches {k1_n}, K2 launches {k2_n}, K3 launches {knn_n} in "
+          f"train()")
     # (f) two K2 per step (merged, human alone); two K1 per render of
     # a step, one per validated frame at val_interval and one per
     # frame of iteration 0's turntable; after train(), one per frame
@@ -1626,6 +1725,11 @@ def joint_training(dev, smi, project, slot_budget, cull_counts,
         raise AssertionError(f"K1 launched {k1_n} (expected {want_k1}) "
                              f"and K2 {k2_n} (expected {2 * steps}) "
                              f"times in {steps} joint steps")
+    # one kNN of the skinning targets a forward of a step: none in
+    # validate or the turntable, which skip the targets
+    if knn_n != steps + retries:
+        raise AssertionError(f"K3 launched {knn_n} times in {steps} joint "
+                             f"steps ({retries} rendered again)")
     if n_anim != ANIM_FRAMES or k1_after != n_vals + n_anim + n_canon:
         raise AssertionError(
             f"after train() main() launched K1 {k1_after} times for "
@@ -1839,10 +1943,15 @@ def joint_training(dev, smi, project, slot_budget, cull_counts,
     lr = torch.tensor(1e-3, device=dev)
     stage_ms["distill_step"] = device_ms(lambda: hst.distill_step(
         tr.human.params, tr.human.state, d_opt, targets, lr, tr.human_cfg))
-    cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = 0
+    cuda_blend.LAUNCHES = cuda_blend.K2_LAUNCHES = knn_ops.LAUNCHES = 0
+    retries0 = tr.retries
     profile = device_kernels(lambda: trainer_step(0), reps=PROFILED_STEPS)
     per_step = (cuda_blend.LAUNCHES / PROFILED_STEPS,
                 cuda_blend.K2_LAUNCHES / PROFILED_STEPS)
+    knn_prof = knn_ops.LAUNCHES
+    if knn_prof != PROFILED_STEPS + tr.retries - retries0:
+        raise AssertionError(f"K3 launched {knn_prof} times in "
+                             f"{PROFILED_STEPS} profiled joint steps")
     print(f"# joint training step through the trainer "
           f"{stage_ms['trainer_step']:.4f} ms; by stage {stage_ms['step']:.4f}"
           f" ms = human_forward {stage_ms['human_forward']:.4f} + render "
@@ -1853,15 +1962,16 @@ def joint_training(dev, smi, project, slot_budget, cull_counts,
           f"{stage_ms['human_densify']:.4f} ms, scene densify "
           f"{stage_ms['scene_densify']:.4f} ms  [{smi}]")
     print_profile("joint training step", PROFILED_STEPS, *profile, smi)
-    print(f"# profiled joint steps: {per_step[0]:.0f} K1 and {per_step[1]:.0f}"
-          f" K2 launches per step")
+    print(f"# profiled joint steps: {per_step[0]:.0f} K1, {per_step[1]:.0f}"
+          f" K2 and {knn_prof / PROFILED_STEPS:.0f} K3 launches per step")
     cull = cull_counts("joint step 0's frame", feat0, bins0, nwalk0)
     t = kernel_times("joint step 0's frame", feat0, bins0, white, g0, logt0,
                      nwalk0, pairs0, cull, plain_reps=1)
     phase_s = time.time() - t_phase
     print(f"# phase 3f: {phase_s:.1f} s (host clock)  [{smi}]")
     return {
-        "k1_launches": k1_n, "k2_launches": k2_n, "k1_err": k1_err,
+        "k1_launches": k1_n, "k2_launches": k2_n, "knn_launches": knn_n,
+        "knn_profiled": knn_prof, "k1_err": k1_err,
         "k2_err": k2_err, "times": t, "cull": cull, "stage_ms": stage_ms,
         "instances_frame0": int(counts0.sum()),
         "pairs_frame0": [int(x) for x in pairs0.sum(dim=(1, 2))],
@@ -4232,9 +4342,10 @@ def main():
     print(smi)
     t0 = time.time()
     from hugs_tpu_torch.micro import micro_bf16, vpu_peak
+    from hugs_tpu_torch.ops.knn import SOURCE as KNN_SOURCE
     # every kernel's source, one nvcc each, all started together
     build.build([cuda_blend.SOURCE, cuda_blend.BWD_SOURCE, vpu_peak.SOURCE,
-                 micro_bf16.SOURCE])
+                 micro_bf16.SOURCE, KNN_SOURCE])
     build_s = time.time() - t0
     print(f"# build: {build_s:.1f} s")
     for name, log in build.build_logs.items():
@@ -4259,6 +4370,14 @@ def main():
               f" B spill stores (ptxas report: {ptxas}), "
               f"{r['blocks_per_sm']} resident blocks per SM "
               f"({r['blocks_per_sm'] * 8} of 64 warps)")
+    # K3's instances at the callers' k: 6 (the skinning targets), 4 (the
+    # scene set-up's 3 + 1)
+    knn_res = {f"K={k}": build.kernel_resources(
+        build.build_logs[KNN_SOURCE], f"knn_kernelILi{k}E") for k in (4, 6)}
+    for k, r in knn_res.items():
+        print(f"# K3 knn_kernel<{k[2:]}>: {r['registers']} registers, "
+              f"{r['smem_bytes']} B static shared memory, {r['spill_bytes']}"
+              f" B spill stores")
 
     # ---- 2. K1 against plain at full width
     raw = build_scene(N_GAUSS, SEED)
@@ -4396,6 +4515,14 @@ def main():
               gs_p[:, :9])
     cull_serve = cull_counts("phase 2's frame (serving)", feat, bins,
                              nwalk_k)
+
+    # ---- 2c. K3 against plain on the scene set-up's self-kNN
+    knn_scene = {}
+    for i, n in enumerate(KNN_CLOUDS):
+        pts = knn_cloud(n, SEED + 11 + i, dev)
+        knn_scene.update(knn_check(smi, {f"scene_self_knn_{n}": (
+            pts, pts, 4, 5, 1)}))
+        del pts
 
     # ---- 3. serving path through the user's entry points
     with tempfile.TemporaryDirectory() as tmp:
@@ -5053,6 +5180,26 @@ def main():
                                "joint_training": joint["cull"]["K2_dropped"]},
         **resources["K2"],
         "held_to": "plain_blend_bwd", "ok": True,
+    }, {
+        "name": "K3 knn", "route": "cuda",
+        "source": "hugs_tpu_torch/csrc/knn.cu",
+        "replaces": "hugs_tpu/ops/knn.py:52 (plain JAX, no TPU kernel)",
+        "launches": human["knn_launches"] + joint["knn_launches"]
+        + joint["knn_profiled"],
+        "launches_by_path": {"human_training": human["knn_launches"],
+                             "joint_training": joint["knn_launches"],
+                             "joint_profiled_steps": joint["knn_profiled"]},
+        "launches_per_step": {
+            "human_training": human["knn_launches"] / HUMAN_STEPS,
+            "joint_profiled_steps": joint["knn_profiled"] / PROFILED_STEPS},
+        "max_abs_err": 0.0, "equal_bit_for_bit": True,
+        "frame": "the skinning targets (phase 3e)",
+        "ms": human["knn"]["k3_ms"], "plain_ms": human["knn"]["plain_ms"],
+        "bound_ms": human["knn"]["bound_ms"], "bound_by": "issue",
+        "library_ms": None,
+        "shapes": {"lbs_targets": human["knn"], **knn_scene},
+        "ptxas": knn_res,
+        "held_to": "plain_knn", "ok": True,
     }, *({
         "name": f"{k} {fn}, POWER_MXU mode", "route": "cuda",
         "source": f"hugs_tpu_torch/csrc/{fn}.cu",

@@ -61,6 +61,7 @@ change.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import shutil
@@ -101,6 +102,9 @@ from hugs_tpu_torch.train.budget import (
 from hugs_tpu_torch.utils import profiling
 from hugs_tpu_torch.utils.image import create_video, save_image_grid, save_png
 from hugs_tpu_torch.utils.ply import save_gaussian_ply
+
+# the module: hugs_tpu_torch.ops exports the function `knn` under its name
+knn_ops = importlib.import_module("hugs_tpu_torch.ops.knn")
 
 # the pkg keys a binning-only render gives: render_frame stops after the
 # binning when `outputs` asks for these alone
@@ -498,11 +502,13 @@ class GaussianTrainer:
 
     def _counters(self) -> dict:
         """The counts whose change over a step its record takes: the
-        blend kernels' launches and the budget's retries."""
+        blend kernels' and the kNN kernel's launches and the budget's
+        retries."""
         return {"launches": cuda_blend.LAUNCHES,
                 "k2_launches": cuda_blend.K2_LAUNCHES,
                 "mxu_launches": cuda_blend.MXU_LAUNCHES,
                 "k2_mxu_launches": cuda_blend.K2_MXU_LAUNCHES,
+                "knn_launches": knn_ops.LAUNCHES,
                 "retries": self.retries,
                 "overflow_persisted": self.overflow_persisted}
 

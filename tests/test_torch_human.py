@@ -441,7 +441,9 @@ def test_human_forward_matches_jax(case):
 
 
 def test_knn_lbs_transfer_matches_jax():
-    """smpl_lbsweight_top_k and smpl_lbsmap_top_k (K = 6), atol 1e-5."""
+    """smpl_lbsweight_top_k and smpl_lbsmap_top_k (K = 6), atol 1e-5,
+    and their gradients in the points (through the kNN distances, the
+    branch of use_deformer=false), atol 1e-6."""
     js = jsmpl.synthetic_smpl(12)
     ts = convert.smpl_model_from_numpy(smpl_arrays(js), "cpu")
     pts = np.asarray(js.v_template)[::3] + np.random.default_rng(2).normal(
@@ -453,10 +455,19 @@ def test_knn_lbs_transfer_matches_jax():
             (jh.smpl_lbsmap_top_k, th.smpl_lbsmap_top_k, (tf,))):
         want = jf(js.lbs_weights, *(jnp.asarray(a) for a in args),
                   jnp.asarray(pts), js.v_template)
+        tpts = torch.as_tensor(pts).requires_grad_()
         got = tfn(ts.lbs_weights, *(torch.as_tensor(a) for a in args),
-                  torch.as_tensor(pts), ts.v_template)
+                  tpts, ts.v_template)
         for a, b in zip(got, want):
-            _close(a, b)
+            _close(a.detach(), b)
+
+        def jloss(p, jf=jf, args=args):
+            dist, out = jf(js.lbs_weights, *(jnp.asarray(a) for a in args),
+                           p, js.v_template)
+            return jnp.sum(dist) + jnp.sum(jnp.sin(out))
+        jgrad = jax.grad(jloss)(jnp.asarray(pts))
+        (torch.sum(got[0]) + torch.sum(torch.sin(got[1]))).backward()
+        _close(tpts.grad, jgrad, atol=1e-6)
 
 
 def test_compact_for_inference_matches_jax():

@@ -9,7 +9,8 @@ synthetic_smpl(8):
 - on, a joint sync step yields the span tree of the trainer's stages
   under one `train.step` of its iteration, `knn_chunks` of one kNN call
   a forward, the forward's slot demand and budget (the instances at
-  sync steps), and the counters' deltas; a step that overflows its
+  sync steps), and the counters' deltas (no K1, K2 or kNN kernel launch
+  on the CPU); a step that overflows its
   budget counts its retry and renders twice; a step that is no sync
   step has no read-back span and its slot counts all the same; on the
   CPU every device interval is None;
@@ -42,7 +43,7 @@ TINY = ["train.num_steps=9", "train.val_interval=1000",
 STAGES = {"step.human_forward", "step.render", "step.loss",
           "step.sync_readback", "step.backward", "step.optim"}
 COUNTERS = {"launches", "k2_launches", "mxu_launches", "k2_mxu_launches",
-            "retries", "overflow_persisted"}
+            "knn_launches", "retries", "overflow_persisted"}
 
 
 @pytest.fixture(scope="module")
@@ -170,7 +171,8 @@ def test_joint_step_span_tree(fake_root):
         assert c["knn_chunks"] == attempts * chunks
         assert COUNTERS <= set(c)
         assert c["retries"] == (1 if retried else 0)
-        assert c["launches"] == c["k2_launches"] == 0     # CPU: no K1, K2
+        # CPU: no K1, K2 or K3 (the plain kNN)
+        assert c["launches"] == c["k2_launches"] == c["knn_launches"] == 0
         if t != 1:      # the instances where the step read them back
             assert 0 < c["n_instances"] <= c["n_slots"]
         assert 0 < c["n_slots"]

@@ -3,7 +3,8 @@ numpy, and the slice as a whole: a JAX SceneGS converted to the port
 renders the same image through the same entry points.
 
 Tolerances: kNN indices exact and distances rtol 1e-6 (the exact
-(a-b)^2 form in float32 against float64); PLY round trip exact;
+(a-b)^2 form in float32 against float64, and against hugs_tpu's knn),
+exact on integer points, where ties are exact too; PLY round trip exact;
 create_from_pcd parameters atol 1e-6; images atol 2e-5 (the render bar
 of tests/test_pallas_blend.py).
 """
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from hugs_tpu.models import scene_gs as jscene
+from hugs_tpu.ops.knn import knn as jax_knn
 from hugs_tpu.render import render_human_scene as jax_render_hs
 from hugs_tpu.utils import ply as jply
 from hugs_tpu_torch.convert import camera_from_numpy, scene_gs_from_numpy
@@ -22,6 +24,7 @@ from hugs_tpu_torch.models import scene_gs as tscene
 from hugs_tpu_torch.ops.knn import knn, mean_sq_dist_to_knn
 from hugs_tpu_torch.render import render_human_scene
 from hugs_tpu_torch.utils import ply as tply
+from test_torch_knn import tie_case
 from torch_parity import H, W, cameras, np_of
 
 ATOL = 2e-5
@@ -33,10 +36,28 @@ def _cloud(n, seed, center=(40.0, -25.0, 60.0)):
     return pts
 
 
-@pytest.mark.parametrize("k", [1, 4])
-def test_knn_matches_numpy(k):
-    ref = _cloud(500, 0)
-    query = _cloud(150, 1)
+def _knn_case(name):
+    """(query, ref) as float32 numpy arrays: two clouds away from the
+    origin, or test_torch_knn.tie_case's integer points (exact distances,
+    many equal), or 300 query rows at one point (the avatar's dead rows
+    at the origin) among a cloud's."""
+    if name == "cloud":
+        return _cloud(150, 1), _cloud(500, 0)
+    if name == "coincident":
+        query = np.concatenate([np.zeros((300, 3), np.float32),
+                                _cloud(20, 4, center=(0.1, 0.2, 0.0))])
+        return query, _cloud(400, 5, center=(0.0, 0.3, 0.1))
+    return tuple(np_of(x) for x in tie_case(name))
+
+
+@pytest.mark.parametrize("case,k", [
+    pytest.param("cloud", 1, id="1"), pytest.param("cloud", 4, id="4"),
+    ("duplicates", 6), ("sphere", 8), ("coincident", 6)])
+def test_knn_matches_numpy(case, k):
+    """Indices exact against numpy's stable sort in float64 and against
+    hugs_tpu's knn: ascending distance, the lower index first on ties;
+    coinciding query rows get one list."""
+    query, ref = _knn_case(case)
     d, idx = knn(torch.as_tensor(query), torch.as_tensor(ref), k, chunk=64)
     full = ((query[:, None, :].astype(np.float64)
              - ref[None, :, :].astype(np.float64)) ** 2).sum(-1)
@@ -45,6 +66,13 @@ def test_knn_matches_numpy(k):
     np.testing.assert_allclose(np_of(d),
                                np.take_along_axis(full, want_idx, 1),
                                rtol=1e-6)
+    jd, jidx = jax_knn(jnp.asarray(query), jnp.asarray(ref), k, chunk=64)
+    np.testing.assert_array_equal(np_of(idx), np.asarray(jidx))
+    np.testing.assert_allclose(np_of(d), np.asarray(jd), rtol=1e-6)
+    if case == "coincident":
+        assert (np_of(idx)[:300] == np_of(idx)[0]).all()
+    if case in ("duplicates", "sphere"):     # integer points: exact
+        np.testing.assert_array_equal(np_of(d), np.asarray(jd))
 
 
 def test_mean_sq_dist_to_knn_matches_numpy():
