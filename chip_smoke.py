@@ -248,6 +248,12 @@ nvcc per source, all together, then:
      script's 65,536-point scene, 6 cameras at 480x272), its JSON line,
      6 K1 launches; (d) its camera 0's packet against the frame's kept
      instances, K1 against plain there;
+  3m. the trainer's captured step (train/graph_step.py; run after 3i,
+     on phase 3f's sequence): joint and scene trainers at config[3]'s
+     capacities replay GRAPH_CHECKED steps at GRAPH_ITERS, held to
+     GRAPH_EAGER_RUNS eager runs from the same state (GRAPH_CUTS says
+     how), one K1 and one K2 launch a render and one K3 a joint step
+     counted at each replay, then GRAPH_WINDOW steps each way timed;
   4. times on the card (CUDA events, median of 20 after warm-up): one
      request split into project / bin / blend, one training step split
      into forward / loss / backward / Adam + stats, one densify step,
@@ -279,6 +285,7 @@ equal across its ranks) and the sizing on SIZING_RANKS NCCL ranks
 against as many gloo ranks of the CPU: the paths a machine with several
 cards exists for (on one card each says it did not run).
 """
+import gc
 import importlib
 import json
 import math
@@ -447,6 +454,36 @@ RECIPE_DISTILL = 300
 RECIPE_STEPS = 250
 RECIPE_GAIN_DB = 10.0
 SURFACE_STEPS = 250
+# phase 3m: the trainer's captured step (train/graph_step.py) on phase 3f's
+# sequence at full width and config[3]'s capacities, joint and scene (no
+# densify): GRAPH_CHECKED steps at the iterations GRAPH_ITERS (position
+# rates far apart, so that a rate baked into a capture would show) as
+# replays against as many eager steps from one state on as many frames,
+# the launches a replay (K1 and K2 one a render, K3 one a joint step),
+# then GRAPH_WINDOW steps each way timed on the host clock. K2's atomics
+# make two eager runs differ, and Adam turns a near-zero gradient's sign
+# into a step of +-lr, so the eager steps run GRAPH_EAGER_RUNS times and
+# the replays are held to the nearest eager run: the losses, and each
+# state tensor's change over the steps (parameters, Adam's moments, the
+# statistics), ||d|| / ||change|| within GRAPH_NOISE times the most the
+# eager runs differ among themselves, or GRAPH_FLOOR where they differ
+# less: the captured kernels may round otherwise than the eager ones (the
+# triplane's second moment read 1.3e-4 apart where three eager runs
+# agreed to 3e-8), while an input baked into a capture (a position rate
+# of iteration 100 at 9,000) moves a change by tens of percent. Leaves
+# whose first moment is under NOUGHT of the median leaf's
+# are left out (the benchmark's rule, bench_port/reference/compare.py):
+# the scene's rotations start isotropic, so their gradient is rounding
+GRAPH_CUTS = dict(JOINT_CUTS, **{"human.init_steps": 200,
+                                 "human.densify_until_iter": 0,
+                                 "scene.densify_until_iter": 0})
+GRAPH_ITERS = (100, 4000, 9000)
+GRAPH_CHECKED = len(GRAPH_ITERS)
+GRAPH_WINDOW = 20
+GRAPH_EAGER_RUNS = 3
+GRAPH_NOISE = 3.0
+GRAPH_FLOOR = 1e-3
+NOUGHT = 1e-3
 # `--scale-out`: checks (c) and (d) alone, on phase 3f's sequence and
 # JOINT_CUTS trained for 2 steps after a 50-step distillation
 SCALE_OUT_CUTS = dict(JOINT_CUTS, **{
@@ -2766,6 +2803,128 @@ def multi_card_check(smi, cfg, mean_loss):
             "k2": [r["k2"] for r in ranks], "s": mr_s}
 
 
+def graph_replays(dev, smi, root):
+    """Phase 3m (see GRAPH_CUTS): the trainer's steps as replays of its
+    captured step against eager steps, joint (human_scene) and scene, on
+    the sequence under root. Raises if a check fails; returns the
+    numbers by mode."""
+    from hugs_tpu_torch import main as cli
+    from hugs_tpu_torch.train import checkpoint as ckpt_io
+    from hugs_tpu_torch.train import graph_step as gst
+    from hugs_tpu_torch.train.trainer import GaussianTrainer
+
+    def state(tr):
+        return {f"{n}.{k}": v for n, st in (("human", tr.human),
+                                            ("scene", tr.scene))
+                if st is not None for k, v in ckpt_io.flatten(st).items()}
+
+    def steps(tr, iters, graph):
+        """One step at each iteration of iters, on frames 0, 1, ... (no
+        sync step); the losses."""
+        real = gst.capturable
+        gst.capturable = (lambda device: graph)
+        try:
+            n = len(tr.train_dataset)
+            return [tr._train_step(t, i % n, tr.train_dataset[i % n],
+                                   False)[0]["loss"].clone()
+                    for i, t in enumerate(iters)]
+        finally:
+            gst.capturable = real
+
+    out = {}
+    for mode in ("human_scene", "scene"):
+        cfg = joint_config(root, f"graph_{mode}", dict(GRAPH_CUTS, mode=mode))
+        train_ds, _, _ = cli.build_datasets(cfg, dev)
+        tr = GaussianTrainer(cfg, train_ds, device=dev)
+        start = {k: v.detach().clone() for k, v in state(tr).items()}
+        gen0 = tr.gen.get_state()
+
+        def from_start(graph):
+            """The checked steps from the start: {'losses': ..., each
+            state tensor: its change}, float64."""
+            with torch.no_grad():
+                for k, v in state(tr).items():
+                    v.copy_(start[k])
+            tr.gen.set_state(gen0)
+            got = {"losses": torch.stack(steps(tr, GRAPH_ITERS, graph))
+                   .double()}
+            got.update({k: v.detach().double() - start[k].double()
+                        for k, v in state(tr).items()})
+            return got
+
+        eager = [from_start(False) for _ in range(GRAPH_EAGER_RUNS)]
+        before = gst.launch_counts()
+        got = from_start(True)
+        torch.cuda.synchronize()
+        per = [(b - a) / GRAPH_CHECKED
+               for a, b in zip(before, gst.launch_counts())]
+        renders = 1 if mode == "scene" else 2
+        # K1, K2, their POWER_MXU counts, K3
+        launches = [renders, renders, 0, 0, 0 if mode == "scene" else 1]
+        if per != launches:
+            raise AssertionError(f"3m {mode}: launches a replay {per}, "
+                                 f"want {launches}")
+        mu = {k: float(v.norm()) for k, v in eager[0].items() if ".opt.mu." in k}
+        med = statistics.median(mu.values())
+        nought = {k.replace(".opt.mu.", "."): v < NOUGHT * med
+                  for k, v in mu.items()}
+
+        def left_out(k):
+            if k == "losses":
+                return False
+            model, rest = k.split(".", 1)
+            for prefix in ("opt.mu.", "opt.nu.", "params.", "gs."):
+                if rest.startswith(prefix):
+                    return nought.get(f"{model}.{rest[len(prefix):]}", False)
+            return False
+
+        def apart(a, b, k):
+            return float((a[k] - b[k]).norm()) / max(float(b[k].norm()),
+                                                     1e-30)
+
+        left, held = [k for k in got if left_out(k)], []
+        for k in got:
+            if k in left:
+                continue
+            rel = min(apart(got, e, k) for e in eager)
+            noise = max(apart(a, b, k) for j, a in enumerate(eager)
+                        for b in eager[j + 1:])
+            held.append((rel / max(GRAPH_FLOOR, GRAPH_NOISE * noise), k,
+                         rel, noise))
+        held.sort(reverse=True)
+        print(f"# 3m {mode}: the losses and the changes of {len(held) - 1} "
+              f"state tensors over {GRAPH_CHECKED} replays at iterations "
+              f"{GRAPH_ITERS} against the nearest of {GRAPH_EAGER_RUNS} "
+              f"eager runs, ||d|| / ||change|| (the eager runs among "
+              f"themselves), the largest shares of the bar: " + ", ".join(
+                  f"{k} {rel:.2e} ({noise:.2e})"
+                  for _, k, rel, noise in held[:5])
+              + f"; left out as nought: {', '.join(left) or 'none'}")
+        bad = [k for share, k, _, _ in held if share > 1.0]
+        if bad:
+            raise AssertionError(f"3m {mode}: over the bar (GRAPH_FLOOR "
+                                 f"{GRAPH_FLOOR}, GRAPH_NOISE x the eager "
+                                 f"runs' spread): {', '.join(bad)}")
+        worst = held[0][0]
+        times = {}
+        for name, graph_on in (("eager", False), ("replay", True),
+                               ("eager_again", False)):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            steps(tr, range(200, 200 + GRAPH_WINDOW), graph_on)
+            torch.cuda.synchronize()
+            times[name] = (time.time() - t0) / GRAPH_WINDOW * 1e3
+        print(f"# 3m {mode}: launches a replay K1 {per[0]:g}, K2 {per[1]:g}, "
+              f"K3 {per[4]:g}; ms a step over {GRAPH_WINDOW} (host clock): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
+              + f"  [{smi}]")
+        out[mode] = {"launches": per, "worst_of_bar": worst, "ms": times}
+        del tr, train_ds, start, eager, got
+        gc.collect()        # the trainer and its captured step hold a cycle
+        torch.cuda.empty_cache()
+    return out
+
+
 def scale_out(dev, smi, project, joint, evaln):
     """Phase 3h, config[4]'s scale-out on phase 3f's run (joint) and
     phase 3g's evaluation trainer (evaln). Checks (a)-(d) of the module
@@ -4912,6 +5071,11 @@ def main():
         gauss = gauss_shard(dev, smi, project, slot_budget, joint, evaln,
                             root)
         del evaln["trainer"], joint["train_dataset"]
+        torch.cuda.empty_cache()
+        # ---- 3m. the captured step's replays on 3f's sequence, after 3i
+        print(f"# phase 3m starts at {time.time() - t_start:.1f} s (host "
+              f"clock)")
+        graphs = graph_replays(dev, smi, root)
     jt, et = joint["times"], evaln["times"]
     torch.cuda.empty_cache()
     # ---- 3j. the convergence recipes, cut, after 3i
@@ -5238,6 +5402,7 @@ def main():
     } for k, fn, line, calls, frame in (
         ("K1", "blend_fwd", 354, ":365, :428", "serving"),
         ("K2", "blend_bwd", 486, ":499, :589", "training"))), *micro]}))
+    print(json.dumps({"graph_replays": graphs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -64,9 +64,18 @@ def _depthwise_blur(img: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return out[0]
 
 
+@functools.lru_cache(maxsize=8)
+def _gaussian_window(window_size: int, sigma: float,
+                     device: torch.device) -> torch.Tensor:
+    """The window on a device, copied there once: a copy from host memory
+    waits for the card, and a captured step (train/graph_step.py) cannot
+    make one."""
+    return torch.as_tensor(_gaussian_window_np(window_size, sigma),
+                           device=device)
+
+
 def _ssim_map(img1, img2, window_size, sigma):
-    w = torch.as_tensor(_gaussian_window_np(window_size, sigma),
-                        device=img1.device)
+    w = _gaussian_window(window_size, sigma, img1.device)
     mu1 = _depthwise_blur(img1, w)
     mu2 = _depthwise_blur(img2, w)
     mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2

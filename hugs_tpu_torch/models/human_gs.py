@@ -372,20 +372,32 @@ def compact_for_inference(
     return new_params, state, canon_out
 
 
+def _pose_row(table: torch.Tensor, dataset_idx) -> torch.Tensor:
+    """Row dataset_idx of a per-frame table: an int, or a 0-d int64
+    tensor on the table's device, read there (a captured step's index,
+    train/graph_step.py), by index_select, whose backward adds into
+    zeros: the same gradient as the int's."""
+    if isinstance(dataset_idx, torch.Tensor):
+        return torch.index_select(table, 0, dataset_idx.reshape(1))[0]
+    return table[dataset_idx]
+
+
 def resolve_pose(params: HumanGS, dataset_idx, global_orient=None,
                  body_pose=None, betas=None, transl=None):
     """Use caller-provided SMPL params, else the learned per-frame ones
     (reference hugs_trimlp.py:442-454)."""
     if global_orient is None:
         global_orient = rotation_6d_to_axis_angle(
-            params.global_orient[dataset_idx].reshape(1, 6)).reshape(3)
+            _pose_row(params.global_orient, dataset_idx).reshape(1, 6)) \
+            .reshape(3)
     if body_pose is None:
         body_pose = rotation_6d_to_axis_angle(
-            params.body_pose[dataset_idx].reshape(23, 6)).reshape(69)
+            _pose_row(params.body_pose, dataset_idx).reshape(23, 6)) \
+            .reshape(69)
     if betas is None:
         betas = params.betas
     if transl is None:
-        transl = params.transl[dataset_idx]
+        transl = _pose_row(params.transl, dataset_idx)
     return global_orient, body_pose, betas, transl
 
 

@@ -114,9 +114,10 @@ def triplane_apply(p: TriPlane, x: torch.Tensor, center: float = 0.0,
     first), F.grid_sample's (x -> W, y -> H) convention."""
     u = (x - center) / scale + 0.5            # [0, 1]
     u = u * 2.0 - 1.0                         # [-1, 1]
-    f_xy = grid_sample_2d(p.plane_xy, u[:, [0, 1]])
-    f_xz = grid_sample_2d(p.plane_xz, u[:, [0, 2]])
-    f_yz = grid_sample_2d(p.plane_yz, u[:, [1, 2]])
+    # slices, not lists: a list index is a tensor copied from host memory
+    f_xy = grid_sample_2d(p.plane_xy, u[:, 0:2])
+    f_xz = grid_sample_2d(p.plane_xz, u[:, 0::2])
+    f_yz = grid_sample_2d(p.plane_yz, u[:, 1:3])
     return torch.cat([f_xy, f_xz, f_yz], dim=-1)
 
 

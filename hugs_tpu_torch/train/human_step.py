@@ -33,6 +33,7 @@ from hugs_tpu_torch.train.optim import (
     GroupAdamState, expon_lr, group_adam_init, group_adam_update, leaves,
     pack,
 )
+from hugs_tpu_torch.train.scene_step import viewspace_scale
 from hugs_tpu_torch.utils import profiling
 
 # ReduceLROnPlateau of the distillation (init_opt.py)
@@ -249,8 +250,7 @@ def human_update(tstate: HumanTrainState, grads: dict,
     scene_step.py)."""
     group_adam_update(grads, tstate.opt, hgs.params_of(tstate.params),
                       dict(static_lrs, xyz=xyz_lr))
-    scale = torch.tensor([0.5 * width, 0.5 * height],
-                         device=hook_grad.device)
+    scale = viewspace_scale(hook_grad, width, height)
     hgs.add_densification_stats(tstate.state, hook_grad * scale,
                                 pkg["radii"], pkg["visibility_filter"])
     return tstate

@@ -29,7 +29,7 @@ from hugs_tpu_torch.render.renderer import render_human_scene
 from hugs_tpu_torch.train.budget import fit_budget
 from hugs_tpu_torch.train.human_step import HumanTrainState
 from hugs_tpu_torch.train.optim import group_adam_update, leaves, pack
-from hugs_tpu_torch.train.scene_step import SceneTrainState
+from hugs_tpu_torch.train.scene_step import SceneTrainState, viewspace_scale
 from hugs_tpu_torch.utils import profiling
 
 
@@ -115,8 +115,7 @@ def joint_update(jstate: JointTrainState, h_grads: dict, s_grads: dict | None,
         group_adam_update(s_grads, sstate.opt, sgs.params_of(sstate.gs),
                           dict(scene_static_lrs, xyz=scene_xyz_lr))
     h_cap = hstate.params.xyz.shape[0]
-    vs_grad = hook_grad * torch.tensor([0.5 * width, 0.5 * height],
-                                       device=hook_grad.device)
+    vs_grad = hook_grad * viewspace_scale(hook_grad, width, height)
     hgs.add_densification_stats(hstate.state, vs_grad[:h_cap],
                                 pkg["human_radii"],
                                 pkg["human_visibility_filter"])

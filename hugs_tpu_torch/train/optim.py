@@ -103,9 +103,10 @@ def group_adam_update(grads: dict, state: GroupAdamState, params: dict,
     gets lr 0 (frozen). Returns state."""
     state.step.add_(1)
     step = state.step.to(torch.float32)
-    f32 = dict(dtype=torch.float32, device=step.device)
-    bc1 = 1.0 - torch.tensor(b1, **f32) ** step
-    bc2 = 1.0 - torch.tensor(b2, **f32) ** step
+    # the betas as float32 tensors made on the device (a tensor from host
+    # memory would wait for the card, and a captured step cannot copy one)
+    bc1 = 1.0 - torch.full_like(step, b1) ** step
+    bc2 = 1.0 - torch.full_like(step, b2) ** step
     for k, group in params.items():
         lr = lrs.get(k, 0.0)
         for p, g, m, v in zip(leaves(group), leaves(grads[k]),

@@ -58,6 +58,17 @@ def make_scene_lrs(cfg_lr, spatial_lr_scale: float):
     return static, sched
 
 
+def viewspace_scale(like: torch.Tensor, width: int,
+                    height: int) -> torch.Tensor:
+    """(0.5 W, 0.5 H), float32 on like's device, filled there: a tensor
+    from host memory would wait for the card, and a captured step
+    (train/graph_step.py) cannot copy one."""
+    scale = torch.empty(2, dtype=torch.float32, device=like.device)
+    scale[0:1].fill_(0.5 * width)
+    scale[1:2].fill_(0.5 * height)
+    return scale
+
+
 def init_scene_train_state(gs: sgs.SceneGS) -> SceneTrainState:
     return SceneTrainState(gs=gs, opt=group_adam_init(sgs.params_of(gs)))
 
@@ -105,8 +116,7 @@ def scene_update(state: SceneTrainState, grads: dict,
     # The hook's gradient is d(loss)/d(pixel-space mean2d); 3DGS's CUDA
     # backward returns viewspace gradients scaled by 0.5 W (0.5 H for y),
     # and densify_grad_threshold is calibrated to those units.
-    scale = torch.tensor([0.5 * width, 0.5 * height],
-                         device=hook_grad.device)
+    scale = viewspace_scale(hook_grad, width, height)
     sgs.add_densification_stats(gs, hook_grad * scale, pkg["radii"],
                                 pkg["visibility_filter"])
     return state

@@ -28,6 +28,15 @@ the JAX package does) is rendered again at the grown budget before
 anything is updated: the forward is a separate stage from the update,
 so no copy of the states is needed for the retry.
 
+On the card a one-frame step runs as replays of two CUDA graphs that
+train/graph_step.py captures at the first step of each key (the mode,
+the frame's size, the budget, the SH degrees, ...): the forward with
+the loss, then the gradients, Adam and the statistics; an overflow's
+retry and everything else (densify, the periodic work) run eagerly. A
+replayed step costs the host about a millisecond, so the trainer keeps
+at most STEPS_IN_FLIGHT steps queued on the card and waits for the
+oldest in `train.wait`.
+
 Scale-out (config[4]): train.batch_size B > 1, or a mesh of several
 ranks, trains through the data x tile step of parallel/train_dp_tile.py
 on the trainer's mesh, (world, 1) by default as hugs_tpu lays it out
@@ -61,6 +70,7 @@ change.
 """
 from __future__ import annotations
 
+import collections
 import importlib
 import json
 import os
@@ -93,6 +103,7 @@ from hugs_tpu_torch.parallel.train_dp_tile import (
 from hugs_tpu_torch.render import cuda_blend
 from hugs_tpu_torch.render.renderer import render_human_scene
 from hugs_tpu_torch.train import checkpoint as ckpt_io
+from hugs_tpu_torch.train import graph_step as gst
 from hugs_tpu_torch.train import human_step as hst
 from hugs_tpu_torch.train import joint_step as jst
 from hugs_tpu_torch.train import scene_step as sst
@@ -105,6 +116,9 @@ from hugs_tpu_torch.utils.ply import save_gaussian_ply
 
 # the module: hugs_tpu_torch.ops exports the function `knn` under its name
 knn_ops = importlib.import_module("hugs_tpu_torch.ops.knn")
+
+# the steps a trainer on the card keeps queued on the device at most
+STEPS_IN_FLIGHT = 2
 
 # the pkg keys a binning-only render gives: render_frame stops after the
 # binning when `outputs` asks for these alone
@@ -121,6 +135,12 @@ class GaussianTrainer:
     _scene_stale = False
     _gauss_mesh = None
     _gauss_key = None
+    # the captured step (train/graph_step.py) and the SH degrees its key
+    # holds, read from the card after each change (None: not yet)
+    _graph = None
+    _sh_key = None
+    # the card's events at the ends of the steps still queued there
+    _in_flight = None
 
     def __init__(self, cfg: Config, train_dataset=None, val_dataset=None,
                  anim_dataset=None, smpl_model=None,
@@ -495,10 +515,28 @@ class GaussianTrainer:
         """One step in place: draws, forward (again at a grown budget if
         a sync step overflowed), gradients, Adam and statistics, then the
         densify where due. Returns (aux, the sync step's (loss, slots,
-        overflowed, instances) or None)."""
+        overflowed, instances) or None). On the card it first waits, in
+        a root span of its own (`train.wait`), until at most
+        STEPS_IN_FLIGHT - 1 earlier steps are queued there: else the
+        host fills CUDA's launch queue and waits inside a launch."""
+        on_card = self.device.type == "cuda"
+        if on_card:
+            self._wait_in_flight(t_iter)
         with profiling.span("train.step", step=t_iter, device=True,
                             counters=self._counters):
-            return self._one_step(t_iter, idx, data, sync)
+            out = self._one_step(t_iter, idx, data, sync)
+        if on_card:
+            done = torch.cuda.Event()
+            done.record()
+            self._in_flight.append(done)
+        return out
+
+    def _wait_in_flight(self, t_iter: int) -> None:
+        if self._in_flight is None:
+            self._in_flight = collections.deque()
+        if len(self._in_flight) >= STEPS_IN_FLIGHT:
+            with profiling.span("train.wait", step=t_iter):
+                self._in_flight.popleft().synchronize()
 
     def _counters(self) -> dict:
         """The counts whose change over a step its record takes: the
@@ -513,18 +551,23 @@ class GaussianTrainer:
                 "overflow_persisted": self.overflow_persisted}
 
     def _one_step(self, t_iter, idx, data, sync: bool):
-        cfg = self.cfg
         mode = self._mode(t_iter)
         if mode == "scene" and self._gauss_n():
             return self._gauss_train_step(t_iter, data, sync)
         W, H = data["width"], data["height"]
         bg, human_bg, draws = self._step_draws(mode, H, W)
+        graph = self._step_graph(mode, data, human_bg, draws)
+        lrs = self._xyz_lrs(mode, t_iter)
         vals = None
         for attempt in range(3):
             self.retries += attempt > 0
             budget = self._ibudget
-            loss, fw = self._forward(mode, t_iter, idx, data, bg, human_bg,
-                                     draws)
+            if graph is not None and attempt == 0:
+                graph.load(idx, data, bg, human_bg, draws, *lrs)
+                loss, fw = graph.forward()
+            else:
+                loss, fw = self._forward(mode, t_iter, idx, data, bg,
+                                         human_bg, draws)
             if not sync:
                 break
             pkg = fw["pkg"]
@@ -540,50 +583,103 @@ class GaussianTrainer:
             self.overflow_persisted += 1
             print(f"WARNING: tile-instance budget overflow persists at iter "
                   f"{t_iter} (budget={self._ibudget})")
-        pkg, hook = fw["pkg"], fw["hook"]
+        pkg = fw["pkg"]
+        replayed = graph is not None and fw is graph.fw
         # every step the forward's slot demand (a 0-d tensor of its own,
-        # read at the drain) and budget; the instances where read back
+        # read at the drain: a replay's is copied, the next replay
+        # overwrites it) and budget; the instances where read back
         # (their tensor is a view that holds the binning's cumsum)
-        profiling.count("n_slots", pkg["n_slots"])
+        if profiling.recording():
+            profiling.count("n_slots", pkg["n_slots"].clone() if replayed
+                            else pkg["n_slots"])
         profiling.count("budget", budget)
         if vals is not None:
             profiling.count("n_instances", vals[3])
-        if mode == "scene":
-            with profiling.span("step.backward", device=True):
-                grads, hook_grad = sst.scene_grads(loss, self.scene.gs, hook)
-            with profiling.span("step.optim", device=True):
-                sst.scene_update(self.scene, grads, hook_grad, pkg,
-                                 self.s_xyz_sched(t_iter), self.s_static_lrs,
-                                 width=W, height=H)
-                aux = {"loss": loss.detach(), "overflowed": pkg["overflowed"],
-                       "n_instances": pkg["n_instances"],
-                       "n_slots": pkg["n_slots"]}
-                self._maybe_densify_scene(t_iter)
-        elif mode == "human":
-            with profiling.span("step.backward", device=True):
-                grads, hook_grad = hst.human_grads(loss, self.human.params,
-                                                   hook)
-            with profiling.span("step.optim", device=True):
-                hst.human_update(self.human, grads, hook_grad, pkg,
-                                 self.h_xyz_sched(t_iter), self.h_static_lrs,
-                                 width=W, height=H)
-                aux = jst.step_aux(loss, fw["loss_dict"], pkg, fw["out"])
-                self._maybe_densify_human(t_iter, aux)
+        if replayed:
+            graph.update()
         else:
-            jstate = jst.JointTrainState(human=self.human, scene=self.scene)
-            with profiling.span("step.backward", device=True):
-                h_grads, s_grads, hook_grad = jst.joint_grads(
-                    loss, jstate, hook, cfg.train.optim_scene)
-            with profiling.span("step.optim", device=True):
-                jst.joint_update(
-                    jstate, h_grads, s_grads, hook_grad, pkg,
-                    self.h_xyz_sched(t_iter), self.h_static_lrs,
-                    self.s_xyz_sched(t_iter), self.s_static_lrs, width=W,
-                    height=H)
-                aux = jst.step_aux(loss, fw["loss_dict"], pkg, fw["out"])
+            self._backward_update(mode, loss, fw, *lrs, W, H)
+        profiling.count("graph_replays", int(replayed))
+        aux = graph.aux if replayed else self._aux(mode, loss, fw)
+        with profiling.span("step.optim", device=True):
+            if mode != "scene":
                 self._maybe_densify_human(t_iter, aux)
+            if mode != "human":
                 self._maybe_densify_scene(t_iter)
-        return aux, vals
+        return dict(aux), vals
+
+    def _xyz_lrs(self, mode: str, t_iter: int) -> tuple:
+        """The position learning rates of t_iter, the human's and the
+        scene's (None for a model the mode does not train)."""
+        return (None if mode == "scene" else self.h_xyz_sched(t_iter),
+                None if mode == "human" else self.s_xyz_sched(t_iter))
+
+    def _grads(self, mode: str, loss, fw: dict):
+        """The step's gradients: the scene's or the human's (grads,
+        hook_grad), or the joint (h_grads, s_grads, hook_grad)."""
+        hook = fw["hook"]
+        if mode == "scene":
+            return sst.scene_grads(loss, self.scene.gs, hook)
+        if mode == "human":
+            return hst.human_grads(loss, self.human.params, hook)
+        jstate = jst.JointTrainState(human=self.human, scene=self.scene)
+        return jst.joint_grads(loss, jstate, hook,
+                               self.cfg.train.optim_scene)
+
+    def _backward_update(self, mode: str, loss, fw: dict, h_lr, s_lr,
+                         W: int, H: int) -> None:
+        """Gradients, then Adam and the densification statistics, at the
+        position learning rates h_lr and s_lr (floats or 0-d tensors)."""
+        pkg = fw["pkg"]
+        with profiling.span("step.backward", device=True):
+            grads = self._grads(mode, loss, fw)
+        with profiling.span("step.optim", device=True):
+            if mode == "scene":
+                sst.scene_update(self.scene, *grads, pkg, s_lr,
+                                 self.s_static_lrs, width=W, height=H)
+            elif mode == "human":
+                hst.human_update(self.human, *grads, pkg, h_lr,
+                                 self.h_static_lrs, width=W, height=H)
+            else:
+                jst.joint_update(
+                    jst.JointTrainState(human=self.human, scene=self.scene),
+                    *grads, pkg, h_lr, self.h_static_lrs, s_lr,
+                    self.s_static_lrs, width=W, height=H)
+
+    @staticmethod
+    def _aux(mode: str, loss, fw: dict) -> dict:
+        """The step's diagnostics (joint_step.step_aux; the scene's the
+        loss and the binning's counts)."""
+        pkg = fw["pkg"]
+        if mode == "scene":
+            return {"loss": loss.detach(), "overflowed": pkg["overflowed"],
+                    "n_instances": pkg["n_instances"],
+                    "n_slots": pkg["n_slots"]}
+        return jst.step_aux(loss, fw["loss_dict"], pkg, fw["out"])
+
+    def _step_graph(self, mode: str, data: dict, human_bg, draws):
+        """On the card, the captured step of this key (train/graph_step.py;
+        captured at its first forward), made anew when the key changed;
+        None elsewhere. One key's graphs are kept at a time."""
+        if not gst.capturable(self.device):
+            return None
+        key = gst.graph_key(self, mode, data)
+        if self._graph is None or self._graph.key != key:
+            self._graph = None
+            self._graph = gst.StepGraph(self, key, mode, data, human_bg,
+                                        draws)
+        return self._graph
+
+    def _sh_degrees(self) -> tuple:
+        """The active SH degrees, as the trainer last raised or loaded
+        them (read from the card once after each change)."""
+        if self._sh_key is None:
+            self._sh_key = tuple(
+                int(st.active_sh_degree) for st in (
+                    self.human.state if self.human is not None else None,
+                    self.scene.gs if self.scene is not None else None)
+                if st is not None)
+        return self._sh_key
 
     # ---------------------------------------------------- batched training
 
@@ -767,6 +863,7 @@ class GaussianTrainer:
                 if self._gscene is not None:
                     sgs.one_up_sh_degree(self._gscene.gs,
                                          cfg.scene.sh_degree)
+                self._sh_key = None
             if not cfg.logdir:
                 return
             if self._writes_due(t_iter):
@@ -847,7 +944,15 @@ class GaussianTrainer:
             transl=self._tensor(data.get("transl"), z3))
 
     def _scale(self, data) -> torch.Tensor:
-        return self._tensor(data.get("smpl_scale"), 1.0).reshape(())
+        """The frame's SMPL scale, a 0-d float32 tensor on the device; a
+        host number is filled there (no copy from host memory, which
+        would wait for the card)."""
+        x = data.get("smpl_scale")
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device, torch.float32).reshape(())
+        return torch.full((), float(np.asarray(1.0 if x is None else x,
+                                               np.float32)),
+                          dtype=torch.float32, device=self.device)
 
     def ext_tfs_of(self, data):
         """The anim split's alignment of a frame, (manual_trans,
@@ -1031,6 +1136,7 @@ class GaussianTrainer:
 
     def load_latest_ckpt(self) -> bool:
         """Restores the latest checkpoints into the states in place."""
+        self._sh_key = None
         return ckpt_io.load_latest(self.cfg.logdir_ckpt, human=self.human,
                                    scene=self.scene) is not None
 

@@ -37,6 +37,19 @@ activity with: a device operation of `prof.events()` starts at
 time_range.start` (`device_intervals`), comparable with a span's
 `start_ns` and `end_ns` (tests/test_torch_profiling.py's card test holds
 it).
+
+Spans in a CUDA graph. While `capturing(template, part)` is open, a
+span records no event: a device span launches a stamp at each edge
+(csrc/stamp.cu, the card's nanosecond clock written into a ring row on
+the device), and its name, its parent and the numbers of its two marks
+go into `template`, whatever the recorder's state, so that every replay
+can record them later. The captured graph begins with `next_row`, which
+moves the device's ring row on by one. The host keeps the same count:
+`begin_replay()` before each replay of the graph that begins a row gives
+the replay's sequence number, and `replay(template, part, seq)` around a
+replay records `part`'s spans while the recorder is on, with the
+replay's host interval for each span and their device times from the
+ring at the drain (None where later replays have overwritten the row).
 """
 from __future__ import annotations
 
@@ -76,20 +89,59 @@ class Records(NamedTuple):
 class _Recorder:
     def __init__(self):
         self.on = None    # None: while a torch.profiler session runs
-        # [name, parent, step, start_ns, end_ns, start event, end event]
+        # [name, parent, step, start_ns, end_ns, start, end]: start and end
+        # two CUDA events, two _Marks in the ring, or None
         self.spans = []
         self.open = []    # indices of the open spans, innermost last
         self.counts = []  # (step, name, int or 0-d tensor)
+        self.capture = None   # (Template, part) while a graph is captured
 
 
 _REC = _Recorder()
 _OFF = contextlib.nullcontext()
+
+# the ring of device stamps written by captured graphs: a row a replay
+RING_ROWS = 1024      # replays a drain can reach back over
+RING_MARKS = 32       # stamps a captured step can hold
+
+
+class _Mark(NamedTuple):
+    seq: int          # the replay's sequence number (its row, mod RING_ROWS)
+    mark: int         # the stamp's column
+
+
+class _Ring:
+    def __init__(self, device):
+        self.stamps = torch.zeros((RING_ROWS, RING_MARKS), dtype=torch.int64,
+                                  device=device)
+        self.row = torch.zeros((), dtype=torch.int64, device=device)
+        self.begun = 0    # the host's count of the device's row
+
+
+_RING: _Ring | None = None
+
+
+def recording() -> bool:
+    """Whether `span` and `count` record now."""
+    on = _REC.on
+    return bool(on or (on is None and _PROFILER._is_profiler_enabled))
 
 
 def enable(on: bool | None) -> None:
     """True: record; False: do not, under a profiler either; None (the
     default): record while a torch.profiler session runs."""
     _REC.on = on
+
+
+@contextlib.contextmanager
+def paused():
+    """Nothing recorded inside (work that is no part of a step)."""
+    on = _REC.on
+    _REC.on = False
+    try:
+        yield
+    finally:
+        _REC.on = on
 
 
 class _Span:
@@ -136,11 +188,156 @@ def span(name: str, *, step: int | None = None, device: bool = False,
     """`with span(name):` records a span while the recorder is on (see
     the module's docstring); `step` on a root span, `device` for a
     device interval, `counters` (a function returning {name: count}) on
-    a root span for its step's deltas."""
-    on = _REC.on
-    if not (on or (on is None and _PROFILER._is_profiler_enabled)):
+    a root span for its step's deltas. Inside `capturing` it goes into
+    the template instead."""
+    if _REC.capture is not None:
+        return _CapturedSpan(name, device)
+    if not recording():
         return _OFF
     return _Span(name, step, device, counters)
+
+
+class Template:
+    """The spans of a captured step, in the order they opened: [name,
+    parent (its index here, None for the span open at the replay), the
+    graph `part` it is in, start mark, end mark (None for a host span)];
+    `marks` counts the stamps, numbered across the step's graphs."""
+
+    def __init__(self):
+        self.spans = []
+        self.open = []
+        self.marks = 0
+
+
+class _CapturedSpan:
+    __slots__ = ("name", "device", "i")
+
+    def __init__(self, name, device):
+        self.name, self.device = name, device
+
+    def __enter__(self):
+        t, part = _REC.capture
+        self.i = len(t.spans)
+        t.spans.append([self.name, t.open[-1] if t.open else None, part,
+                        _stamp(t) if self.device else None, None])
+        t.open.append(self.i)
+        return self
+
+    def __exit__(self, *exc):
+        t, _ = _REC.capture
+        if self.device:
+            t.spans[self.i][4] = _stamp(t)
+        t.open.pop()
+        return False
+
+
+def _stamp(t: Template) -> int:
+    """The template's next mark; on the card, a stamp of it on the
+    current stream."""
+    mark = t.marks
+    if mark >= RING_MARKS:
+        raise RuntimeError(f"a captured step holds at most {RING_MARKS} "
+                           f"stamps")
+    t.marks += 1
+    if _RING is not None:
+        _launch_stamp(_RING.stamps, _RING.row, mark)
+    return mark
+
+
+def _launch_stamp(stamps, row, mark: int) -> None:
+    import ctypes
+
+    from hugs_tpu_torch import build
+    lib = build.load("stamp")
+    if lib.hugs_stamp.argtypes is None:
+        lib.hugs_stamp.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
+        lib.hugs_stamp.restype = ctypes.c_int
+    err = lib.hugs_stamp(stamps.data_ptr(), row.data_ptr(), mark,
+                         stamps.shape[1], stamps.shape[0],
+                         torch.cuda.current_stream(stamps.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"stamp launch failed: cudaError {err}")
+
+
+def prepare_capture(device) -> None:
+    """Before a capture on the card: the ring made, outside any graph's
+    memory pool, and the stamp kernel built and loaded by one launch into
+    a scratch row."""
+    global _RING
+    device = torch.device(device)
+    if device.type != "cuda":
+        return
+    if _RING is None:
+        _RING = _Ring(device)
+    scratch = torch.zeros((1, RING_MARKS), dtype=torch.int64, device=device)
+    _launch_stamp(scratch, _RING.row, 0)
+
+
+@contextlib.contextmanager
+def capturing(template: Template, part: str):
+    """Spans opened inside go into `template` as `part`'s (see the
+    module's docstring)."""
+    if _REC.capture is not None:
+        raise RuntimeError("capturing() inside capturing()")
+    _REC.capture = (template, part)
+    try:
+        yield template
+    finally:
+        _REC.capture = None
+
+
+def next_row() -> None:
+    """Inside the capture of a step's first graph: the device's ring row
+    moved on by one at each replay."""
+    if _RING is not None:
+        _RING.row.add_(1)
+
+
+def begin_replay() -> int:
+    """Before each replay of a graph that begins with next_row: the
+    replay's sequence number (the host's count of the device's row)."""
+    if _RING is None:
+        return 0
+    _RING.begun += 1
+    return _RING.begun
+
+
+class _Replay:
+    __slots__ = ("template", "part", "seq", "t0")
+
+    def __init__(self, template, part, seq):
+        self.template, self.part, self.seq = template, part, seq
+
+    def __enter__(self):
+        self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        rec = _REC
+        t1 = time.time_ns()
+        top = rec.open[-1] if rec.open else None
+        step = rec.spans[top][2] if top is not None else None
+        where = {}
+        for i, (name, parent, part, m0, m1) in enumerate(self.template.spans):
+            if part != self.part:
+                continue
+            where[i] = len(rec.spans)
+            dev = (None, None) if m0 is None else (
+                _Mark(self.seq, m0), _Mark(self.seq, m1))
+            rec.spans.append([name, top if parent is None else where[parent],
+                              step, self.t0, t1, *dev])
+        return False
+
+
+def replay(template: Template, part: str, seq: int):
+    """`with replay(template, part, seq): graph.replay()` records the
+    spans `template` holds for `part` while the recorder is on: each
+    with the replay's host interval, under the span open around it, and
+    its device time from ring row `seq` at the drain."""
+    if not recording():
+        return _OFF
+    return _Replay(template, part, seq)
 
 
 def count(name: str, n=1) -> None:
@@ -148,9 +345,7 @@ def count(name: str, n=1) -> None:
     the step) to the open step's counter `name` while the recorder is on;
     outside a step nothing is counted."""
     rec = _REC
-    on = rec.on
-    if not (on or (on is None and _PROFILER._is_profiler_enabled)) \
-            or not rec.open:
+    if not recording() or not rec.open:
         return
     step = rec.spans[rec.open[-1]][2]
     if step is not None:
@@ -165,7 +360,21 @@ def drain() -> Records:
         raise RuntimeError("drain() inside an open span")
     if (rec.spans or rec.counts) and torch.cuda.is_initialized():
         torch.cuda.synchronize()
-    spans = [Span(n, p, s, t0, t1, None if e0 is None else e0.elapsed_time(e1))
+    stamps = None
+    if _RING is not None and any(isinstance(r[5], _Mark) for r in rec.spans):
+        stamps = _RING.stamps.cpu()
+
+    def device_ms(e0, e1):
+        if e0 is None:
+            return None
+        if not isinstance(e0, _Mark):
+            return e0.elapsed_time(e1)
+        if _RING.begun - e0.seq >= RING_ROWS:    # the row was written over
+            return None
+        row = stamps[e0.seq % RING_ROWS]
+        return int(row[e1.mark] - row[e0.mark]) * 1e-6
+
+    spans = [Span(n, p, s, t0, t1, device_ms(e0, e1))
              for n, p, s, t0, t1, e0, e1 in rec.spans]
     steps: dict[int, dict[str, int]] = {}
     for step, name, n in rec.counts:

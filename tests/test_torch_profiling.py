@@ -15,6 +15,10 @@ synthetic_smpl(8):
   step has no read-back span and its slot counts all the same; on the
   CPU every device interval is None;
 - `drain` empties the recorder; a count outside a step is dropped;
+- a captured step's spans (a template of marks, its stamps emulated on
+  the CPU) recorded at each replay: names, parents, steps, the replay's
+  host interval, device times from the ring row of each replay, None
+  for a row written over, nothing while the recorder is off;
 - `idle_by_span` on synthetic gaps and spans;
 - a torch.profiler session turns the recorder on by default;
 - on the card, the spans' clock is the profiler's.
@@ -200,6 +204,62 @@ def test_drain_empties_and_counts_need_a_step():
     with profiling.span("train.step", step=8):
         profiling.count("knn_chunks", 1)
     assert profiling.drain() == ([], {})
+
+
+def test_captured_spans_replay(monkeypatch):
+    """The template of a two-part captured step, replayed six times on
+    a ring of four rows (stamps written by hand where the card's graph
+    writes them): steps 0 and 1 read None, the later ones their rows."""
+    monkeypatch.setattr(profiling, "RING_ROWS", 4)
+    ring = profiling._Ring("cpu")
+    monkeypatch.setattr(profiling, "_RING", ring)
+    stamped = []
+    monkeypatch.setattr(profiling, "_launch_stamp",
+                        lambda stamps, row, mark: stamped.append(mark))
+    t = profiling.Template()
+    profiling.enable(False)       # a capture records whatever the state
+    with profiling.capturing(t, "forward"):
+        with profiling.span("step.render", device=True):
+            with profiling.span("render.bin", device=True):
+                pass
+        with profiling.span("host.only"):
+            pass
+    with profiling.capturing(t, "update"):
+        with profiling.span("step.backward", device=True):
+            pass
+    assert stamped == list(range(6)) and t.marks == 6
+    assert profiling.drain() == ([], {})
+    seq = profiling.begin_replay()                 # recorder off
+    with profiling.replay(t, "forward", seq):
+        pass
+    assert profiling.drain() == ([], {}) and seq == 1
+    profiling.enable(True)
+    for step in range(6):
+        with profiling.span("train.step", step=step):
+            seq = profiling.begin_replay()
+            # mark m at (step + 1) * m ms
+            ring.stamps[seq % 4] = torch.arange(
+                profiling.RING_MARKS) * (step + 1) * 1_000_000
+            with profiling.replay(t, "forward", seq):
+                pass
+            with profiling.replay(t, "update", seq):
+                pass
+    rec = profiling.drain()
+    for step in range(6):
+        spans = {s.name: s for s in rec.spans if s.step == step}
+        assert list(spans) == ["train.step", "step.render", "render.bin",
+                               "host.only", "step.backward"]
+        root = rec.spans.index(spans["train.step"])
+        assert spans["step.render"].parent == root
+        assert rec.spans[spans["render.bin"].parent].name == "step.render"
+        assert spans["host.only"].parent == root
+        assert spans["host.only"].device_ms is None
+        assert spans["render.bin"].start_ns == spans["step.render"].start_ns
+        written_over = step < 2        # replays 2, 3 of 7 on 4 rows
+        for name, marks in (("step.render", 3), ("render.bin", 1),
+                            ("step.backward", 1)):
+            want = None if written_over else float(marks * (step + 1))
+            assert spans[name].device_ms == want, (step, name)
 
 
 def _span(name, parent, t0, t1, step=0):
